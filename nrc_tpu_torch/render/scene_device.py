@@ -1,0 +1,195 @@
+"""Device-resident scene: host Scene -> tensors on one device.
+
+Port of ``nrc_tpu/render/scene_device.py:41-310`` for the serving path.
+``upload_scene`` reads the ``Scene`` by field name, so it takes the JAX
+package's ``Scene`` unchanged as well as the port's. It refuses scenes that
+need what is not ported yet: a BVH (above ``BVH_THRESHOLD`` triangles),
+curves, textures, cutouts, volumes, layered/measured/noise materials,
+archetypes other than diffuse, GGX-reflect and emission-only, and lights
+other than mesh lights.
+
+The bounce body fetches per-hit data with plain index gathers
+(``tri_shade[prim]``, ``mat_row[material]``); the TPU package's one-hot
+matmul row fetch and its packed-transfer helpers have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops.bsdf import SUPPORTED_ARCHETYPES
+from ..ops.intersect import TriSoA, check_brute_force
+from ..ops.intersect_cuda import build_plane_table
+from ..ops.light_sampling import DeviceLights, upload_lights
+from ..scene.materials import EmissionMode
+
+
+def mat_row_layout(curve_k: int):
+    """Column layout of the merged per-material shade row (``mat_row``),
+    the JAX package's (``scene_device.py:41-76``). Integer fields are
+    stored as f32 (all values << 2^24, exact round trip)."""
+    layout = [
+        ("albedo", 3), ("roughness", 2), ("ior", 1),
+        ("emission_radiance", 3),
+        ("archetype", 1), ("thin_walled", 1),
+        ("uv_xf", 6),
+        ("albedo_tex", 1), ("cutout_tex", 1), ("emission_tex", 1),
+        ("cutout_opacity", 1),
+        ("sigma_a", 3), ("sigma_s", 3), ("volume_bias", 1),
+        ("mbsdf_index", 1), ("mbsdf_multiplier", 1),
+        ("archetype2", 1), ("albedo2", 3), ("roughness2", 2),
+        ("blend_mode", 1), ("blend_w1", 3), ("blend_w2", 3),
+        ("blend_ior", 1),
+        ("mod_mode", 1), ("mod_a", 3), ("mod_b", 3), ("mod_exp", 1),
+        ("curve", 3 * curve_k),
+        ("hair_roughness", 6), ("hair_absorption", 3),
+        ("hair_cuticle", 1), ("hair_diffuse_weight", 1),
+        ("noise_mode", 1), ("noise_color1", 3), ("noise_color2", 3),
+        ("noise_scale", 3), ("noise_levels", 1), ("noise_absolute", 1),
+        ("noise_thr", 2), ("noise_marble", 1), ("noise_target", 1),
+        ("noise_bump_factor", 1),
+    ]
+    offs = {}
+    o = 0
+    for nm, w in layout:
+        offs[nm] = (o, o + w)
+        o += w
+    return offs, o
+
+
+class DeviceScene(NamedTuple):
+    tris: TriSoA
+    planes: torch.Tensor     # [T, 24] packed plane table (ops/intersect_cuda.py)
+    tri_shade: torch.Tensor  # [T, 24] f32 = p0|e1|e2 | n0|n1|n2 | uv0|uv1|uv2
+    tri_meta: torch.Tensor   # [T, 2] i64 = material | light (-1 = not emissive)
+    mat_row: torch.Tensor    # [M, mat_row_layout(K)[1]] f32
+    mat_curve_k: int         # K, the curve resolution in mat_row
+    lights: DeviceLights
+
+    @property
+    def num_triangles(self) -> int:
+        return self.tris.num
+
+
+def _material_arrays(scene) -> dict:
+    """Material-derived arrays (host numpy): the merged material row, each
+    material's emitted radiance, and each light's (``scene_device.py:155-273``)."""
+    mt = scene.materials
+
+    # Emitted radiance of each material's diffuse EDF: intensity * edf(1/pi)
+    # * factor, where factor = 1 for radiant-exitance mode and 1/area for
+    # power mode (hit.cu:792-806). Power mode needs the owning light's area.
+    m = mt.archetype.shape[0]
+    emission_radiance = np.zeros((m, 3), np.float32)
+    light_area_by_mat = {}
+    for li in range(scene.lights.num_lights):
+        mid = int(scene.lights.material_id[li])
+        if mid >= 0:
+            light_area_by_mat[mid] = float(scene.lights.area[li])
+    for i in range(m):
+        if mt.emission_mode[i] == int(EmissionMode.RADIANT_EXITANCE):
+            emission_radiance[i] = mt.emission_intensity[i] / math.pi
+        elif mt.emission_mode[i] == int(EmissionMode.POWER):
+            area = light_area_by_mat.get(i, 1.0)
+            emission_radiance[i] = mt.emission_intensity[i] / (math.pi * max(area, 1e-9))
+
+    # per-light emitted radiance for NEE sampling of mesh lights
+    lr = np.zeros((max(scene.lights.num_lights, 1), 3), np.float32)
+    for li in range(scene.lights.num_lights):
+        mid = int(scene.lights.material_id[li])
+        if mid >= 0:
+            lr[li] = emission_radiance[mid]
+
+    k_curve = mt.curve.shape[1]
+    _, row_w = mat_row_layout(k_curve)
+
+    def f32(x):
+        return np.asarray(x, np.float32).reshape(m, -1)
+
+    mat_row = np.concatenate(
+        [
+            f32(mt.albedo), f32(mt.roughness), f32(mt.ior),
+            f32(emission_radiance),
+            f32(mt.archetype), f32(mt.thin_walled),
+            f32(mt.uv_xf),
+            f32(mt.albedo_tex), f32(mt.cutout_tex), f32(mt.emission_tex),
+            f32(mt.cutout_opacity),
+            f32(mt.sigma_a), f32(mt.sigma_s), f32(mt.volume_bias),
+            f32(mt.mbsdf_index), f32(mt.mbsdf_multiplier),
+            f32(mt.archetype2), f32(mt.albedo2), f32(mt.roughness2),
+            f32(mt.blend_mode), f32(mt.blend_w1), f32(mt.blend_w2),
+            f32(mt.blend_ior),
+            f32(mt.mod_mode), f32(mt.mod_a), f32(mt.mod_b), f32(mt.mod_exp),
+            f32(mt.curve),
+            f32(mt.hair_roughness), f32(mt.hair_absorption),
+            f32(mt.hair_cuticle_angle), f32(mt.hair_diffuse_weight),
+            f32(mt.noise_mode), f32(mt.noise_color1), f32(mt.noise_color2),
+            f32(mt.noise_scale), f32(mt.noise_levels),
+            f32(mt.noise_absolute), f32(mt.noise_thr), f32(mt.noise_marble),
+            f32(mt.noise_target), f32(mt.noise_bump_factor),
+        ],
+        axis=-1,
+    )
+    if mat_row.shape[1] != row_w:
+        raise ValueError(f"material row width {mat_row.shape[1]} != layout {row_w}")
+    return dict(mat_row=mat_row, emission_radiance=emission_radiance,
+                light_radiance=lr, curve_k=k_curve)
+
+
+def check_supported(scene) -> None:
+    """Raise ``NotImplementedError`` naming the first unported feature."""
+    mt = scene.materials
+    check_brute_force(scene.num_triangles)
+    unported = {
+        "curves": getattr(scene, "curves", None) is not None,
+        "archetypes other than diffuse / GGX-reflect / emission-only": bool(
+            set(np.unique(mt.archetype).tolist()) - SUPPORTED_ARCHETYPES
+        ),
+        "layered materials": bool(np.any(mt.blend_mode != 0) or np.any(mt.mod_mode != 0)),
+        "textures": bool(
+            max(np.max(mt.albedo_tex), np.max(mt.cutout_tex), np.max(mt.emission_tex)) >= 0
+        ),
+        "cutout opacity": bool(np.min(mt.cutout_opacity) < 1.0),
+        "volumes": bool(np.max(mt.sigma_a) + np.max(mt.sigma_s) > 0.0),
+        "measured BSDFs": bool(np.max(mt.mbsdf_index) >= 0),
+        "procedural noise": bool(
+            np.max(mt.noise_mode) > 0 or np.max(np.abs(mt.noise_bump_factor)) > 0
+        ),
+    }
+    for feature, present in unported.items():
+        if present:
+            raise NotImplementedError(f"scene uses {feature}, which is not ported yet")
+
+
+def upload_scene(scene, device: torch.device) -> DeviceScene:
+    """Host ``Scene`` (the port's or the JAX package's) -> ``DeviceScene`` on
+    ``device``."""
+    check_supported(scene)
+    device = torch.device(device)
+
+    def dev(x, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
+
+    p0 = np.asarray(scene.p0, np.float32)
+    e1 = np.asarray(scene.p1, np.float32) - p0
+    e2 = np.asarray(scene.p2, np.float32) - p0
+    tris = TriSoA(dev(p0), dev(e1), dev(e2))
+    tri_shade = np.concatenate(
+        [p0, e1, e2, scene.n0, scene.n1, scene.n2, scene.uv0, scene.uv1, scene.uv2],
+        axis=-1,
+    ).astype(np.float32)
+    tri_meta = np.stack([scene.material_id, scene.light_id], axis=-1)
+    mats = _material_arrays(scene)
+    return DeviceScene(
+        tris=tris,
+        planes=build_plane_table(tris),
+        tri_shade=dev(tri_shade),
+        tri_meta=dev(tri_meta, torch.int64),
+        mat_row=dev(mats["mat_row"]),
+        mat_curve_k=mats["curve_k"],
+        lights=upload_lights(scene.lights, mats["light_radiance"], device),
+    )

@@ -26,3 +26,9 @@ def pytest_sessionstart(session):
     devs = jax.devices()
     assert devs[0].platform == "cpu", f"tests must run on CPU, got {devs}"
     assert len(devs) == 8, f"expected 8 virtual CPU devices, got {len(devs)}"
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc; skips without one"
+    )
