@@ -6,20 +6,33 @@ CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or on ``PATH``) and no network.
 
 Phases, each of which raises on failure (non-zero exit):
 1. device: the card's name and power limit as ``nvidia-smi`` reports them;
-2. build: compile every kernel of the serving path from ``csrc/``;
+2. build: compile every kernel (K1-K6) from ``csrc/``, one ``nvcc`` per
+   source file, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the 320x320 Cornell frame gives it, with times (CUDA events);
-4. slice: ``Renderer`` on the 1224-triangle Cornell box at 320x320, FULL
-   then NO_CACHE, ``train=False``, frequency encoding 64x5 from a seeded
-   init, 8 timed frames each; every kernel must have been launched by the
-   FULL run;
-5. reference: a 32x32 frame on the card against the same frame on the CPU,
-   where the port runs the plain versions the CPU tests check against JAX.
+   the shapes the 320x320 Cornell frame gives it (B = 16384 training rows,
+   [4, 16384] for K6), with times (CUDA events);
+4. train_step: four ``train_step``s on the card, K3 forward + K4 backward
+   through autograd;
+5. serving slice: ``Renderer`` on the 1224-triangle Cornell box at 320x320,
+   FULL then NO_CACHE, ``train=False``, frequency encoding 64x5 from a seeded
+   init, 8 timed frames each;
+6. training slice: FULL + train at 320x320 (the main path): frames until the
+   adaptive tile size settles, then 8 timed frames;
+7. convergence: the JAX package's online-training oracle
+   (``tests/test_frame.py:92-139``) on the port's Cornell box at 64x64 with
+   8x8 tiles: the loss falls over 40 frames, and after a restart 48 FULL +
+   train frames come within 18 dB (tonemapped PSNR) of 48-spp NO_CACHE;
+8. reference: 32x32 frames (8x8 tiles) on the card against the same frames
+   on the CPU, where the port runs the plain versions the CPU tests check
+   against JAX; after the training frame, the weights, moments and EMA too.
 
+Every path that runs a kernel is driven with the launch counts set to 0 just
+before it and read just after; each kernel must have been launched there.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
+import concurrent.futures
 import json
 import subprocess
 import sys
@@ -53,6 +66,19 @@ def _image_agreement(out, ref):
     return (rel.amax(dim=-1) < 1e-3).float().mean().item(), abs(out.mean().item() / ref.mean().item() - 1.0)
 
 
+def _rel(got, ref) -> float:
+    """Largest difference relative to the reference's largest entry."""
+    return ((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+
+
+def _counted(kernels, names, fn):
+    """Run fn with the named kernels' counts set to 0; return (result, counts)."""
+    for name in names:
+        kernels[name][0].launches = 0
+    out = fn()
+    return out, {name: kernels[name][0].launches for name in names}
+
+
 def main() -> int:
     import torch
 
@@ -60,7 +86,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     # the port must be importable from here (run from the checkout's root)
-    from nrc_tpu_torch.config import RenderMode
+    from nrc_tpu_torch.config import NetworkConfig, RenderMode
+    from nrc_tpu_torch.models import network as N
     from nrc_tpu_torch.ops import intersect_cuda as IC
     from nrc_tpu_torch.ops import mlp_cuda as MC
     from nrc_tpu_torch.ops.intersect import RT_MAX
@@ -69,11 +96,13 @@ def main() -> int:
     from nrc_tpu_torch.scene.camera import generate_primary_rays
     from nrc_tpu_torch.scene.scene_builder import cornell_box
     from nrc_tpu_torch.utils import rng as R
+    from nrc_tpu_torch.utils.tonemap import tonemap
 
     # plain references in full float32 (PyTorch's defaults, stated here)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    net_cfg = NetworkConfig()
 
     # ---- 1. device ---------------------------------------------------------
     smi = subprocess.run(
@@ -83,21 +112,36 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi)
 
-    # ---- 2. build ------------------------------------------------------------
+    # ---- 2. build: one nvcc per source, all together -------------------------
     kernels = {
         "intersect_planes": (IC.CLOSEST_KERNEL, "nrc_tpu/ops/intersect_pallas.py:185"),
         "occluded_planes": (IC.ANYHIT_KERNEL, "nrc_tpu/ops/intersect_pallas.py:240"),
         "fused_forward": (MC.FORWARD_KERNEL, "nrc_tpu/ops/mlp_pallas.py:81"),
+        "fused_backward": (MC.BACKWARD_KERNEL, "nrc_tpu/ops/mlp_pallas.py:155"),
+        "fused_train_grad": (MC.TRAIN_GRAD_KERNEL, "nrc_tpu/ops/mlp_pallas.py:311"),
+        "fused_train4": (MC.TRAIN4_KERNEL, "nrc_tpu/ops/mlp_pallas.py:626"),
     }
+    first_of_source = {}
     for name, (k, _) in kernels.items():
+        first_of_source.setdefault((k.source, k.extra_flags), name)
+
+    def build(name):
         t0 = time.perf_counter()
-        log = k.build()
+        log = kernels[name][0].build()
         info = [ln.strip() for ln in log.splitlines() if "ptxas info" in ln and ("Used" in ln or "spill" in ln)]
-        print(f"build {name}: {k.source} in {time.perf_counter() - t0:.1f} s; " + " | ".join(info))
+        return f"build {kernels[name][0].source} in {time.perf_counter() - t0:.1f} s; " + " | ".join(info)
+
+    t_build = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(first_of_source)) as pool:
+        for line in pool.map(build, first_of_source.values()):
+            print(line)
+    for k, _ in kernels.values():
+        k.build()  # the other entry points of the built libraries
+    print(f"build: all kernels in {time.perf_counter() - t_build:.1f} s")
 
     # ---- 3. kernels against their plain versions, at main-path shapes --------
     scene, system = cornell_box((320, 320))
-    r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
+    r = Renderer(scene, system, render_mode=RenderMode.FULL, train=False, device=dev)
     ds = r.device_scene
     n = r.cfg.num_pixels
     pix, pidx = pixel_grid(r.cfg, dev)
@@ -175,37 +219,182 @@ def main() -> int:
         plain_ms=_time_ms(lambda: MC.fused_forward_plain(*w, x, True)),
     )
 
-    # ---- 4. the slice ----------------------------------------------------------
+    # K4-K6 at the training batch of a frame: 4 x 16384 encoded queries.
+    # Gradients are compared relative to their largest entry. In K4 an
+    # activation next to a bf16 rounding boundary rounds one bf16 ulp apart
+    # when the sums run in another order (reads 9.6e-4; limit 2e-3). K5 and
+    # K6 are held near what they read (K5 9.1e-7, K6's state 5.4e-7 at most
+    # and 3.4e-9 on the mean after four steps): a skipped EMA update of the
+    # last step reads 5.6e-4 / 2.5e-4 there, a skipped Adam step 3.0e-3 /
+    # 1.4e-3 on the weights.
+    b = 16384
+    q4 = torch.rand((4, b, 15), generator=gen, device=dev)
+    x4 = N.encode(q4.view(-1, 15), net_cfg).view(4, b, MC.LANE)
+    t4 = torch.rand((4, b, 3), generator=gen, device=dev) * 2.0
+    g_out = torch.randn((b, MC.OUT_PAD), generator=gen, device=dev)
+    wp = [t.detach() for t in r.net_state.params.tensors()]
+    got4 = MC.fused_backward_cuda(*wp, x4[0], g_out)
+    ref4 = MC.fused_backward_plain(*wp, x4[0], g_out)
+    got5 = MC.fused_train_grad_cuda(*wp, x4[1], t4[1])
+    ref5 = MC.fused_train_grad_plain(*wp, x4[1], t4[1])
+    torch.cuda.synchronize()
+    rel4 = max(_rel(a, p) for a, p in zip(got4, ref4))
+    rel5 = max(_rel(a, p) for a, p in zip(got5[1:], ref5[1:]))
+    loss_rel5 = abs(got5[0].item() / ref5[0].item() - 1.0)
+    print(f"K4 largest gradient error {rel4:.3g} of the largest entry (limit 2e-3); "
+          f"K5 {rel5:.3g} (limit 1e-5), loss {loss_rel5:.3g} relative (limit 1e-5)")
+    _check(rel4 <= 2e-3, "K4 disagrees with its plain version")
+    _check(rel5 <= 1e-5 and loss_rel5 <= 1e-5, "K5 disagrees with its plain version")
+    report["fused_backward"] = dict(
+        max_abs_err=max((a - p).abs().max().item() for a, p in zip(got4, ref4)),
+        ms=_time_ms(lambda: MC.fused_backward_cuda(*wp, x4[0], g_out)),
+        plain_ms=_time_ms(lambda: MC.fused_backward_plain(*wp, x4[0], g_out)),
+    )
+    report["fused_train_grad"] = dict(
+        max_abs_err=max((a - p).abs().max().item() for a, p in zip(got5, ref5)),
+        ms=_time_ms(lambda: MC.fused_train_grad_cuda(*wp, x4[1], t4[1])),
+        plain_ms=_time_ms(lambda: MC.fused_train_grad_plain(*wp, x4[1], t4[1])),
+    )
+    lr = torch.tensor(net_cfg.learning_rate, device=dev)
+    records = torch.tensor(b, device=dev)
+    hyper = N.adam_hyper(net_cfg)
+
+    def fresh_state():
+        st = N.init_network(torch.Generator().manual_seed(3), net_cfg, dev)
+        return (st.params.tensors(), st.opt.mu.tensors(), st.opt.nu.tensors(), st.ema.tensors(),
+                st.opt.step)
+
+    sk, sp = fresh_state(), fresh_state()
+    lk = MC.fused_train4_cuda(*sk, x4, t4, lr, records, hyper)
+    lp = MC.fused_train4_plain(*sp, x4, t4, lr, records, hyper)
+    torch.cuda.synchronize()
+    loss_rel6 = ((lk - lp).abs() / lp.abs()).max().item()
+    dmax = max((a - p).abs().max().item() for ga, gp in zip(sk[:4], sp[:4]) for a, p in zip(ga, gp))
+    dmean = max((a - p).abs().mean().item() for ga, gp in zip(sk[:4], sp[:4]) for a, p in zip(ga, gp))
+    print(f"K6 losses {lk.tolist()} vs plain {lp.tolist()} ({loss_rel6:.3g} relative, limit 1e-5); "
+          f"state after 4 steps: largest |diff| {dmax:.3g} (limit 1e-5), "
+          f"largest mean |diff| {dmean:.3g} (limit 1e-7); step {int(sk[4])}")
+    _check(loss_rel6 <= 1e-5 and dmax <= 1e-5 and dmean <= 1e-7
+           and int(sk[4]) == int(sp[4]) == 4, "K6 disagrees with its plain version")
+    report["fused_train4"] = dict(
+        max_abs_err=dmax,
+        ms=_time_ms(lambda: MC.fused_train4_cuda(*sk, x4, t4, lr, records, hyper), iters=10),
+        plain_ms=_time_ms(lambda: MC.fused_train4_plain(*sp, x4, t4, lr, records, hyper), iters=5),
+    )
+
+    # ---- 4. train_step: K3 forward + K4 backward through autograd -------------
+    def train_steps():
+        st = N.init_network(torch.Generator().manual_seed(4), net_cfg, dev)
+        losses = []
+        for k in range(4):
+            st, loss = N.train_step(st, q4[k], t4[k], net_cfg, learning_rate=lr)
+            losses.append(loss)
+        return st, torch.stack(losses)
+
+    (st, step_losses), path_counts = _counted(kernels, kernels, train_steps)
+    torch.cuda.synchronize()
+    print(f"train_step x4 (B = {b}): losses {step_losses.tolist()}, launches {path_counts}")
+    _check(bool(torch.isfinite(step_losses).all()) and int(st.opt.step) == 4, "train_step failed")
+    _check(path_counts["fused_forward"] > 0 and path_counts["fused_backward"] == 4,
+           "train_step did not go through K3 and K4")
+    launches = {"fused_backward": path_counts["fused_backward"]}
+
+    # ---- 5. serving slice --------------------------------------------------------
     r.render_frame()
-    for k, _ in kernels.values():
-        k.launches = 0
-    full = r.benchmark(8)
-    launches = {name: k.launches for name, (k, _) in kernels.items()}
+    serving = ("intersect_planes", "occluded_planes", "fused_forward")
+    full, counts = _counted(kernels, kernels, lambda: r.benchmark(8))
     img = r.image
     _check(img.shape == (n, 3) and bool(torch.isfinite(img).all()), "FULL image not finite")
     _check(img.std().item() > 0.0, "FULL image is flat")
-    for name, count in launches.items():
-        _check(count > 0, f"{name} was not launched by the FULL run")
-    print(f"FULL 320x320: {full['ms_per_frame']:.3f} ms/frame, {full['mrays_per_s']:.2f} traced Mrays/s, "
-          f"{full['traced_rays_per_frame']:.0f} rays/frame, image mean {img.mean().item():.4f}, "
-          f"launches {launches}")
+    for name in serving:
+        _check(counts[name] > 0, f"{name} was not launched by the FULL run")
+    print(f"FULL 320x320 (train=False): {full['ms_per_frame']:.3f} ms/frame, {full['mrays_per_s']:.2f} "
+          f"traced Mrays/s, {full['traced_rays_per_frame']:.0f} rays/frame, image mean "
+          f"{img.mean().item():.4f}, launches {counts}")
     r.set_render_mode(RenderMode.NO_CACHE)
     nocache = r.benchmark(8)
     _check(bool(torch.isfinite(r.image).all()) and r.image.std().item() > 0.0, "NO_CACHE image bad")
     print(f"NO_CACHE 320x320: {nocache['ms_per_frame']:.3f} ms/frame, {nocache['mrays_per_s']:.2f} traced Mrays/s, "
           f"{nocache['traced_rays_per_frame']:.0f} rays/frame, image mean {r.image.mean().item():.4f}")
 
-    # ---- 5. reference: the card against the CPU path on a small frame ------------
+    # ---- 6. training slice: FULL + train, the main path ------------------------
+    rt = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
+    sizes = [rt.cfg.tile_size]
+    for _ in range(12):  # the tile size follows the record count two frames late
+        rt.render_frame()
+        sizes.append(rt.cfg.tile_size)
+        if len(sizes) > 4 and len(set(sizes[-4:])) == 1:
+            break
+    _check(len(set(sizes[-4:])) == 1, f"the tile size did not settle: {sizes}")
+    trained, counts = _counted(kernels, kernels, lambda: rt.benchmark(8))
+    rt.flush_stats()
+    for name in ("intersect_planes", "occluded_planes", "fused_forward", "fused_train_grad", "fused_train4"):
+        _check(counts[name] > 0, f"{name} was not launched by the FULL + train run")
+        launches[name] = counts[name]
+    # K5's gradient kernel runs inside K6, once per step, counted where K6 launches it
+    _check(counts["fused_train_grad"] == 4 * counts["fused_train4"], "K6 did not launch K5 four times")
+    _check(bool(torch.isfinite(rt.image).all()) and rt.image.std().item() > 0.0, "FULL + train image bad")
+    records = int(rt.last_stats.num_train_records)
+    print(f"FULL + train 320x320: tile sizes {sizes}, {trained['ms_per_frame']:.3f} ms/frame, "
+          f"{trained['mrays_per_s']:.2f} traced Mrays/s, {trained['traced_rays_per_frame']:.0f} rays/frame, "
+          f"{records} records in the last frame, loss {trained['loss']:.4f}, image mean "
+          f"{rt.image.mean().item():.4f}, launches {counts}")
+    print(f"FULL + train loss curve (per frame): {[round(v, 4) for v in rt.loss_history]}")
+
+    # ---- 7. convergence: the JAX package's Cornell oracle ----------------------
+    small, small_sys = cornell_box((64, 64))
+    small_sys.tile_size = (8, 8)
+    rc = Renderer(small, small_sys, render_mode=RenderMode.FULL, adaptive_tiles=False, device=dev)
+    rc.render(40)
+    rc.flush_stats()
+    losses = list(rc.loss_history)
+    early, late = sum(losses[:2]) / 2, sum(losses[-10:]) / 10
+    rc.restart_accumulation()
+    rc.render(48)
+    gt = Renderer(small, small_sys, render_mode=RenderMode.NO_CACHE, train=False, device=dev)
+    gt.render(48)
+    a = tonemap(torch.from_numpy(rc.image_hdr().copy()), small_sys.tonemapper)
+    g = tonemap(torch.from_numpy(gt.image_hdr().copy()), small_sys.tonemapper)
+    psnr = 10.0 * torch.log10(1.0 / ((a - g) ** 2).mean()).item()
+    print(f"convergence 64x64: loss {early:.4f} (first 2) -> {late:.4f} (last 10 of 40), limit "
+          f"{0.9 * early:.4f}; FULL + train vs 48-spp NO_CACHE: {psnr:.2f} dB tonemapped (limit 18)")
+    print(f"convergence loss curve: {[round(v, 4) for v in losses]}")
+    _check(late < 0.9 * early, "the loss did not fall")
+    _check(psnr > 18.0, "FULL + train is too far from the NO_CACHE oracle")
+
+    # ---- 8. reference: the card against the CPU path on a small frame ------------
+    # 8x8 tiles: 16 training rays, so the training frame has records to fit.
+    # After the frame's four steps the card's weights, moments and EMA are
+    # held near what they read (6e-8); a skipped EMA update of the last step
+    # reads 5.6e-4 / 3.4e-4 (largest / mean), a skipped Adam step 3.0e-3 /
+    # 1.8e-3 on the weights (plain version on the CPU, the same frame).
     small, small_sys = cornell_box((32, 32))
-    for mode in (RenderMode.FULL, RenderMode.NO_CACHE):
+    small_sys.tile_size = (8, 8)
+    for mode, train in ((RenderMode.FULL, False), (RenderMode.NO_CACHE, False), (RenderMode.FULL, True)):
         # the same seed gives the same weights: init draws on the CPU
-        rg = Renderer(small, small_sys, render_mode=mode, device=dev)
-        rc = Renderer(small, small_sys, render_mode=mode, device="cpu")
-        rg.render(1)
-        rc.render(1)
-        close, mean_gap = _image_agreement(rg.image.cpu(), rc.image)
-        print(f"32x32 {mode.name} card vs CPU: {close:.4f} of pixels within 1e-3, means {mean_gap:.2e} apart")
-        _check(close >= 0.98 and mean_gap < 1e-3, f"{mode.name}: the card disagrees with the CPU path")
+        rg = Renderer(small, small_sys, render_mode=mode, train=train, device=dev)
+        rcpu = Renderer(small, small_sys, render_mode=mode, train=train, device="cpu")
+        sg, sc = rg.render(1), rcpu.render(1)
+        close, mean_gap = _image_agreement(rg.image.cpu(), rcpu.image)
+        label = f"{mode.name}{' + train' if train else ''}"
+        print(f"32x32 {label} card vs CPU: {close:.4f} of pixels within 1e-3, means {mean_gap:.2e} apart")
+        _check(close >= 0.98 and mean_gap < 1e-3, f"{label}: the card disagrees with the CPU path")
+        if train:
+            n_rec = (int(sg.num_train_records), int(sc.num_train_records))
+            loss_gap = abs(float(sg.loss) / float(sc.loss) - 1.0)
+
+            def state(rr):
+                st = rr.net_state
+                return [t.detach().cpu() for m in (st.params, st.opt.mu, st.opt.nu, st.ema) for t in m.tensors()]
+
+            diffs = [(a - c).abs() for a, c in zip(state(rg), state(rcpu))]
+            dmax, dmean = max(d.max().item() for d in diffs), max(d.mean().item() for d in diffs)
+            print(f"32x32 FULL + train card vs CPU: records {n_rec[0]} vs {n_rec[1]} (must be equal), "
+                  f"loss {loss_gap:.2e} relative (limit 1e-5); weights, moments and EMA after the "
+                  f"frame: largest |diff| {dmax:.3g} (limit 1e-5), largest mean |diff| {dmean:.3g} "
+                  f"(limit 1e-7)")
+            _check(n_rec[0] == n_rec[1] > 0 and loss_gap <= 1e-5 and dmax <= 1e-5 and dmean <= 1e-7,
+                   "FULL + train: the card's training disagrees with the CPU path")
 
     print(smi)
     print(json.dumps({"kernels": [

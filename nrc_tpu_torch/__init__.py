@@ -8,10 +8,11 @@ built with ``nvcc`` for ``sm_90a`` at first use (``ops/cuda_build.py``).
 Device rule: a CUDA tensor launches the kernel or raises; a CPU tensor takes
 the kernel's plain PyTorch version (the tests' path). Nothing falls back.
 
-Ported so far: the serving path of one frame — render wavefront plus cache
-inference, ``train=False`` — for scenes below the BVH threshold with diffuse,
-GGX-reflect and emission-only materials and mesh lights. This package never
-imports ``jax`` or ``nrc_tpu``.
+Ported so far: one whole frame with the frequency encoding — the render and
+training wavefronts, cache inference, radiance propagation, batch assembly
+and the four Adam + EMA steps (kernels K1-K6) — for scenes below the BVH
+threshold with diffuse, GGX-reflect and emission-only materials and mesh
+lights. This package never imports ``jax`` or ``nrc_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -54,7 +54,9 @@ def build_library(source: str, extra_flags: Sequence[str] = ()) -> Tuple[ctypes.
         return _LIBRARIES[key]
     src = CSRC_DIR / source
     flags = list(NVCC_FLAGS) + list(extra_flags)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    # the shared headers count too: an edited header rebuilds its includers
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}-{digest}.so"
     log = ""
     if not out.exists():

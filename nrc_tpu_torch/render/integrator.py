@@ -1,30 +1,39 @@
-"""Wavefront path tracer: the render wavefront of one frame.
+"""Wavefront path tracer: the render and training wavefronts of one frame.
 
-Port of ``nrc_tpu/render/integrator.py:131-1190`` for the render wavefront
-(``train=False``; reference ``__raygen__nrc_path_tracer`` +
-``__closesthit__radiance``, ``raygeneration.cu:139-289``,
-``hit.cu:672-1064``). All rays advance together one bounce at a time; every
-branch is a masked select, as in the JAX package, so per-ray results agree
-with it. Per bounce: closest hit, emission with MIS, area-spread truncation
-into the cache (paper Eq. 2-4, ``hit.cu:527-585``), BSDF sampling, next-event
-estimation with MIS and a shadow ray, and the ``traced_count`` accounting.
-Path Russian roulette exists only on the training suffix in the reference,
-so the render wavefront has none.
+Port of ``nrc_tpu/render/integrator.py:131-1190`` (reference
+``__raygen__nrc_path_tracer`` + ``__closesthit__radiance``,
+``raygeneration.cu:139-289``, ``hit.cu:672-1064``). All rays advance together
+one bounce at a time; every branch is a masked select, as in the JAX package,
+so per-ray results agree with it. Per bounce: closest hit, emission with MIS,
+area-spread truncation into the cache (paper Eq. 2-4, ``hit.cu:527-585``),
+BSDF sampling, next-event estimation with MIS and a shadow ray, and the
+``traced_count`` accounting.
+
+The render wavefront (``train=False``) covers every pixel and stops a path
+where its area spread outgrows the camera's footprint. The training
+wavefront (``train=True``, one ray per screen tile) keeps going past that
+vertex into a suffix and writes a training record at every non-specular
+vertex into a per-ray slot array ``[N, D]`` (D =
+``cfg.max_train_records_per_ray``); radiance found later is added to the
+last record. A suffix ends on the cache (its end query, mask 1), or, for the
+``unbiased`` rays, only by a miss, an absorb, Russian roulette or the
+maximum depth (mask 0). Path Russian roulette exists only on that unbiased
+suffix in the reference.
 
 The JAX package splits large wavefronts into bands under ``lax.map``
 (``trace_wavefront_chunked``); the outputs are per ray, so one pass over all
 rays computes the same thing. The bounce loop stops when no ray is alive,
 like the JAX ``while_loop`` (one device-to-host read of a flag per bounce).
 
-Transport features that are not ported (training records, volumes,
-textures, cutouts, layered/measured/noise materials, curves, shadow-ray
-Russian roulette) raise when their ``FrameConfig`` switch is on.
+Transport features that are not ported (volumes, textures, cutouts,
+layered/measured/noise materials, curves, shadow-ray Russian roulette) raise
+when their ``FrameConfig`` switch is on.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,11 +43,13 @@ from ..ops.intersect import RT_MAX, make_intersectors
 from ..ops.light_sampling import env_radiance, sample_lights
 from ..utils import rng as R
 from ..utils.math import (
+    add1,
     balance_heuristic,
     cartesian_to_spherical_unit,
     cross,
     dot,
     normalize,
+    put1,
     safe_div,
 )
 from .scene_device import DeviceScene, mat_row_layout
@@ -46,7 +57,7 @@ from .scene_device import DeviceScene, mat_row_layout
 QUERY_DIMS = 15  # pos3 + dir2 + normal2 + rough2 + diffuse3 + specular3
 
 _UNPORTED_FLAGS = (
-    "train", "has_volumes", "has_textures", "has_cutout", "has_layered",
+    "has_volumes", "has_textures", "has_cutout", "has_layered",
     "has_measured", "has_noise", "has_noise_bump", "reflectance_factoring",
 )
 
@@ -54,8 +65,6 @@ _UNPORTED_FLAGS = (
 def check_frame_config(cfg: FrameConfig) -> None:
     for flag in _UNPORTED_FLAGS:
         if getattr(cfg, flag):
-            if flag == "train":
-                raise NotImplementedError("training lands with K4-K6")
             raise NotImplementedError(f"FrameConfig.{flag} is not ported yet")
     if cfg.nee_rr_tau > 0.0:
         raise NotImplementedError("shadow-ray Russian roulette (nee_rr_tau > 0) is not ported")
@@ -77,7 +86,8 @@ def make_query(pos, wo, normal, aux: B.BSDFAux, position_scale: float) -> torch.
 
 
 class WavefrontOut(NamedTuple):
-    """Per-ray outputs of the render wavefront (N = #rays)."""
+    """Per-ray outputs of a wavefront (N = #rays). The record fields are
+    None for the render wavefront."""
 
     radiance: torch.Tensor                # [N, 3] path-traced radiance
     bounce_count: torch.Tensor            # [N] i64 surface hits
@@ -86,6 +96,12 @@ class WavefrontOut(NamedTuple):
     render_query: torch.Tensor            # [N, 15] query at the truncation vertex
     last_render_throughput: torch.Tensor  # [N, 3] (0 -> query unused)
     cache_vis_query: torch.Tensor         # [N, 15] first non-specular vertex
+    rec_query: Optional[torch.Tensor] = None   # [N, D, 15] training records
+    rec_ltp: Optional[torch.Tensor] = None     # [N, D, 3] localThroughput
+    rec_target: Optional[torch.Tensor] = None  # [N, D, 3] radiance found after
+    rec_count: Optional[torch.Tensor] = None   # [N] i64 records written
+    end_query: Optional[torch.Tensor] = None   # [N, 15] suffix end vertex
+    end_mask: Optional[torch.Tensor] = None    # [N] 1 self-train end / 0 unbiased
 
 
 class _State(NamedTuple):
@@ -107,6 +123,16 @@ class _State(NamedTuple):
     last_render_throughput: torch.Tensor
     render_query: torch.Tensor
     cache_vis_query: torch.Tensor
+    # training wavefront only (None in the render wavefront)
+    suffix: Optional[torch.Tensor] = None     # in the training suffix
+    unbiased: Optional[torch.Tensor] = None   # suffix ends only unbiased
+    full: Optional[torch.Tensor] = None       # record slots exhausted
+    rec_count: Optional[torch.Tensor] = None
+    rec_query: Optional[torch.Tensor] = None
+    rec_ltp: Optional[torch.Tensor] = None
+    rec_target: Optional[torch.Tensor] = None
+    end_query: Optional[torch.Tensor] = None
+    end_mask: Optional[torch.Tensor] = None
 
 
 def trace_wavefront(
@@ -115,6 +141,8 @@ def trace_wavefront(
     direction: torch.Tensor,  # [N, 3]
     seeds: torch.Tensor,      # [N] i64 (after lens-jitter consumption)
     cfg: FrameConfig,
+    train: bool = False,
+    unbiased: Optional[torch.Tensor] = None,  # [N] bool, training wavefront
 ) -> WavefrontOut:
     check_frame_config(cfg)
     n = org.shape[0]
@@ -122,7 +150,8 @@ def trace_wavefront(
     closest_hit, any_hit = make_intersectors(scene.tris, scene.planes)
     lights = scene.lights
     num_lights = lights.num
-    truncate = cfg.render_mode != RenderMode.NO_CACHE
+    d_rec = cfg.max_train_records_per_ray
+    truncate = train or cfg.render_mode != RenderMode.NO_CACHE
     direct_lighting = cfg.direct_lighting and num_lights > 0
     eps = cfg.scene_epsilon
     sqrt_c = cfg.area_spread_sqrt  # sqrt(c), paper Eq. 4; default c = 0.01
@@ -159,8 +188,28 @@ def trace_wavefront(
         render_query=zeros(QUERY_DIMS),
         cache_vis_query=zeros(QUERY_DIMS),
     )
+    if train:
+        state = state._replace(
+            suffix=false,
+            unbiased=false if unbiased is None else unbiased,
+            full=false,
+            rec_count=zeros(dtype=torch.int64),
+            rec_query=zeros(d_rec, QUERY_DIMS),
+            rec_ltp=zeros(d_rec, 3),
+            rec_target=zeros(d_rec, 3),
+            end_query=zeros(QUERY_DIMS),
+            end_mask=zeros(),
+        )
 
-    def bounce(s: _State, first: bool) -> _State:
+    def add_to_last_record(s: _State, amount, mask) -> _State:
+        """targets[lastTrainRecordIndex] += amount (miss.cu:144-147, hit.cu:817)."""
+        if not train:
+            return s
+        slot = torch.clamp(s.rec_count - 1, min=0)
+        m = mask & (s.rec_count > 0) & ~s.full
+        return s._replace(rec_target=add1(s.rec_target, slot, amount, m))
+
+    def bounce(s: _State, first: bool, depth: int) -> _State:
         active = s.alive
         wo = -s.wi
         tmin = torch.where(s.hit_before, eps, 0.0)
@@ -203,8 +252,11 @@ def trace_wavefront(
                 direct_lighting & prev_non_dirac, balance_heuristic(s.pdf, env_pdf), 1.0
             )
             contrib = s.throughput * env_em * w_mis[:, None]
-            radiance = radiance + torch.where(miss[:, None], contrib, 0.0)
-        # a miss terminates: render query unused (miss.cu:97-104)
+            add_pixel = miss & ~s.suffix if train else miss
+            radiance = radiance + torch.where(add_pixel[:, None], contrib, 0.0)
+            s = add_to_last_record(s, contrib, miss)
+        # a miss terminates: render query unused (miss.cu:97-104), a training
+        # suffix ends unbiased (mask stays 0)
         lrt = torch.where(
             (miss & ~s.render_done)[:, None], 0.0, s.last_render_throughput
         )
@@ -223,7 +275,9 @@ def trace_wavefront(
                 1.0,
             )
             emission = s.throughput * em_rad * w_mis_e[:, None]
-            radiance = radiance + torch.where(emissive[:, None], emission, 0.0)
+            add_pixel = emissive & ~s.suffix if train else emissive
+            radiance = radiance + torch.where(add_pixel[:, None], emission, 0.0)
+            s = add_to_last_record(s, emission, emissive)
 
         # ---- area-spread termination decision (hit.cu:527-585) ----------
         abs_cos = torch.abs(dot(wo, ns))
@@ -242,6 +296,8 @@ def trace_wavefront(
                 t_eff, torch.sqrt(pdf_prev * torch.clamp(abs_cos, min=1e-12))
             )
             accum = hit_valid & ~prev_specular
+            if train:  # the unbiased suffix never ends on the cache
+                accum = accum & ~(s.unbiased & s.suffix)
             area_spread = s.area_spread + torch.where(accum, delta, 0.0)
             terminate = accum & (area_spread > area_threshold)
         if not truncate:
@@ -263,15 +319,54 @@ def trace_wavefront(
 
         # ---- early absorb (hit.cu:900-920) --------------------------------
         absorbed = hit_valid & (event == B.BSDF_EVENT_ABSORB)
-        lrt = torch.where((absorbed & ~s.render_done)[:, None], 0.0, lrt)
+        zero_lrt = absorbed & ~s.suffix & ~s.render_done if train else absorbed & ~s.render_done
+        lrt = torch.where(zero_lrt[:, None], 0.0, lrt)
         alive = alive & ~absorbed
 
-        # ---- area-spread termination: query + lastRenderThroughput, stop --
+        # ---- area-spread termination (hit.cu:924-971) ----------------------
         term = hit_valid & terminate & ~absorbed & alive
-        render_query = torch.where(term[:, None], query_here, s.render_query)
-        lrt = torch.where(term[:, None], s.throughput, lrt)
-        alive = alive & ~term
-        render_done = s.render_done | term
+        render_query = s.render_query
+        area_spread_next = area_spread
+        rec = {}  # the training wavefront's new record state
+        if not train:
+            # render ray: query + lastRenderThroughput, then stop
+            render_query = torch.where(term[:, None], query_here, render_query)
+            lrt = torch.where(term[:, None], s.throughput, lrt)
+            alive = alive & ~term
+            render_done = s.render_done | term
+        else:
+            # a suffix end is the self-training end vertex (hit.cu:933-940)
+            end_self = term & s.suffix
+            end_query = torch.where(end_self[:, None], query_here, s.end_query)
+            end_mask = torch.where(end_self, 1.0, s.end_mask)
+            alive = alive & ~end_self
+            # a render-path end switches into the suffix (hit.cu:941-959);
+            # with the record slots already exhausted the ray stops
+            # (hit.cu:950-953)
+            to_suffix = term & ~s.suffix
+            alive = alive & ~(to_suffix & s.full)
+            suffix = s.suffix | to_suffix
+            area_spread_next = torch.where(to_suffix, 0.0, area_spread)
+            render_done = s.render_done | to_suffix
+
+            # ---- allocate a training record (hit.cu:975-1028) --------------
+            want = alive & hit_valid & event_non_dirac & ~s.full
+            overflow = want & (s.rec_count >= d_rec)
+            allocated = want & (s.rec_count < d_rec)
+            slot = torch.clamp(s.rec_count, max=d_rec - 1)
+            rec_count = s.rec_count + allocated.to(torch.int64)
+            # overflow: a forced self-training end here (hit.cu:1009-1027)
+            alive = alive & ~overflow
+            rec = dict(
+                suffix=suffix,
+                full=s.full | overflow,
+                rec_count=rec_count,
+                rec_query=put1(s.rec_query, slot, query_here, allocated),
+                rec_ltp=put1(s.rec_ltp, slot, sample.bsdf_over_pdf, allocated),
+                rec_target=s.rec_target,
+                end_query=torch.where(overflow[:, None], query_here, end_query),
+                end_mask=torch.where(overflow, 1.0, end_mask),
+            )
 
         # ---- NEE / direct lighting (hit.cu:343-443, 1030-1056) ------------
         shadow_traced = torch.zeros_like(s.traced)
@@ -287,13 +382,29 @@ def trace_wavefront(
             occluded = any_hit(p_hit, ls.direction, torch.full_like(shadow_tmax, eps), shadow_tmax)
             shadow_traced = (shadow_tmax > 0.0).to(torch.int64)
             ok = do_nee & valid_ls & ~occluded
+            if train:
+                # NEE into the record just written (hit.cu:1030-1056)
+                direct = torch.where(ok[:, None], direct, 0.0)
+                slot = torch.clamp(torch.clamp(rec["rec_count"] - 1, min=0), max=d_rec - 1)
+                rec["rec_target"] = add1(rec["rec_target"], slot, direct, allocated)
+                ok = ok & ~rec["suffix"]
             radiance = radiance + torch.where(ok[:, None], s.throughput * direct, 0.0)
 
         # ---- advance the path ---------------------------------------------
         throughput = torch.where(
             hit_valid[:, None], s.throughput * sample.bsdf_over_pdf, s.throughput
         )
-        return _State(
+        if train:
+            # unbiased-suffix Russian roulette (raygeneration.cu:245-262); it
+            # draws one number per bounce on every training ray
+            seed, u_rr = R.rng(seed)
+            do_rr = alive & s.unbiased & rec["suffix"] & (depth >= cfg.min_depth_rr)
+            prob = torch.clamp(throughput.amax(dim=-1), min=0.005)
+            kill = do_rr & (prob < u_rr)
+            throughput = torch.where((do_rr & ~kill)[:, None], throughput / prob[:, None], throughput)
+            alive = alive & ~kill  # an unbiased end: the mask stays 0
+        return s._replace(
+            **rec,
             pos=torch.where(hit_valid[:, None], p_hit, s.pos),
             wi=torch.where(hit_valid[:, None], sample.wi, s.wi),
             seed=seed,
@@ -303,7 +414,7 @@ def trace_wavefront(
             event=event,
             alive=alive,
             hit_before=s.hit_before | hit_valid,
-            area_spread=area_spread,
+            area_spread=area_spread_next,
             area_threshold=area_threshold,
             recorded_first=recorded_first,
             render_done=render_done,
@@ -316,14 +427,14 @@ def trace_wavefront(
 
     # depth 0 sets the camera's area threshold; depths 1..max_depth
     # accumulate the spread and stop once every lane has terminated
-    state = bounce(state, True)
-    for _ in range(cfg.max_depth):
+    state = bounce(state, True, 0)
+    for depth in range(1, cfg.max_depth + 1):
         if not bool(state.alive.any()):
             break
-        state = bounce(state, False)
+        state = bounce(state, False, depth)
 
     # max-depth cleanup (raygeneration.cu:274-284): surviving render rays
-    # contribute no cache radiance
+    # contribute no cache radiance; surviving training rays end unbiased
     still = state.alive & ~state.render_done
     lrt = torch.where(still[:, None], 0.0, state.last_render_throughput)
     return WavefrontOut(
@@ -333,4 +444,10 @@ def trace_wavefront(
         render_query=state.render_query,
         last_render_throughput=lrt,
         cache_vis_query=state.cache_vis_query,
+        rec_query=state.rec_query,
+        rec_ltp=state.rec_ltp,
+        rec_target=state.rec_target,
+        rec_count=state.rec_count,
+        end_query=state.end_query,
+        end_mask=state.end_mask,
     )

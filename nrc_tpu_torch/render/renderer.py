@@ -1,26 +1,36 @@
-"""Host-side renderer: accumulation and the frame loop of the serving path.
+"""Host-side renderer: accumulation, online training and the frame loop.
 
 Port of ``nrc_tpu/render/renderer.py:45-407`` (reference
 ``Application::render/benchmark`` + ``Raytracer::render``,
 ``Application.cpp:417-540``): uploads the scene to one device, initializes
 the cache network from a seeded ``torch.Generator``, runs ``frame_step``
-once per subframe and restarts accumulation on state changes.
+once per subframe, restarts accumulation on state changes, and adapts the
+training tile size between frames from a two-frame-old record count, read
+from a non-blocking copy so that the frame loop never waits for it.
 
-Only inference is ported: ``train=True`` raises. ``device`` decides where
-everything runs; a CUDA device without a card raises, and nothing falls
-back to the CPU.
+``device`` decides where everything runs; a CUDA device without a card
+raises, and nothing falls back to the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..config import FrameConfig, NetworkConfig, RenderMode, SystemConfig
+from ..config import (
+    FrameConfig,
+    NetworkConfig,
+    NRCHyperParams,
+    RenderMode,
+    SystemConfig,
+    adjust_tile_size,
+)
 from ..models import network as N
 from ..scene.scene_builder import Scene
 from .frame import CameraArrays, FrameStats, frame_step
@@ -28,7 +38,7 @@ from .scene_device import DeviceScene, upload_scene
 
 
 class Renderer:
-    """Single-device renderer of the serving path (render + cache inference)."""
+    """Single-device renderer: render, cache inference and online training."""
 
     def __init__(
         self,
@@ -36,17 +46,18 @@ class Renderer:
         system: SystemConfig,
         net_cfg: Optional[NetworkConfig] = None,
         render_mode: RenderMode = RenderMode.FULL,
-        train: bool = False,
+        train: bool = True,
+        adaptive_tiles: bool = True,
         device=torch.device("cuda"),
     ):
-        if train:
-            raise NotImplementedError("training lands with K4-K6")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device='cuda'): no CUDA device is available")
         self.scene = scene
         self.system = system
         self.net_cfg = net_cfg or NetworkConfig()
+        self.hyper = NRCHyperParams(learning_rate=self.net_cfg.learning_rate)
+        self.adaptive_tiles = adaptive_tiles
         self.device_scene: DeviceScene = upload_scene(scene, self.device)
 
         # per-scene normalization of query positions (the reference hardcodes
@@ -62,20 +73,23 @@ class Renderer:
             max_depth=system.path_lengths[1],
             min_depth_rr=system.path_lengths[0],
             render_mode=render_mode,
-            train=False,
+            train=train,
             lens_shader=scene.lens_shader,
             scene_epsilon=system.scene_epsilon,
             walk_length=system.walk_length,
             position_scale=0.1 / max(extent, 1e-6),
         )
-        # random weights from seed 0, as the JAX renderer's default
-        self.net_state = N.init_network(
-            torch.Generator().manual_seed(0), self.net_cfg, self.device
+        self.reset_cache()
+        # a device scalar: a learning-rate edit changes a value, not a kernel
+        self.learning_rate = torch.tensor(
+            self.hyper.learning_rate, dtype=torch.float32, device=self.device
         )
         self.image = torch.zeros((w * h, 3), dtype=torch.float32, device=self.device)
         self.iteration = 0
         self.total_subframe = 0
         self.last_stats: Optional[FrameStats] = None
+        self.loss_history: deque = deque(maxlen=256)
+        self._pending_stats: deque = deque()
 
     # -- state management --------------------------------------------------
 
@@ -84,9 +98,40 @@ class Renderer:
         self.iteration = 0
         self.image = torch.zeros_like(self.image)
 
+    def reset_cache(self) -> None:
+        """Re-create the network (GUI 'reset cache' -> ``Device.cpp:2415-2421``)
+        with random weights from seed 0, as the JAX renderer's default, drawn
+        on the CPU."""
+        self.net_state = N.init_network(
+            torch.Generator().manual_seed(0), self.net_cfg, self.device
+        )
+
     def set_render_mode(self, mode: RenderMode) -> None:
         self.cfg = dataclasses.replace(self.cfg, render_mode=mode)
         self.restart_accumulation()
+
+    def set_hyper_params(
+        self,
+        learning_rate: Optional[float] = None,
+        train_unbiased_ratio: Optional[float] = None,
+        area_spread_factor: Optional[float] = None,
+    ) -> None:
+        """Live NRC hyper-parameter updates (the reference's Stats-window
+        sliders -> ``DeviceState`` dirty diff, ``Device.cpp:1724-1842``)."""
+        h = self.hyper
+        if learning_rate is not None:
+            h = dataclasses.replace(h, learning_rate=learning_rate)
+            self.learning_rate.fill_(learning_rate)
+        if train_unbiased_ratio is not None:
+            h = dataclasses.replace(h, train_unbiased_ratio=train_unbiased_ratio)
+        if area_spread_factor is not None:
+            h = dataclasses.replace(h, area_spread_factor=area_spread_factor)
+        self.hyper = h
+        self.cfg = dataclasses.replace(
+            self.cfg,
+            area_spread_sqrt=math.sqrt(h.area_spread_factor),
+            train_unbiased_ratio=h.train_unbiased_ratio,
+        )
 
     def _camera_arrays(self) -> CameraArrays:
         return CameraArrays(
@@ -110,11 +155,49 @@ class Renderer:
             self.total_subframe,
             self.cfg,
             self.net_cfg,
+            self.learning_rate,
         )
         self.iteration += 1
         self.total_subframe += 1
         self.last_stats = stats
+        if self.cfg.train:
+            # start the copy of loss and record count now and read it two
+            # frames later, when it has landed (the reference reads
+            # numTrainingRecords synchronously mid-frame, Device.cpp:2487-2491)
+            self._pending_stats.append(self._start_readback(stats))
+            if len(self._pending_stats) > 2:
+                self._consume_stats(self._pending_stats.popleft())
         return stats
+
+    def _start_readback(self, stats: FrameStats):
+        if self.device.type != "cuda":
+            return stats.loss, stats.num_train_records, None
+        host = [torch.empty((), dtype=t.dtype, pin_memory=True)
+                for t in (stats.loss, stats.num_train_records)]
+        for h, t in zip(host, (stats.loss, stats.num_train_records)):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host[0], host[1], done
+
+    def _consume_stats(self, pending) -> None:
+        loss, count, done = pending
+        if done is not None:
+            done.synchronize()
+        # the stats window's loss ring buffer (256-frame plot,
+        # Application.cpp:1020-1048)
+        self.loss_history.append(float(loss))
+        if self.adaptive_tiles:
+            # Device::adjustTileSize (Device.cpp:818-828), two frames late
+            new_ts = adjust_tile_size(self.cfg.tile_size, int(count))
+            if new_ts != self.cfg.tile_size:
+                self.cfg = dataclasses.replace(self.cfg, tile_size=new_ts)
+
+    def flush_stats(self) -> None:
+        """Drain the deferred per-frame stats (before reading
+        ``loss_history`` at the end of a run)."""
+        while self._pending_stats:
+            self._consume_stats(self._pending_stats.popleft())
 
     def render(self, spp: int) -> FrameStats:
         for _ in range(spp):
@@ -137,6 +220,7 @@ class Renderer:
         dt = time.perf_counter() - t0
         traced = sum(int(s.traced_rays) for s in frame_stats)
         return {
+            "loss": float(frame_stats[-1].loss),
             "spp": spp,
             "seconds": dt,
             "ms_per_frame": 1e3 * dt / spp,

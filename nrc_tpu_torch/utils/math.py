@@ -1,9 +1,10 @@
 """Vector math, orthonormal frames and spherical mappings on [..., 3] tensors.
 
-Port of the parts of ``nrc_tpu/utils/math.py`` the serving path uses
-(reference helpers: ``nrc/shaders/shader_common.h``). Every function keeps
-the JAX version's operation order, so CPU results agree to float32
-rounding.
+Port of the parts of ``nrc_tpu/utils/math.py`` the port uses (reference
+helpers: ``nrc/shaders/shader_common.h``), with the per-ray record-slot
+reads and writes of the training wavefront (``pick1``, ``put1``,
+``add1``). Every function keeps the JAX version's operation order, so CPU
+results agree to float32 rounding.
 """
 
 from __future__ import annotations
@@ -88,3 +89,32 @@ def cartesian_to_spherical_unit(d: torch.Tensor) -> torch.Tensor:
 def reflect(wi: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """Mirror reflection of incoming direction ``wi`` (pointing at surface)."""
     return wi - 2.0 * dot(wi, n)[..., None] * n
+
+
+def _slot_onehot(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[N, K] bool, True at column idx[n] of each row (broadcast to x's trailing dims)."""
+    oh = idx[:, None] == torch.arange(x.shape[1], dtype=idx.dtype, device=idx.device)
+    return oh[..., None] if x.dim() == 3 else oh
+
+
+def pick1(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [N, K] or [N, K, C], idx [N] -> x[arange(N), idx]."""
+    return torch.gather(x, 1, idx.view(-1, *([1] * (x.dim() - 1))).expand(-1, 1, *x.shape[2:])).squeeze(1)
+
+
+def put1(x: torch.Tensor, idx: torch.Tensor, v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """x[arange(N), idx] = v where mask; every other slot keeps its bits."""
+    oh = _slot_onehot(x, idx) & (mask[:, None, None] if x.dim() == 3 else mask[:, None])
+    return torch.where(oh, v[:, None], x)
+
+
+def add1(x: torch.Tensor, idx: torch.Tensor, v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """x[arange(N), idx] += v where mask; every other slot keeps its bits
+    (it adds nothing, where the JAX version adds 0.0: -0.0 stays -0.0)."""
+    oh = _slot_onehot(x, idx) & (mask[:, None, None] if x.dim() == 3 else mask[:, None])
+    return torch.where(oh, x + v[:, None], x)
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """NTSC luminance as the reference tonemapper weighs it (``Application.cpp:2620``)."""
+    return (rgb * torch.tensor([0.3, 0.59, 0.11], dtype=rgb.dtype, device=rgb.device)).sum(dim=-1)

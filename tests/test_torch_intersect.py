@@ -28,6 +28,18 @@ from nrc_tpu_torch.scene.scene_builder import cornell_box
 from nrc_tpu_torch.utils import rng as PR
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port (the other port test files import
+    this fixture): the test shapes are too small to share out, and test
+    processes running side by side would fight over the cores (a 32x32
+    frame then takes ten times as long)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def planes_from_tpu_layout(w) -> torch.Tensor:
     """The TPU kernel's [6, 8, Tp] plane table -> the port's packed [Tp, 24]:
     per triangle the planes An, Bn, Au, Bu, Av, Bv, four coefficients each

@@ -58,6 +58,7 @@ from nrc_tpu_torch.models.network import state_from_numpy
 from nrc_tpu_torch.render.frame import frame_step
 from nrc_tpu_torch.render.renderer import Renderer
 from nrc_tpu_torch.scene.scene_builder import cornell_box
+from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_scene import jax_cornell_scene
 
 RES = (32, 32)
@@ -130,8 +131,8 @@ def _recording_port_intersectors(make):
 
 
 def _recording(fn, key):
-    def wrapped(*args):
-        out = fn(*args)
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
         _LOG["port_out"][key] = out
         return out
     return wrapped
@@ -159,7 +160,7 @@ def setup():
 def _pair(setup, mode):
     scene, system, jscene = setup
     jr = JRenderer(jscene, system, render_mode=mode, train=False)
-    pr = Renderer(scene, system, render_mode=mode, device="cpu")
+    pr = Renderer(scene, system, render_mode=mode, train=False, device="cpu")
     pr.net_state = state_from_numpy(jax.tree.map(np.asarray, jr.net_state))
     return jr, pr
 
@@ -300,8 +301,6 @@ def test_accumulation_and_benchmark(setup):
 
 def test_unported_paths_raise(setup):
     scene, system, _ = setup
-    with pytest.raises(NotImplementedError, match="K4-K6"):
-        Renderer(scene, system, train=True, device="cpu")
     r = Renderer(scene, system, device="cpu")
     with pytest.raises(NotImplementedError):
         frame_step(r.device_scene, r.net_state, r.image, r._camera_arrays(), 0, 0,
