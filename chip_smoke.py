@@ -6,11 +6,16 @@ CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or on ``PATH``) and no network.
 
 Phases, each of which raises on failure (non-zero exit):
 1. device: the card's name and power limit as ``nvidia-smi`` reports them;
-2. build: compile every kernel (K1-K6) from ``csrc/``, one ``nvcc`` per
-   source file, all started together;
+2. build: compile every kernel (K1-K9, W1, W2) from ``csrc/``, one ``nvcc``
+   per source file, all started together, and the native host library;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the 320x320 Cornell frame gives it (B = 16384 training rows,
-   [4, 16384] for K6), with times (CUDA events);
+   the shapes the 320x320 frames give it (B = 16384 training rows,
+   [4, 16384] for K6), with times (CUDA events), the least time the card
+   could take for the same work (``bound_ms``) and, for the gathers, the
+   time of ``torch.index_select``. The row gathers K7-K9 bit for bit on the
+   walk's [131072, 160] table and on the path's other widths; the walk
+   kernels W1/W2 on the 132 K-triangle ``cornell_objects`` scene against the
+   plain walk, and W1 against the brute-force K1;
 4. train_step: four ``train_step``s on the card, K3 forward + K4 backward
    through autograd;
 5. serving slice: ``Renderer`` on the 1224-triangle Cornell box at 320x320,
@@ -18,13 +23,17 @@ Phases, each of which raises on failure (non-zero exit):
    init, 8 timed frames each;
 6. training slice: FULL + train at 320x320 (the main path): frames until the
    adaptive tile size settles, then 8 timed frames;
-7. convergence: the JAX package's online-training oracle
+7. large scene: FULL + train at 320x320 on ``cornell_objects`` (the wide
+   BVH path): frames until the tile size settles, then 8 timed frames; W1,
+   W2 and the path's gather must run, K1 and K2 must not;
+8. convergence: the JAX package's online-training oracle
    (``tests/test_frame.py:92-139``) on the port's Cornell box at 64x64 with
    8x8 tiles: the loss falls over 40 frames, and after a restart 48 FULL +
    train frames come within 18 dB (tonemapped PSNR) of 48-spp NO_CACHE;
-8. reference: 32x32 frames (8x8 tiles) on the card against the same frames
+9. reference: 32x32 frames (8x8 tiles) on the card against the same frames
    on the CPU, where the port runs the plain versions the CPU tests check
    against JAX; after the training frame, the weights, moments and EMA too.
+   Once by brute force and once with the wide BVH attached.
 
 Every path that runs a kernel is driven with the launch counts set to 0 just
 before it and read just after; each kernel must have been launched there.
@@ -33,7 +42,9 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -71,6 +82,70 @@ def _rel(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
 
 
+# NVIDIA's data sheet for the H100 SXM: the rates the bounds are taken against
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12     # float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12   # dense bf16 on the tensor cores
+
+
+def _bound(nbytes, ops, ops_per_s):
+    """The least time the card could take: each input byte read once and each
+    output byte written once, or the operations at the peak rate of their
+    type, whichever is larger."""
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / ops_per_s
+    return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def _ray_sets(r, first_t, gen):
+    """Ray sets of r's frame on the card: the camera rays and random rays from
+    their hit points (closest hit); shadow rays to random points of the mesh
+    lights and random segments (any hit). ``first_t(org, d, tmin, tmax)``
+    gives the camera rays' hit distances."""
+    import torch
+
+    from nrc_tpu_torch.ops.intersect import RT_MAX
+    from nrc_tpu_torch.render.frame import pixel_grid
+    from nrc_tpu_torch.scene.camera import generate_primary_rays
+    from nrc_tpu_torch.utils import rng as R
+
+    dev, n = r.device, r.cfg.num_pixels
+    pix, pidx = pixel_grid(r.cfg, dev)
+    _, jitter = R.rng2(R.tea(pidx, 0))
+    org, d = generate_primary_rays(pix, jitter, (r.cfg.width, r.cfg.height), *r._camera_arrays())
+    zeros = torch.zeros(n, device=dev)
+    far = torch.full((n,), RT_MAX, device=dev)
+    t_cam = first_t(org, d, zeros, far)
+    p_hit = torch.where((t_cam < RT_MAX)[:, None], org + t_cam[:, None] * d, org).contiguous()
+    d2 = torch.randn((n, 3), generator=gen, device=dev)
+    d2 = (d2 / d2.norm(dim=-1, keepdim=True)).contiguous()
+    eps = torch.full((n,), r.cfg.scene_epsilon, device=dev)
+    pool = r.device_scene.lights.mesh_row
+    light = pool[torch.randint(0, pool.shape[0], (n,), generator=gen, device=dev)]
+    uv = torch.rand((n, 2), generator=gen, device=dev)
+    su = uv[:, :1].sqrt()
+    target = (1 - su) * light[:, 0:3] + uv[:, 1:] * su * light[:, 3:6] + (su - uv[:, 1:] * su) * light[:, 6:9]
+    to_light = target - p_hit
+    dist = to_light.norm(dim=-1)
+    return {
+        "closest": [(org, d, zeros, far), (p_hit, d2, eps, far)],
+        "any": [(p_hit, (to_light / dist[:, None]).contiguous(), eps, (dist - r.cfg.scene_epsilon).contiguous()),
+                (p_hit, d2, eps, torch.rand((n,), generator=gen, device=dev) * 25.0)],
+    }
+
+
+def _settle_tiles(r):
+    """Render until the adaptive tile size has held for four frames (it
+    follows the record count two frames late); returns the sizes seen."""
+    sizes = [r.cfg.tile_size]
+    for _ in range(12):
+        r.render_frame()
+        sizes.append(r.cfg.tile_size)
+        if len(sizes) > 4 and len(set(sizes[-4:])) == 1:
+            break
+    _check(len(set(sizes[-4:])) == 1, f"the tile size did not settle: {sizes}")
+    return sizes
+
+
 def _counted(kernels, names, fn):
     """Run fn with the named kernels' counts set to 0; return (result, counts)."""
     for name in names:
@@ -88,14 +163,17 @@ def main() -> int:
     # the port must be importable from here (run from the checkout's root)
     from nrc_tpu_torch.config import NetworkConfig, RenderMode
     from nrc_tpu_torch.models import network as N
+    from nrc_tpu_torch.native import get_lib
+    from nrc_tpu_torch.ops import gather_cuda as GC
     from nrc_tpu_torch.ops import intersect_cuda as IC
+    from nrc_tpu_torch.ops import intersect_wide as IW
+    from nrc_tpu_torch.ops import intersect_wide_cuda as WC
     from nrc_tpu_torch.ops import mlp_cuda as MC
-    from nrc_tpu_torch.ops.intersect import RT_MAX
-    from nrc_tpu_torch.render.frame import pixel_grid
+    from nrc_tpu_torch.ops.bvh_wide import build_wide_bvh
     from nrc_tpu_torch.render.renderer import Renderer
-    from nrc_tpu_torch.scene.camera import generate_primary_rays
-    from nrc_tpu_torch.scene.scene_builder import cornell_box
-    from nrc_tpu_torch.utils import rng as R
+    from nrc_tpu_torch.render.scene_device import upload_scene
+    from nrc_tpu_torch.scene.scene_builder import cornell_box, cornell_objects
+    from nrc_tpu_torch.tools import bench_gather
     from nrc_tpu_torch.utils.tonemap import tonemap
 
     # plain references in full float32 (PyTorch's defaults, stated here)
@@ -120,7 +198,15 @@ def main() -> int:
         "fused_backward": (MC.BACKWARD_KERNEL, "nrc_tpu/ops/mlp_pallas.py:155"),
         "fused_train_grad": (MC.TRAIN_GRAD_KERNEL, "nrc_tpu/ops/mlp_pallas.py:311"),
         "fused_train4": (MC.TRAIN4_KERNEL, "nrc_tpu/ops/mlp_pallas.py:626"),
+        "gather_rows": (GC.GATHER_KERNEL, "tools/bench_gather_pallas.py:144"),
+        "gather_rows_resident": (GC.RESIDENT_KERNEL, "tools/bench_gather_pallas.py:211"),
+        "gather_rows_block": (GC.BLOCK_KERNEL, "tools/bench_gather_pallas.py:251"),
+        "wbvh_closest": (WC.CLOSEST_KERNEL,
+                         "nrc_tpu/ops/intersect_wide.py:518 (intersect_wbvh; no Pallas kernel stood there)"),
+        "wbvh_any": (WC.ANYHIT_KERNEL,
+                     "nrc_tpu/ops/intersect_wide.py:528 (occluded_wbvh; no Pallas kernel stood there)"),
     }
+    path_gather = next(name for name, (k, _) in kernels.items() if k is GC.PATH_KERNEL)
     first_of_source = {}
     for name, (k, _) in kernels.items():
         first_of_source.setdefault((k.source, k.extra_flags), name)
@@ -131,10 +217,17 @@ def main() -> int:
         info = [ln.strip() for ln in log.splitlines() if "ptxas info" in ln and ("Used" in ln or "spill" in ln)]
         return f"build {kernels[name][0].source} in {time.perf_counter() - t0:.1f} s; " + " | ".join(info)
 
+    def build_native(_):
+        t0 = time.perf_counter()
+        _check(get_lib() is not None, "the native host library did not build")
+        return f"build native/nrc_native.c in {time.perf_counter() - t0:.1f} s"
+
     t_build = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(first_of_source)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(first_of_source) + 1) as pool:
+        native = pool.submit(build_native, None)
         for line in pool.map(build, first_of_source.values()):
             print(line)
+        print(native.result())
     for k, _ in kernels.values():
         k.build()  # the other entry points of the built libraries
     print(f"build: all kernels in {time.perf_counter() - t_build:.1f} s")
@@ -144,30 +237,8 @@ def main() -> int:
     r = Renderer(scene, system, render_mode=RenderMode.FULL, train=False, device=dev)
     ds = r.device_scene
     n = r.cfg.num_pixels
-    pix, pidx = pixel_grid(r.cfg, dev)
-    _, jitter = R.rng2(R.tea(pidx, 0))
-    org, d = generate_primary_rays(pix, jitter, (320, 320), *r._camera_arrays())
-    zeros = torch.zeros(n, device=dev)
-    far = torch.full((n,), RT_MAX, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
-    t_cam, _ = IC.closest_plain(org, d, ds.planes, zeros, far)
-    p_hit = (org + t_cam[:, None] * d).contiguous()
-    d2 = torch.randn((n, 3), generator=gen, device=dev)
-    d2 = (d2 / d2.norm(dim=-1, keepdim=True)).contiguous()
-    eps = torch.full((n,), r.cfg.scene_epsilon, device=dev)
-    # shadow rays to random points on the ceiling light, and random segments
-    pool = ds.lights.mesh_row
-    light = pool[torch.randint(0, pool.shape[0], (n,), generator=gen, device=dev)]
-    uv = torch.rand((n, 2), generator=gen, device=dev)
-    su = uv[:, :1].sqrt()
-    target = (1 - su) * light[:, 0:3] + uv[:, 1:] * su * light[:, 3:6] + (su - uv[:, 1:] * su) * light[:, 6:9]
-    to_light = target - p_hit
-    dist = to_light.norm(dim=-1)
-    sets = {
-        "closest": [(org, d, zeros, far), (p_hit, d2, eps, far)],
-        "any": [(p_hit, (to_light / dist[:, None]).contiguous(), eps, (dist - r.cfg.scene_epsilon).contiguous()),
-                (p_hit, d2, eps, torch.rand((n,), generator=gen, device=dev) * 25.0)],
-    }
+    sets = _ray_sets(r, lambda o, dd, tn, tf: IC.closest_plain(o, dd, ds.planes, tn, tf)[0], gen)
     report = {}
     prim_agree, t_err, occ_agree = [], 0.0, []
     for o, dd, tn, tf in sets["closest"]:
@@ -188,20 +259,39 @@ def main() -> int:
           f"K2 occlusion agreement {occ_agree} (need >= 0.9999)")
     _check(min(prim_agree) >= 0.9999, "K1 winners disagree with the plain version")
     _check(min(occ_agree) >= 0.9999, "K2 occlusion disagrees with the plain version")
+    # Bounds of K1/K2. Bytes: each ray (org, dir, tmin, tmax: 32 bytes) and
+    # the plane table read once, the result written once. Operations: 39
+    # float32 operations per ray-triangle pair (three 4-term and three 3-term
+    # dot products, one division, u, v and u + v), over the float32 rate. K1
+    # tests every triangle for every live ray; K2 stops at a ray's first hit,
+    # so its pairs are counted from this run's rays, in table order.
+    pair_ops = 39
+    num_tris = ds.planes.shape[0]
+    table_bytes = ds.planes.numel() * 4
     o, dd, tn, tf = sets["closest"][1]
     report["intersect_planes"] = dict(
         max_abs_err=t_err,
         ms=_time_ms(lambda: IC.closest_cuda(o, dd, ds.planes, tn, tf)),
         plain_ms=_time_ms(lambda: IC.closest_plain(o, dd, ds.planes, tn, tf), iters=5),
+        **_bound(n * (32 + 8) + table_bytes, int((tf > tn).sum()) * num_tris * pair_ops, F32_OPS_PER_S),
+        library_ms=None,
     )
     o, dd, tn, tf = sets["any"][0]
     occ_k = IC.occluded_cuda(o, dd, ds.planes, tn, tf)
     occ_p = IC.occluded_plain(o, dd, ds.planes, tn, tf)
+    pairs = 0
+    for c0, c1 in IC._chunks(n, num_tris):
+        _, hit = IC._tile_hits(o[c0:c1], dd[c0:c1], ds.planes, tn[c0:c1], tf[c0:c1])
+        first = torch.where(hit.any(dim=1), hit.int().argmax(dim=1) + 1, num_tris)
+        pairs += int(first[tf[c0:c1] > tn[c0:c1]].sum())
     report["occluded_planes"] = dict(
         max_abs_err=(occ_k.float() - occ_p.float()).abs().max().item(),
         ms=_time_ms(lambda: IC.occluded_cuda(o, dd, ds.planes, tn, tf)),
         plain_ms=_time_ms(lambda: IC.occluded_plain(o, dd, ds.planes, tn, tf), iters=5),
+        **_bound(n * (32 + 4) + table_bytes, pairs * pair_ops, F32_OPS_PER_S),
+        library_ms=None,
     )
+    print(f"K2 bound: {pairs} ray-triangle pairs up to each ray's first hit, of {n * num_tris}")
 
     ema = r.net_state.ema
     w = (ema.w_in, ema.w_hidden, ema.w_out)
@@ -213,10 +303,19 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.testing.assert_close(yk, yp, atol=1e-2, rtol=1e-2)  # bf16 operands
     print(f"K3 max |err| {(yk - yp).abs().max().item():.3g} (atol 1e-2, rtol 1e-2)")
+    # Bounds of K3-K6. One multiply-add per weight and row in a forward pass
+    # (bf16 operands: the tensor cores' bf16 rate), as many again for the
+    # gradient of the activations and for that of the weights. Bytes: the
+    # rows read (x, and g or the targets), the rows written (y or dX), and the
+    # weights, gradients and optimizer state once each.
+    macs = sum(t.numel() for t in w)
+    w_bytes = 4 * macs
     report["fused_forward"] = dict(
         max_abs_err=(yk - yp).abs().max().item(),
         ms=_time_ms(lambda: MC.fused_forward_cuda(*w, x, True)),
         plain_ms=_time_ms(lambda: MC.fused_forward_plain(*w, x, True)),
+        **_bound(4 * (x.numel() + yk.numel()) + w_bytes, 2 * macs * n, BF16_OPS_PER_S),
+        library_ms=None,
     )
 
     # K4-K6 at the training batch of a frame: 4 x 16384 encoded queries.
@@ -245,15 +344,25 @@ def main() -> int:
           f"K5 {rel5:.3g} (limit 1e-5), loss {loss_rel5:.3g} relative (limit 1e-5)")
     _check(rel4 <= 2e-3, "K4 disagrees with its plain version")
     _check(rel5 <= 1e-5 and loss_rel5 <= 1e-5, "K5 disagrees with its plain version")
+    # K4: forward again, dX down to the input, dW. K5: forward, dX of every
+    # layer but the first (nothing consumes it), dW. K6: four times K5, and
+    # the weights, both moments and the EMA read and written once.
+    macs_first = wp[0].numel()
+    k5_ops = 2 * (3 * macs - macs_first) * b
+    k5_bytes = 4 * (x4[1].numel() + t4[1].numel() + 1) + 2 * w_bytes
     report["fused_backward"] = dict(
         max_abs_err=max((a - p).abs().max().item() for a, p in zip(got4, ref4)),
         ms=_time_ms(lambda: MC.fused_backward_cuda(*wp, x4[0], g_out)),
         plain_ms=_time_ms(lambda: MC.fused_backward_plain(*wp, x4[0], g_out)),
+        **_bound(4 * (2 * x4[0].numel() + g_out.numel()) + 2 * w_bytes, 2 * 3 * macs * b, BF16_OPS_PER_S),
+        library_ms=None,
     )
     report["fused_train_grad"] = dict(
         max_abs_err=max((a - p).abs().max().item() for a, p in zip(got5, ref5)),
         ms=_time_ms(lambda: MC.fused_train_grad_cuda(*wp, x4[1], t4[1])),
         plain_ms=_time_ms(lambda: MC.fused_train_grad_plain(*wp, x4[1], t4[1])),
+        **_bound(k5_bytes, k5_ops, BF16_OPS_PER_S),
+        library_ms=None,
     )
     lr = torch.tensor(net_cfg.learning_rate, device=dev)
     records = torch.tensor(b, device=dev)
@@ -280,7 +389,130 @@ def main() -> int:
         max_abs_err=dmax,
         ms=_time_ms(lambda: MC.fused_train4_cuda(*sk, x4, t4, lr, records, hyper), iters=10),
         plain_ms=_time_ms(lambda: MC.fused_train4_plain(*sp, x4, t4, lr, records, hyper), iters=5),
+        **_bound(4 * (x4.numel() + t4.numel() + 4) + 8 * w_bytes, 4 * k5_ops, BF16_OPS_PER_S),
+        library_ms=None,
     )
+
+
+    # ---- 3b. the row gathers K7-K9: bit for bit, then timed through the tool ----
+    big_scene, big_system = cornell_objects((320, 320))
+    t0 = time.perf_counter()
+    wide = build_wide_bvh(big_scene.p0, big_scene.p1, big_scene.p2, branch=16, leaf_size=16)
+    bvh_build_s = time.perf_counter() - t0
+    rb = Renderer(big_scene, big_system, render_mode=RenderMode.FULL, device=dev)
+    dsb = rb.device_scene
+    _check(dsb.bvh is not None and dsb.planes is None, "cornell_objects was uploaded without a BVH")
+    _check(torch.equal(dsb.bvh.rows.view(torch.int32).cpu(), torch.from_numpy(wide["rows"]).view(torch.int32)),
+           "the uploaded row table is not the built one, bit for bit")
+    walk_table = torch.randn((131072, 160), generator=gen, device=dev)
+    tables = {"walk table [131072, 160]": walk_table, "BVH rows": dsb.bvh.rows, "tri_shade": dsb.tri_shade,
+              "mat_row": dsb.mat_row, "tris.packed": dsb.tris.packed}
+    mismatched = 0
+    for label, table in tables.items():
+        for count in (2048, n):
+            idx = torch.randint(0, table.shape[0], (count,), generator=gen, device=dev)
+            ref = GC.gather_rows_plain(table, idx).view(torch.int32)
+            for variant, k in GC.VARIANTS.items():
+                got = GC.gather_rows_cuda(k, table, idx).view(torch.int32)
+                torch.cuda.synchronize()
+                bad = int((got != ref).sum())
+                _check(bad == 0, f"gather {variant} on {label} {tuple(table.shape)}, N = {count}: {bad} words differ")
+                mismatched += bad
+    print(f"K7-K9: bit for bit equal to the plain version on {[tuple(t.shape) for t in tables.values()]} "
+          f"at N = 2048 and {n}")
+    # the timing tool is the path that runs all three variants: counts read around it
+    gather_names = ("gather_rows", "gather_rows_resident", "gather_rows_block")
+    bench, bench_counts = _counted(kernels, gather_names, lambda: bench_gather.run(131072, 160, (2048, n), iters=20))
+    at_n = {res["variant"]: res for res in bench["results"] if res["n"] == n}
+    for name, variant in zip(gather_names, ("warp", "resident", "block")):
+        _check(bench_counts[name] > 0, f"{name} was not launched by bench_gather")
+        report[name] = dict(
+            max_abs_err=float(mismatched), ms=at_n[variant]["ms"], plain_ms=at_n["plain"]["ms"],
+            **_bound(2 * n * 160 * 4 + n * 8, 0, F32_OPS_PER_S), library_ms=at_n["index_select"]["ms"],
+        )
+    fastest = min(("warp", "resident", "block"), key=lambda v: at_n[v]["ms"])
+    print(f"gather variants at N = {n}: fastest {fastest}; the path launches "
+          f"{next(v for v, k in GC.VARIANTS.items() if k is GC.PATH_KERNEL)}")
+
+    # ---- 3c. the walk kernels W1/W2 on cornell_objects -------------------------
+    # Against the plain walk on the card: the closest t does not depend on the
+    # order of the walk, so it is equal bit for bit wherever the winners agree;
+    # winners may differ only between triangles at the same t (shared edges).
+    # Against K1 (every ray x every triangle, plane form), an independent
+    # check: on at least 99.9 % of the rays the same winner with t within
+    # 1e-4 of max(|t|, 1), as the JAX package's own walk tests compare. The
+    # plane form's t = -(n.o + d0) / (n.d) cancels in its numerator, so its
+    # error is absolute and grows as 1 / (n.d): a grazing ray on one of the
+    # tessellated objects' small triangles reads a few 1e-4 off.
+    bvh = dsb.bvh
+    big_sets = _ray_sets(rb, lambda o, dd, tn, tf: WC.wide_traverse_cuda(o, dd, bvh, tn, tf, False)[0], gen)
+    big_planes = IC.build_plane_table(dsb.tris)
+    row_bytes = bvh.rows.shape[1] * 4
+    w_err, w_fetched, w_plain_ms = 0.0, [], []
+    for o, dd, tn, tf in big_sets["closest"]:
+        tk, pk = WC.wide_traverse_cuda(o, dd, bvh, tn, tf, False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tp, pp, fetched = IW.wide_traverse_plain(o, dd, bvh, tn, tf, False)
+        torch.cuda.synchronize()
+        w_plain_ms.append(1e3 * (time.perf_counter() - t0))
+        w_fetched.append(fetched)
+        same = pk == pp
+        w_err = max(w_err, (tk - tp)[same].abs().max().item())
+        ties = bool((tk == tp)[~same].all()) and bool(((pk >= 0) & (pp >= 0))[~same].all())
+        t1, p1 = IC.closest_cuda(o, dd, big_planes, tn, tf)
+        rel = (tk - t1).abs() / t1.abs().clamp(min=1.0)
+        k1_agree = ((p1 == pk) & (rel <= 1e-4)).float().mean().item()
+        print(f"W1 vs plain walk: winners equal on {same.float().mean().item():.6f} of rays (need >= 0.9999, the "
+              f"others ties in t: {ties}), max |dt| where equal {w_err:.3g} (need 0), hit share "
+              f"{(pk >= 0).float().mean().item():.4f}, {fetched} rows fetched; vs K1: winners equal on "
+              f"{(p1 == pk).float().mean().item():.6f}, and with t within 1e-4 of max(|t|, 1) on {k1_agree:.6f} "
+              f"(need >= 0.999; largest {rel[p1 == pk].max().item():.3g})")
+        _check(w_err == 0.0 and same.float().mean().item() >= 0.9999 and ties,
+               "W1 disagrees with the plain walk")
+        _check(k1_agree >= 0.999, "W1 disagrees with K1")
+    a_fetched, a_plain_ms, occ_err = [], [], 0.0
+    for o, dd, tn, tf in big_sets["any"]:
+        _, pk = WC.wide_traverse_cuda(o, dd, bvh, tn, tf, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, pp, fetched = IW.wide_traverse_plain(o, dd, bvh, tn, tf, True)
+        torch.cuda.synchronize()
+        a_plain_ms.append(1e3 * (time.perf_counter() - t0))
+        a_fetched.append(fetched)
+        agree = ((pk >= 0) == (pp >= 0)).float().mean().item()
+        occ_err = max(occ_err, 1.0 - agree)
+        occ1 = IC.occluded_cuda(o, dd, big_planes, tn, tf)
+        print(f"W2 vs plain walk: occlusion equal on {agree:.6f} of rays (need >= 0.9999), occluded share "
+              f"{(pk >= 0).float().mean().item():.4f}, {fetched} rows fetched; vs K2: "
+              f"{((pk >= 0) == occ1).float().mean().item():.6f} (need >= 0.99)")
+        _check(agree >= 0.9999, "W2 disagrees with the plain walk")
+        # A shadow ray starts on a surface and clears it by scene_epsilon; whether
+        # it hits its own or a neighbouring small triangle again just past tmin
+        # is decided by the last bits of t, where the plane form and
+        # Moller-Trumbore differ (under 1 % of the rays).
+        _check(((pk >= 0) == occ1).float().mean().item() >= 0.99, "W2 disagrees with K2")
+    # Bound: the rows the plain walk fetched for these rays (the table's 10 MB
+    # stay in the L2, so this bound is loose), the rays read and the results
+    # written once; about 45 float32 operations per triangle or child box of
+    # a fetched row, which stays far below the bytes.
+    o, dd, tn, tf = big_sets["closest"][1]
+    report["wbvh_closest"] = dict(
+        max_abs_err=w_err, ms=_time_ms(lambda: WC.wide_traverse_cuda(o, dd, bvh, tn, tf, False)),
+        plain_ms=w_plain_ms[1],
+        **_bound(w_fetched[1] * row_bytes + n * (32 + 8), w_fetched[1] * 16 * 45, F32_OPS_PER_S), library_ms=None,
+    )
+    o, dd, tn, tf = big_sets["any"][0]
+    report["wbvh_any"] = dict(
+        max_abs_err=occ_err, ms=_time_ms(lambda: WC.wide_traverse_cuda(o, dd, bvh, tn, tf, True)),
+        plain_ms=a_plain_ms[0],
+        **_bound(a_fetched[0] * row_bytes + n * (32 + 8), a_fetched[0] * 16 * 45, F32_OPS_PER_S), library_ms=None,
+    )
+    k1_big_ms = _time_ms(lambda: IC.closest_cuda(*big_sets["closest"][1][:2], big_planes, *big_sets["closest"][1][2:]), iters=3, warmup=1)
+    print(f"on {big_scene.num_triangles} triangles, {n} rays from the hit points: W1 {report['wbvh_closest']['ms']:.3f} ms "
+          f"(plain walk {w_plain_ms[1]:.0f} ms, K1 brute force {k1_big_ms:.3f} ms); W2 on shadow rays "
+          f"{report['wbvh_any']['ms']:.3f} ms (plain walk {a_plain_ms[0]:.0f} ms)")
+    del big_planes
 
     # ---- 4. train_step: K3 forward + K4 backward through autograd -------------
     def train_steps():
@@ -301,7 +533,7 @@ def main() -> int:
 
     # ---- 5. serving slice --------------------------------------------------------
     r.render_frame()
-    serving = ("intersect_planes", "occluded_planes", "fused_forward")
+    serving = ("intersect_planes", "occluded_planes", "fused_forward", path_gather)
     full, counts = _counted(kernels, kernels, lambda: r.benchmark(8))
     img = r.image
     _check(img.shape == (n, 3) and bool(torch.isfinite(img).all()), "FULL image not finite")
@@ -319,18 +551,13 @@ def main() -> int:
 
     # ---- 6. training slice: FULL + train, the main path ------------------------
     rt = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
-    sizes = [rt.cfg.tile_size]
-    for _ in range(12):  # the tile size follows the record count two frames late
-        rt.render_frame()
-        sizes.append(rt.cfg.tile_size)
-        if len(sizes) > 4 and len(set(sizes[-4:])) == 1:
-            break
-    _check(len(set(sizes[-4:])) == 1, f"the tile size did not settle: {sizes}")
+    sizes = _settle_tiles(rt)
     trained, counts = _counted(kernels, kernels, lambda: rt.benchmark(8))
     rt.flush_stats()
     for name in ("intersect_planes", "occluded_planes", "fused_forward", "fused_train_grad", "fused_train4"):
         _check(counts[name] > 0, f"{name} was not launched by the FULL + train run")
         launches[name] = counts[name]
+    _check(counts[path_gather] > 0, f"{path_gather} was not launched by the FULL + train run")
     # K5's gradient kernel runs inside K6, once per step, counted where K6 launches it
     _check(counts["fused_train_grad"] == 4 * counts["fused_train4"], "K6 did not launch K5 four times")
     _check(bool(torch.isfinite(rt.image).all()) and rt.image.std().item() > 0.0, "FULL + train image bad")
@@ -341,7 +568,28 @@ def main() -> int:
           f"{rt.image.mean().item():.4f}, launches {counts}")
     print(f"FULL + train loss curve (per frame): {[round(v, 4) for v in rt.loss_history]}")
 
-    # ---- 7. convergence: the JAX package's Cornell oracle ----------------------
+    # ---- 7. the large scene: FULL + train through the wide BVH -------------------
+    sizes = _settle_tiles(rb)
+    big, counts = _counted(kernels, kernels, lambda: rb.benchmark(8))
+    rb.flush_stats()
+    for name in ("wbvh_closest", "wbvh_any", path_gather, "fused_forward", "fused_train_grad", "fused_train4"):
+        _check(counts[name] > 0, f"{name} was not launched by the large-scene run")
+    for name in ("intersect_planes", "occluded_planes"):
+        _check(counts[name] == 0, f"{name} was launched by the large-scene run")
+    launches.update({name: counts[name] for name in ("wbvh_closest", "wbvh_any", path_gather)})
+    launches.update({name: bench_counts[name] for name in gather_names if name != path_gather})
+    _check(rb.image.shape == (n, 3) and bool(torch.isfinite(rb.image).all()) and rb.image.std().item() > 0.0,
+           "large-scene image bad")
+    _check(math.isfinite(big["loss"]), "large-scene loss not finite")
+    print(f"cornell_objects FULL + train 320x320 ({big_scene.num_triangles} triangles; BVH built on the host in "
+          f"{bvh_build_s:.3f} s: W = {bvh.num_nodes} node rows, L = {bvh.rows.shape[0] - bvh.num_nodes} leaf rows, "
+          f"D = {bvh.depth}, table {bvh.rows.numel() * 4} bytes): tile sizes {sizes}, "
+          f"{big['ms_per_frame']:.3f} ms/frame, {big['mrays_per_s']:.2f} traced Mrays/s, "
+          f"{big['traced_rays_per_frame']:.0f} rays/frame, {int(rb.last_stats.num_train_records)} records in the "
+          f"last frame, loss {big['loss']:.4f}, image mean {rb.image.mean().item():.4f}, launches {counts}")
+    print(f"cornell_objects loss curve (per frame): {[round(v, 4) for v in rb.loss_history]}")
+
+    # ---- 8. convergence: the JAX package's Cornell oracle ----------------------
     small, small_sys = cornell_box((64, 64))
     small_sys.tile_size = (8, 8)
     rc = Renderer(small, small_sys, render_mode=RenderMode.FULL, adaptive_tiles=False, device=dev)
@@ -362,21 +610,27 @@ def main() -> int:
     _check(late < 0.9 * early, "the loss did not fall")
     _check(psnr > 18.0, "FULL + train is too far from the NO_CACHE oracle")
 
-    # ---- 8. reference: the card against the CPU path on a small frame ------------
+    # ---- 9. reference: the card against the CPU path on a small frame ------------
     # 8x8 tiles: 16 training rays, so the training frame has records to fit.
     # After the frame's four steps the card's weights, moments and EMA are
     # held near what they read (6e-8); a skipped EMA update of the last step
     # reads 5.6e-4 / 3.4e-4 (largest / mean), a skipped Adam step 3.0e-3 /
-    # 1.8e-3 on the weights (plain version on the CPU, the same frame).
+    # 1.8e-3 on the weights (plain version on the CPU, the same frame). The
+    # frames run twice: by brute force (K1/K2), then with the wide BVH
+    # attached to both sides (W1/W2 on the card, the plain walk on the CPU).
     small, small_sys = cornell_box((32, 32))
     small_sys.tile_size = (8, 8)
-    for mode, train in ((RenderMode.FULL, False), (RenderMode.NO_CACHE, False), (RenderMode.FULL, True)):
+    configs = ((RenderMode.FULL, False), (RenderMode.NO_CACHE, False), (RenderMode.FULL, True))
+    for use_bvh, (mode, train) in itertools.product((False, True), configs):
         # the same seed gives the same weights: init draws on the CPU
         rg = Renderer(small, small_sys, render_mode=mode, train=train, device=dev)
         rcpu = Renderer(small, small_sys, render_mode=mode, train=train, device="cpu")
+        if use_bvh:
+            rg.device_scene = upload_scene(small, dev, use_bvh=True)
+            rcpu.device_scene = upload_scene(small, "cpu", use_bvh=True)
         sg, sc = rg.render(1), rcpu.render(1)
         close, mean_gap = _image_agreement(rg.image.cpu(), rcpu.image)
-        label = f"{mode.name}{' + train' if train else ''}"
+        label = f"{mode.name}{' + train' if train else ''}{', wide BVH' if use_bvh else ''}"
         print(f"32x32 {label} card vs CPU: {close:.4f} of pixels within 1e-3, means {mean_gap:.2e} apart")
         _check(close >= 0.98 and mean_gap < 1e-3, f"{label}: the card disagrees with the CPU path")
         if train:
@@ -389,7 +643,7 @@ def main() -> int:
 
             diffs = [(a - c).abs() for a, c in zip(state(rg), state(rcpu))]
             dmax, dmean = max(d.max().item() for d in diffs), max(d.mean().item() for d in diffs)
-            print(f"32x32 FULL + train card vs CPU: records {n_rec[0]} vs {n_rec[1]} (must be equal), "
+            print(f"32x32 {label} card vs CPU: records {n_rec[0]} vs {n_rec[1]} (must be equal), "
                   f"loss {loss_gap:.2e} relative (limit 1e-5); weights, moments and EMA after the "
                   f"frame: largest |diff| {dmax:.3g} (limit 1e-5), largest mean |diff| {dmean:.3g} "
                   f"(limit 1e-7)")

@@ -1,0 +1,75 @@
+"""The wide-BVH walk kernels W1/W2: wrappers of ``csrc/intersect_wide.cu``.
+
+``nrc_wbvh_closest`` (W1) and ``nrc_wbvh_any`` (W2) walk the unified row
+table of ``ops/bvh_wide.py`` with one thread per ray and a private stack.
+They stand where ``nrc_tpu/ops/intersect_wide.py::intersect_wbvh`` and
+``occluded_wbvh`` stand; the JAX package has no hand kernel there (its walk
+is a traced while loop). Their plain version is
+``ops/intersect_wide.py::wide_traverse_plain``: the closest ``t`` agrees
+with it bit for bit (the same operations in the same order, built with
+``-fmad=false``), and the winner can differ only where two triangles give
+the same ``t``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .cuda_build import CudaKernel, check_cuda_tensor, current_stream, ptr
+from .intersect_wide import TRI_ROW_W, WideBVH
+
+MAX_STACK = 256    # csrc/intersect_wide.cu::kMaxStack
+MAX_LEAF = 64      # csrc/intersect_wide.cu::kMaxLeaf
+BRANCHES = (8, 16)  # the widths the kernel is instantiated for
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+CLOSEST_KERNEL = CudaKernel("intersect_wide.cu", "nrc_wbvh_closest", _ARGS,
+                            extra_flags=("-fmad=false",))
+ANYHIT_KERNEL = CudaKernel("intersect_wide.cu", "nrc_wbvh_any", _ARGS,
+                           extra_flags=("-fmad=false",))
+
+
+def check_walkable(bvh: WideBVH) -> None:
+    """Raise unless the kernels were compiled for this build's sizes."""
+    width = bvh.rows.shape[1]
+    if bvh.branch not in BRANCHES:
+        raise ValueError(f"branch {bvh.branch}: the walk kernel is built for {BRANCHES}")
+    if bvh.leaf_size % 4 or not 0 < bvh.leaf_size <= MAX_LEAF:
+        raise ValueError(f"leaf_size {bvh.leaf_size}: need a multiple of 4 up to {MAX_LEAF}")
+    if width % 4 or width < max(7 * bvh.branch, (TRI_ROW_W + 1) * bvh.leaf_size):
+        raise ValueError(f"row width {width} does not fit branch {bvh.branch}, leaf {bvh.leaf_size}")
+    need = (bvh.branch - 1) * bvh.depth + 1
+    if need > MAX_STACK:
+        raise ValueError(f"a tree of {bvh.depth} levels x {bvh.branch} children needs a stack of "
+                         f"{need} entries; the walk kernel has {MAX_STACK}")
+    if not 0 < bvh.num_nodes <= bvh.rows.shape[0]:
+        raise ValueError(f"{bvh.num_nodes} node rows in a table of {bvh.rows.shape[0]} rows")
+
+
+def wide_traverse_cuda(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool):
+    """W1 (closest) or W2 (any hit) on the card -> (t [N] f32, prim [N] i64);
+    RT_MAX / -1 on a miss. With ``any_hit`` the hit is the first one found."""
+    check_walkable(bvh)
+    dev = org.device
+    org, direction = org.contiguous(), direction.contiguous()
+    tmin, tmax = tmin.contiguous(), tmax.contiguous()
+    n = org.shape[0]
+    check_cuda_tensor("org", org, torch.float32, (n, 3), dev)
+    check_cuda_tensor("direction", direction, torch.float32, (n, 3), dev)
+    check_cuda_tensor("tmin", tmin, torch.float32, (n,), dev)
+    check_cuda_tensor("tmax", tmax, torch.float32, (n,), dev)
+    check_cuda_tensor("rows", bvh.rows, torch.float32, (None, None), dev)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n:
+        kernel = ANYHIT_KERNEL if any_hit else CLOSEST_KERNEL
+        kernel.launch(
+            ptr(org), ptr(direction), ptr(tmin), ptr(tmax), ptr(bvh.rows), n,
+            bvh.rows.shape[1], bvh.num_nodes, bvh.branch, bvh.leaf_size,
+            ptr(t), ptr(prim), current_stream(dev),
+        )
+    return t, prim.long()

@@ -39,6 +39,7 @@ import torch
 
 from ..config import FrameConfig, RenderMode
 from ..ops import bsdf as B
+from ..ops.gather_cuda import gather_rows
 from ..ops.intersect import RT_MAX, make_intersectors
 from ..ops.light_sampling import env_radiance, sample_lights
 from ..utils import rng as R
@@ -147,7 +148,7 @@ def trace_wavefront(
     check_frame_config(cfg)
     n = org.shape[0]
     dev = org.device
-    closest_hit, any_hit = make_intersectors(scene.tris, scene.planes)
+    closest_hit, any_hit = make_intersectors(scene.tris, scene.planes, scene.bvh)
     lights = scene.lights
     num_lights = lights.num
     d_rec = cfg.max_train_records_per_ray
@@ -223,16 +224,16 @@ def trace_wavefront(
         w_bary = 1.0 - hit.u - hit.v
         p_hit = s.pos + hit.t[:, None] * s.wi
         # ONE triangle row gather for all the hit's triangle-side inputs
-        tsr = scene.tri_shade[tri]                       # [N, 24]
+        tsr = gather_rows(scene.tri_shade, tri)          # [N, 26]
         ng = normalize(cross(tsr[:, 3:6], tsr[:, 6:9]))
         ns = normalize(
             w_bary[:, None] * tsr[:, 9:12]
             + hit.u[:, None] * tsr[:, 12:15]
             + hit.v[:, None] * tsr[:, 15:18]
         )
-        meta = scene.tri_meta[tri]
+        meta = tsr[:, 24:26].view(torch.int32).to(torch.int64)  # bit-cast columns
         mid, tri_light_id = meta[:, 0], meta[:, 1]
-        mrow = scene.mat_row[mid]                        # ONE material row gather
+        mrow = gather_rows(scene.mat_row, mid)           # ONE material row gather
         params = B.MaterialParams(
             archetype=mcol(mrow, "archetype").to(torch.int64),
             albedo=mcol(mrow, "albedo"),

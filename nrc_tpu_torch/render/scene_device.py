@@ -1,29 +1,34 @@
 """Device-resident scene: host Scene -> tensors on one device.
 
-Port of ``nrc_tpu/render/scene_device.py:41-310`` for the serving path.
-``upload_scene`` reads the ``Scene`` by field name, so it takes the JAX
-package's ``Scene`` unchanged as well as the port's. It refuses scenes that
-need what is not ported yet: a BVH (above ``BVH_THRESHOLD`` triangles),
-curves, textures, cutouts, volumes, layered/measured/noise materials,
+Port of ``nrc_tpu/render/scene_device.py:41-390``. ``upload_scene`` reads
+the ``Scene`` by field name, so it takes the JAX package's ``Scene``
+unchanged as well as the port's. Above ``BVH_THRESHOLD`` triangles, or when
+asked, it builds the 16-wide BVH on the host (``ops/bvh_wide.py``) and
+uploads its row table; smaller scenes get the plane table of the
+brute-force kernels instead. It refuses scenes that need what is not ported
+yet: curves, textures, cutouts, volumes, layered/measured/noise materials,
 archetypes other than diffuse, GGX-reflect and emission-only, and lights
 other than mesh lights.
 
-The bounce body fetches per-hit data with plain index gathers
-(``tri_shade[prim]``, ``mat_row[material]``); the TPU package's one-hot
-matmul row fetch and its packed-transfer helpers have no counterpart here.
+The bounce body fetches per-hit data with row gathers
+(``ops/gather_cuda.py::gather_rows`` over ``tri_shade`` and ``mat_row``);
+the TPU package's one-hot matmul row fetch and its packed-transfer helpers
+have no counterpart here.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..ops.bsdf import SUPPORTED_ARCHETYPES
-from ..ops.intersect import TriSoA, check_brute_force
+from ..ops.bvh_wide import build_wide_bvh
+from ..ops.intersect import BVH_THRESHOLD, TriSoA
 from ..ops.intersect_cuda import build_plane_table
+from ..ops.intersect_wide import WideBVH, upload_wide_bvh
 from ..ops.light_sampling import DeviceLights, upload_lights
 from ..scene.materials import EmissionMode
 
@@ -63,12 +68,15 @@ def mat_row_layout(curve_k: int):
 
 class DeviceScene(NamedTuple):
     tris: TriSoA
-    planes: torch.Tensor     # [T, 24] packed plane table (ops/intersect_cuda.py)
-    tri_shade: torch.Tensor  # [T, 24] f32 = p0|e1|e2 | n0|n1|n2 | uv0|uv1|uv2
-    tri_meta: torch.Tensor   # [T, 2] i64 = material | light (-1 = not emissive)
+    # [T, 24] packed plane table (ops/intersect_cuda.py); None with a BVH
+    planes: Optional[torch.Tensor]
+    # [T, 26] f32 = p0|e1|e2 | n0|n1|n2 | uv0|uv1|uv2 | material, light as
+    # bit-cast int32 (light -1 = not emissive): all a hit needs in ONE row
+    tri_shade: torch.Tensor
     mat_row: torch.Tensor    # [M, mat_row_layout(K)[1]] f32
     mat_curve_k: int         # K, the curve resolution in mat_row
     lights: DeviceLights
+    bvh: Optional[WideBVH] = None  # the 16-wide BVH; None = brute force
 
     @property
     def num_triangles(self) -> int:
@@ -143,7 +151,6 @@ def _material_arrays(scene) -> dict:
 def check_supported(scene) -> None:
     """Raise ``NotImplementedError`` naming the first unported feature."""
     mt = scene.materials
-    check_brute_force(scene.num_triangles)
     unported = {
         "curves": getattr(scene, "curves", None) is not None,
         "archetypes other than diffuse / GGX-reflect / emission-only": bool(
@@ -165,31 +172,44 @@ def check_supported(scene) -> None:
             raise NotImplementedError(f"scene uses {feature}, which is not ported yet")
 
 
-def upload_scene(scene, device: torch.device) -> DeviceScene:
+def upload_scene(scene, device: torch.device, use_bvh: Optional[bool] = None) -> DeviceScene:
     """Host ``Scene`` (the port's or the JAX package's) -> ``DeviceScene`` on
-    ``device``."""
+    ``device``. ``use_bvh=None`` builds the wide BVH above ``BVH_THRESHOLD``
+    triangles (``nrc_tpu/render/scene_device.py:286-310``)."""
     check_supported(scene)
     device = torch.device(device)
 
     def dev(x, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
 
+    if use_bvh is None:
+        use_bvh = scene.num_triangles > BVH_THRESHOLD
+    bvh = None
+    if use_bvh and scene.num_triangles > 0:
+        # 16-wide nodes and 16-triangle leaves, the JAX package's choice
+        bvh = upload_wide_bvh(
+            build_wide_bvh(scene.p0, scene.p1, scene.p2, branch=16, leaf_size=16), device
+        )
+
     p0 = np.asarray(scene.p0, np.float32)
     e1 = np.asarray(scene.p1, np.float32) - p0
     e2 = np.asarray(scene.p2, np.float32) - p0
-    tris = TriSoA(dev(p0), dev(e1), dev(e2))
+    packed = np.concatenate([p0, e1, e2], axis=-1)
+    tris = TriSoA(dev(p0), dev(e1), dev(e2), dev(packed))
+    tri_meta = np.stack([scene.material_id, scene.light_id], axis=-1).astype(np.int32)
     tri_shade = np.concatenate(
-        [p0, e1, e2, scene.n0, scene.n1, scene.n2, scene.uv0, scene.uv1, scene.uv2],
-        axis=-1,
-    ).astype(np.float32)
-    tri_meta = np.stack([scene.material_id, scene.light_id], axis=-1)
+        [packed, scene.n0, scene.n1, scene.n2, scene.uv0, scene.uv1, scene.uv2,
+         tri_meta.view(np.float32)],
+        axis=-1, dtype=np.float32,
+    )
     mats = _material_arrays(scene)
     return DeviceScene(
         tris=tris,
-        planes=build_plane_table(tris),
-        tri_shade=dev(tri_shade),
-        tri_meta=dev(tri_meta, torch.int64),
+        planes=None if bvh is not None else build_plane_table(tris),
+        # from_numpy keeps the bits of the two meta columns
+        tri_shade=torch.from_numpy(np.ascontiguousarray(tri_shade)).to(device),
         mat_row=dev(mats["mat_row"]),
         mat_curve_k=mats["curve_k"],
         lights=upload_lights(scene.lights, mats["light_radiance"], device),
+        bvh=bvh,
     )

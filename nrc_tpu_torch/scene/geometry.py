@@ -1,10 +1,14 @@
-"""Procedural triangle geometry (NumPy): plane, box, affine transform.
+"""Procedural triangle geometry (NumPy): plane, box, sphere, torus, affine
+transform.
 
 Port of the builders of ``nrc_tpu/scene/geometry.py`` that the built-in
-Cornell box uses, with the reference's conventions:
+scenes use, with the reference's conventions:
 - plane: [-1,1]^2 quad tessellated tessU x tessV, normal along upAxis
   (``nrc/src/Plane.cpp:35-120``)
 - box: unit cube [-1,1]^3, 12 triangles (``nrc/src/Box.cpp:35``)
+- sphere: longitude/latitude grid, poles on the y axis (its pole rows are
+  triangles of zero area: they never hit, but they are in the scene)
+- torus: around the y axis, ring radius ``outer``, tube radius ``inner``
 """
 
 from __future__ import annotations
@@ -97,6 +101,45 @@ def create_box() -> Mesh:
         texcoords=np.asarray(tex, np.float32),
         indices=np.asarray(idx, np.uint32),
     )
+
+
+def create_sphere(tess_u: int, tess_v: int, radius: float = 1.0, max_theta: float = np.pi) -> Mesh:
+    """Longitude/latitude sphere; poles at -y/+y like the reference."""
+    phi = np.linspace(0.0, 2.0 * np.pi, tess_u + 1, dtype=np.float64)
+    theta = np.linspace(0.0, min(max_theta, np.pi), tess_v + 1, dtype=np.float64)
+    tt, pp = np.meshgrid(theta, phi, indexing="ij")
+    # theta 0 = south pole (-y), pi = north pole (+y)
+    y = -np.cos(tt)
+    r = np.sin(tt)
+    x = r * np.cos(pp)
+    z = -r * np.sin(pp)
+    n = np.stack([x, y, z], axis=-1)
+    verts = (radius * n).reshape(-1, 3).astype(np.float32)
+    normals = n.reshape(-1, 3).astype(np.float32)
+    tangents = np.stack([-np.sin(pp), np.zeros_like(pp), -np.cos(pp)], axis=-1)
+    tangents = tangents.reshape(-1, 3).astype(np.float32)
+    tex = np.stack([pp / (2 * np.pi), tt / np.pi], axis=-1).reshape(-1, 2).astype(np.float32)
+    return Mesh(verts, normals, tangents, tex, _grid_indices(tess_u, tess_v))
+
+
+def create_torus(tess_u: int, tess_v: int, inner_radius: float, outer_radius: float) -> Mesh:
+    """Torus around the y-axis; ring radius outer, tube radius inner."""
+    u = np.linspace(0.0, 2.0 * np.pi, tess_u + 1, dtype=np.float64)
+    v = np.linspace(0.0, 2.0 * np.pi, tess_v + 1, dtype=np.float64)
+    vv, uu = np.meshgrid(v, u, indexing="ij")
+    cu, su = np.cos(uu), np.sin(uu)
+    cv, sv = np.cos(vv), np.sin(vv)
+    x = (outer_radius + inner_radius * cv) * cu
+    z = -(outer_radius + inner_radius * cv) * su
+    y = inner_radius * sv
+    verts = np.stack([x, y, z], axis=-1).reshape(-1, 3).astype(np.float32)
+    nx = cv * cu
+    nz = -cv * su
+    ny = sv
+    normals = np.stack([nx, ny, nz], axis=-1).reshape(-1, 3).astype(np.float32)
+    tangents = np.stack([-su, np.zeros_like(su), -cu], axis=-1).reshape(-1, 3).astype(np.float32)
+    tex = np.stack([uu / (2 * np.pi), vv / (2 * np.pi)], axis=-1).reshape(-1, 2).astype(np.float32)
+    return Mesh(verts, normals, tangents, tex, _grid_indices(tess_u, tess_v))
 
 
 def transform_mesh(mesh: Mesh, matrix: np.ndarray) -> Mesh:

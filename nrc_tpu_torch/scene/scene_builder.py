@@ -5,7 +5,9 @@ uses: the ``Scene`` dataclass, the geometry flattening of ``build_scene``
 and the implicit mesh-light assembly of ``_build_lights``
 (``scene_builder.py:361-425``; reference ``Application::createMeshLights``,
 ``Application.cpp:2079-2238``). Loading the reference's ``.txt``/``.mdl``
-files is not ported yet; ``cornell_box()`` builds the Cornell box in code.
+files is not ported yet; ``cornell_box()`` builds the Cornell box in code,
+and ``cornell_objects()`` the same box around a finely tessellated sphere
+and torus (about 132 K triangles, the large-scene path).
 """
 
 from __future__ import annotations
@@ -61,8 +63,10 @@ class ModelDecl:
     """One ``model`` line of a scene: a procedural mesh, its object-to-world
     matrix and the name of its material."""
 
-    kind: str                  # "plane" or "box"
-    args: Tuple[int, ...]      # plane: (tess_u, tess_v, up_axis)
+    kind: str                  # "plane", "box", "sphere" or "torus"
+    # plane: (tess_u, tess_v, up_axis); sphere: (tess_u, tess_v, max_theta / pi);
+    # torus: (tess_u, tess_v, inner_radius, outer_radius)
+    args: Tuple[float, ...]
     matrix: np.ndarray         # [4, 4] float64
     material: str
 
@@ -72,6 +76,11 @@ def make_mesh(decl: ModelDecl) -> geo.Mesh:
         return geo.create_plane(*decl.args)
     if decl.kind == "box":
         return geo.create_box()
+    if decl.kind == "sphere":
+        tess_u, tess_v, theta = decl.args
+        return geo.create_sphere(tess_u, tess_v, 1.0, theta * np.pi)
+    if decl.kind == "torus":
+        return geo.create_torus(*decl.args)
     raise NotImplementedError(f"model kind {decl.kind!r} is not ported")
 
 
@@ -251,11 +260,7 @@ def cornell_box_declarations() -> tuple[
     return models, materials, camera
 
 
-def cornell_box(resolution: Tuple[int, int] = (320, 320)) -> tuple[Scene, SystemConfig]:
-    """The 1224-triangle Cornell box and its system settings: the given
-    resolution (default 320x320), 16x16 tiles, path lengths 2-6, 1 spp per
-    frame."""
-    models, materials, cam = cornell_box_declarations()
+def _cornell_scene(models, materials, cam, resolution) -> tuple[Scene, SystemConfig]:
     system = SystemConfig(
         resolution=tuple(resolution),
         tile_size=(16, 16),
@@ -266,3 +271,30 @@ def cornell_box(resolution: Tuple[int, int] = (320, 320)) -> tuple[Scene, System
     )
     camera = Camera(aspect=resolution[0] / max(resolution[1], 1), **cam)
     return assemble_scene(models, materials, camera), system
+
+
+def cornell_box(resolution: Tuple[int, int] = (320, 320)) -> tuple[Scene, SystemConfig]:
+    """The 1224-triangle Cornell box and its system settings: the given
+    resolution (default 320x320), 16x16 tiles, path lengths 2-6, 1 spp per
+    frame."""
+    return _cornell_scene(*cornell_box_declarations(), resolution)
+
+
+OBJECT_TESSELLATION = (256, 128)  # 2 x 256 x 128 = 65,536 triangles per object
+
+
+def cornell_objects(resolution: Tuple[int, int] = (320, 320)) -> tuple[Scene, SystemConfig]:
+    """The Cornell box's walls, light, camera and system settings around two
+    finely tessellated objects: a diffuse sphere of radius 4 (256 x 128,
+    65,536 triangles) resting on the floor where the tall box stood, and a
+    GGX-reflect torus (ring radius 3, tube radius 1, 256 x 128, 65,536
+    triangles) lying on the floor where the cube stood. 132,272 triangles in
+    all, above ``BVH_THRESHOLD``: the scene of the large-scene path, built
+    in code because the reference's data files are not in the repository."""
+    models, materials, cam = cornell_box_declarations()
+    tu, tv = OBJECT_TESSELLATION
+    objects = [
+        ModelDecl("sphere", (tu, tv, 1.0), _translate(-4, -6, -3) @ _scale(4.0), "white"),
+        ModelDecl("torus", (tu, tv, 1.0, 3.0), _translate(4, -9, 3), "glossy"),
+    ]
+    return _cornell_scene(models[:6] + objects, materials, cam, resolution)

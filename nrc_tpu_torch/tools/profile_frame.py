@@ -1,20 +1,23 @@
-"""Where a frame's time goes on the card: one traced window of Cornell frames.
+"""Where a frame's time goes on the card: one traced window of frames.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 -m nrc_tpu_torch.tools.profile_frame
 
-Three configurations of the 1224-triangle Cornell box at 320x320
-(frequency encoding 64x5, seeded init): FULL and NO_CACHE with
-``train=False`` (the serving side), then FULL + train, the main path, after
-the adaptive tile size has settled. For each it first times 20 frames one by
+Four configurations at 320x320 (frequency encoding 64x5, seeded init). On
+the 1224-triangle Cornell box: FULL and NO_CACHE with ``train=False`` (the
+serving side), then FULL + train, the main path, after the adaptive tile
+size has settled. On the 132 K-triangle ``cornell_objects`` scene, which
+goes through the wide BVH: FULL + train, likewise settled. For each it first times 20 frames one by
 one with the profiler off (host clock around each frame, ending in a
 synchronise), then traces 4 frames with ``torch.profiler`` and reads the
 trace: device busy time (the union of kernel, memcpy and memset intervals),
 the device's idle share of the traced wall time, kernel launches and
 host-to-device syncs per frame, and device time by kernel group: K1 (closest
-hit), K2 (shadow rays), K3 (cache MLP), K5 (the training gradient, launched
-by K6), K6's reduction and Adam + EMA kernels, and everything else, which is
+hit), K2 (shadow rays), W1/W2 (the wide-BVH walks that take their place on
+the large scene), the row gathers, K3 (cache MLP), K5 (the training
+gradient, launched by K6), K6's reduction and Adam + EMA kernels, and
+everything else, which is
 PyTorch's own elementwise, gather, sort and reduction kernels (the six
 largest of them are listed by name). The training
 side of a frame is FULL + train less FULL. The last line is one JSON object
@@ -36,25 +39,31 @@ import torch
 
 from ..config import RenderMode
 from ..render.renderer import Renderer
-from ..scene.scene_builder import cornell_box
+from ..scene.scene_builder import cornell_box, cornell_objects
 
 RES = 320
 TIMED_FRAMES = 20
 TRACED_FRAMES = 4
 
-GROUPS = (("K1 nrc_planes_closest", "planes_kernel<false>"),
-          ("K2 nrc_planes_any", "planes_kernel<true>"),
-          ("K3 nrc_mlp_forward", "mlp_forward_kernel"),
-          ("K4 nrc_mlp_backward", "mlp_grad_kernel<false>"),
-          ("K5 nrc_mlp_train_grad", "mlp_grad_kernel<true>"),
-          ("K6 reduce + Adam/EMA", "reduce_partials"),
-          ("K6 reduce + Adam/EMA", "adam_ema_kernel"),
-          ("K6 reduce + Adam/EMA", "advance_step"))
+# (label, substrings that a kernel's name must all hold)
+GROUPS = (("K1 nrc_planes_closest", ("planes_kernel<false>",)),
+          ("K2 nrc_planes_any", ("planes_kernel<true>",)),
+          ("W1 nrc_wbvh_closest", ("wbvh_kernel<", "false>")),
+          ("W2 nrc_wbvh_any", ("wbvh_kernel<", "true>")),
+          ("K7-K9 row gathers", ("gather_warp_kernel",)),
+          ("K7-K9 row gathers", ("gather_resident_kernel",)),
+          ("K7-K9 row gathers", ("gather_block_kernel",)),
+          ("K3 nrc_mlp_forward", ("mlp_forward_kernel",)),
+          ("K4 nrc_mlp_backward", ("mlp_grad_kernel<false>",)),
+          ("K5 nrc_mlp_train_grad", ("mlp_grad_kernel<true>",)),
+          ("K6 reduce + Adam/EMA", ("reduce_partials",)),
+          ("K6 reduce + Adam/EMA", ("adam_ema_kernel",)),
+          ("K6 reduce + Adam/EMA", ("advance_step",)))
 
 
 def _group(name: str) -> str:
-    for label, key in GROUPS:
-        if key in name:
+    for label, keys in GROUPS:
+        if all(key in name for key in keys):
             return label
     return "PyTorch kernels"
 
@@ -129,6 +138,10 @@ def main() -> int:
     r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
     r.render(8)  # the tile size follows the record count two frames late
     results.append(profile_mode(r, "FULL + train", TRACED_FRAMES, TIMED_FRAMES))
+    big, big_system = cornell_objects((RES, RES))
+    r = Renderer(big, big_system, render_mode=RenderMode.FULL, device=dev)
+    r.render(8)
+    results.append(profile_mode(r, "cornell_objects FULL + train", TRACED_FRAMES, TIMED_FRAMES))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True, timeout=60,

@@ -17,6 +17,12 @@ the largest entry (K5_TOL), K6's losses 1.8e-7 relative and its state
 5.4e-7 apart at most and 3.4e-9 on the mean after four steps (K6_MAX,
 K6_MEAN). A skipped EMA update of the last step reads 5.6e-4 / 2.5e-4 there,
 a skipped Adam step 3.0e-3 / 1.4e-3 on the weights (PERF.md).
+
+The row gathers K7-K9 move bits: equal to the plain version bit for bit,
+NaN patterns included. The walk kernels W1/W2 compute the plain walk's
+arithmetic in its order (built with ``-fmad=false``): the closest t is equal
+bit for bit, the winner may differ only between triangles at the same t,
+and occlusion is equal.
 """
 
 import numpy as np
@@ -25,10 +31,15 @@ import torch
 
 from nrc_tpu_torch.config import NetworkConfig, RenderMode
 from nrc_tpu_torch.models import network as N
+from nrc_tpu_torch.ops import gather_cuda as GC
 from nrc_tpu_torch.ops import intersect_cuda as IC
+from nrc_tpu_torch.ops import intersect_wide as IW
+from nrc_tpu_torch.ops import intersect_wide_cuda as WC
 from nrc_tpu_torch.ops import mlp_cuda as MC
-from nrc_tpu_torch.ops.intersect import RT_MAX, TriSoA
+from nrc_tpu_torch.ops.bvh_wide import build_wide_bvh
+from nrc_tpu_torch.ops.intersect import RT_MAX, TriSoA, make_intersectors
 from nrc_tpu_torch.render.renderer import Renderer
+from nrc_tpu_torch.render.scene_device import upload_scene
 from nrc_tpu_torch.scene.scene_builder import cornell_box
 
 pytestmark = pytest.mark.cuda
@@ -197,3 +208,112 @@ def test_renderer_goes_through_the_kernels(cuda, train):
     if train:
         r.flush_stats()
         assert len(r.loss_history) == 3 and int(r.net_state.opt.step) == 12
+
+
+@pytest.mark.parametrize("variant", sorted(GC.VARIANTS))
+@pytest.mark.parametrize("rows,width,n", [(5000, 160, 3001), (300, 160, 64), (1224, 26, 1000),
+                                          (5, 93, 777), (40000, 9, 4097)])
+def test_gathers_match_plain_bit_for_bit(cuda, variant, rows, width, n):
+    """Widths with and without 16-byte rows, a table smaller than the
+    resident variant's stage and one larger, int32 and int64 indices; the
+    table holds every kind of bit pattern (NaNs, infinities, denormals)."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + n)
+    bits = torch.randint(-2**31, 2**31 - 1, (rows, width), generator=gen, device=cuda, dtype=torch.int64)
+    table = bits.to(torch.int32).view(torch.float32)
+    idx = torch.randint(0, rows, (n,), generator=gen, device=cuda)
+    idx[:3] = torch.tensor([0, rows - 1, 0], device=cuda)
+    kernel = GC.VARIANTS[variant]
+    before = kernel.launches
+    out = GC.gather_rows_cuda(kernel, table, idx)
+    out32 = GC.gather_rows_cuda(kernel, table, idx.to(torch.int32))
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    ref = GC.gather_rows_plain(table, idx)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(out32.view(torch.int32), ref.view(torch.int32))
+
+
+def test_gather_wrapper_dispatch_and_refusals(cuda):
+    table = torch.rand((64, 24), device=cuda)
+    idx = torch.arange(10, device=cuda)
+    before = GC.PATH_KERNEL.launches
+    assert torch.equal(GC.gather_rows(table, idx), table[:10])
+    assert GC.PATH_KERNEL.launches == before + 1
+    assert GC.gather_rows(table, idx[:0]).shape == (0, 24)
+    with pytest.raises(TypeError):
+        GC.gather_rows(table.double(), idx)
+    with pytest.raises(ValueError):
+        GC.gather_rows(table.t(), idx)  # not contiguous
+    with pytest.raises(ValueError):
+        GC.gather_rows(table, idx.cpu())
+
+
+def _wide_soup(device, branch, leaf, num_tris=6000, num_rays=5000):
+    rs = np.random.default_rng(branch + leaf)
+    c = rs.random((num_tris, 3)).astype(np.float32) * 10
+    p0, p1, p2 = (c + rs.normal(size=(num_tris, 3)).astype(np.float32) * 0.3 for _ in range(3))
+    p1[11] = p0[11]  # a degenerate triangle
+    bvh = IW.upload_wide_bvh(build_wide_bvh(p0, p1, p2, leaf_size=leaf, branch=branch), device)
+    tris = TriSoA.build(p0, p1, p2, device=device)
+    org = torch.tensor(rs.random((num_rays, 3)) * 10, dtype=torch.float32, device=device)
+    d = torch.tensor(rs.normal(size=(num_rays, 3)), dtype=torch.float32, device=device)
+    d = d / d.norm(dim=-1, keepdim=True)
+    d[:40] = torch.tensor([0.0, 1.0, 0.0], device=device)  # axis-parallel: inv_d = 3e38
+    tmin = torch.zeros(num_rays, device=device)
+    tmin[::7] = 0.5
+    tmax = torch.full((num_rays,), RT_MAX, device=device)
+    tmax[1::5] = torch.tensor(rs.random(len(range(1, num_rays, 5))) * 8.0, dtype=torch.float32, device=device)
+    tmax[::13] = 0.0  # dead lanes
+    return bvh, tris, org, d, tmin, tmax
+
+
+@pytest.mark.parametrize("branch,leaf", [(8, 8), (16, 16), (16, 8)])
+def test_w1_w2_match_plain_walk(cuda, branch, leaf):
+    bvh, tris, org, d, tmin, tmax = _wide_soup(cuda, branch, leaf)
+    n1, n2 = WC.CLOSEST_KERNEL.launches, WC.ANYHIT_KERNEL.launches
+    tk, pk = WC.wide_traverse_cuda(org, d, bvh, tmin, tmax, any_hit=False)
+    _, ok = WC.wide_traverse_cuda(org, d, bvh, tmin, tmax, any_hit=True)
+    tp, pp, fetched = IW.wide_traverse_plain(org, d, bvh, tmin, tmax, any_hit=False)
+    _, op, _ = IW.wide_traverse_plain(org, d, bvh, tmin, tmax, any_hit=True)
+    torch.cuda.synchronize()
+    assert WC.CLOSEST_KERNEL.launches == n1 + 1 and WC.ANYHIT_KERNEL.launches == n2 + 1
+    assert torch.equal(tk, tp)  # the closest t does not depend on the order of the walk
+    assert torch.equal(pk >= 0, pp >= 0) and not (pk[::13] >= 0).any()
+    # another winner only at the same t, which the line above already holds
+    assert (pk == pp).float().mean().item() >= 0.9999
+    assert torch.equal(ok >= 0, op >= 0)
+    assert 0.2 < (pp >= 0).float().mean().item() < 0.9 and fetched > org.shape[0]
+    # and against the brute force K1/K2, which computes t in the plane form:
+    # its numerator cancels, so its error is absolute and grows for grazing rays
+    hit = make_intersectors(tris)[0](org, d, tmin, tmax)
+    same = hit.prim == pk
+    assert same.float().mean().item() > 0.999
+    torch.testing.assert_close(tk[same], hit.t[same], rtol=1e-4, atol=1e-4)
+    occ = make_intersectors(tris)[1](org, d, tmin, tmax)
+    assert ((ok >= 0) == occ).float().mean().item() > 0.999
+
+
+def test_walk_wrapper_refuses_what_the_kernel_was_not_built_for(cuda):
+    bvh, tris, org, d, tmin, tmax = _wide_soup(cuda, 8, 8, num_tris=200, num_rays=64)
+    with pytest.raises(ValueError, match="stack"):
+        WC.wide_traverse_cuda(org, d, bvh._replace(depth=64), tmin, tmax, False)
+    with pytest.raises(ValueError, match="branch"):
+        WC.wide_traverse_cuda(org, d, bvh._replace(branch=4), tmin, tmax, False)
+    with pytest.raises(TypeError):
+        WC.wide_traverse_cuda(org.double(), d, bvh, tmin, tmax, False)
+
+
+def test_renderer_with_a_bvh_goes_through_the_walk(cuda):
+    """The small Cornell box with the BVH attached: W1, W2 and the path's
+    gather are launched, K1 and K2 are not."""
+    scene, system = cornell_box((64, 64))
+    r = Renderer(scene, system, render_mode=RenderMode.FULL, device=cuda)
+    r.device_scene = upload_scene(scene, cuda, use_bvh=True)
+    assert r.device_scene.planes is None
+    kernels = (WC.CLOSEST_KERNEL, WC.ANYHIT_KERNEL, GC.PATH_KERNEL, IC.CLOSEST_KERNEL, IC.ANYHIT_KERNEL)
+    before = [k.launches for k in kernels]
+    r.render(2)
+    after = [k.launches for k in kernels]
+    assert all(a > b for a, b in zip(after[:3], before[:3])) and after[3:] == before[3:]
+    img = r.image_hdr()
+    assert np.isfinite(img).all() and img.std() > 0

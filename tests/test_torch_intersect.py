@@ -190,8 +190,29 @@ def test_cpu_tensors_take_the_plain_version():
     assert PC.CLOSEST_KERNEL._fn is None  # nothing was built
 
 
-def test_large_scenes_refuse_brute_force():
-    n = BVH_THRESHOLD + 1
-    z = torch.zeros(n, 3)
-    with pytest.raises(NotImplementedError):
-        make_intersectors(TriSoA(z, z, z))
+def test_large_scenes_refuse_brute_force(monkeypatch):
+    """Above BVH_THRESHOLD triangles ``upload_scene`` builds the wide BVH and
+    no plane table, and the intersectors made from it never touch the plane
+    form; the small Cornell box stays on brute force."""
+    from nrc_tpu_torch.render.scene_device import upload_scene
+    from nrc_tpu_torch.scene.scene_builder import cornell_objects
+
+    scene, _ = cornell_objects((16, 16))
+    assert scene.num_triangles > BVH_THRESHOLD
+    ds = upload_scene(scene, "cpu")
+    assert ds.bvh is not None and ds.planes is None
+
+    def refuse(*args):
+        raise AssertionError("the plane form was used on a scene with a BVH")
+
+    for name in ("build_plane_table", "intersect_planes", "occluded_planes"):
+        monkeypatch.setattr(PC, name, refuse)
+    closest, occluded = make_intersectors(ds.tris, ds.planes, ds.bvh)
+    org = torch.tensor([[0.0, 0.0, 30.0], [0.0, 0.0, 30.0]])
+    d = torch.tensor([[0.0, 0.0, -1.0], [0.0, 1.0, 0.0]])
+    tmin, tmax = torch.zeros(2), torch.full((2,), RT_MAX)
+    hit = closest(org, d, tmin, tmax)
+    assert hit.prim[0] >= 0 and hit.prim[1] == -1 and abs(float(hit.t[0]) - 40.0) < 1e-4  # the back wall
+    assert occluded(org, d, tmin, tmax).tolist() == [True, False]
+    small = upload_scene(cornell_box((16, 16))[0], "cpu")
+    assert small.bvh is None and small.planes is not None

@@ -135,8 +135,10 @@ class TestUpload:
         jdev = jax_upload_scene(jscene)
         np.testing.assert_array_equal(_np(dev.mat_row), _np(jdev.mat_row))
         assert mat_row_layout(dev.mat_curve_k)[1] == jdev.mat_row.shape[1]
-        np.testing.assert_array_equal(_np(dev.tri_shade), _np(jdev.tri_shade)[:, :24])
-        np.testing.assert_array_equal(_np(dev.tri_meta), _np(jdev.tri_meta))
+        # bit for bit: the last two columns are the bit-cast material and light ids
+        np.testing.assert_array_equal(_np(dev.tri_shade).view(np.int32),
+                                      _np(jdev.tri_shade).view(np.int32))
+        np.testing.assert_array_equal(_np(dev.tri_shade)[:, 24:26].view(np.int32), _np(jdev.tri_meta))
         for f in ("p0", "e1", "e2"):
             np.testing.assert_array_equal(_np(getattr(dev.tris, f)), _np(getattr(jdev.tris, f)))
         jl = jdev.lights
@@ -160,8 +162,9 @@ class TestUpload:
         scene, _, jscene = scenes
         a = upload_scene(scene, CPU)
         b = upload_scene(jscene, CPU)
-        for f in ("planes", "tri_shade", "tri_meta", "mat_row"):
-            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        for f in ("planes", "tri_shade", "mat_row"):
+            # as bits: tri_shade's last columns are bit-cast ids (-1 reads as NaN)
+            assert torch.equal(getattr(a, f).view(torch.int32), getattr(b, f).view(torch.int32)), f
         assert torch.equal(a.lights.light_row, b.lights.light_row)
 
     @pytest.mark.parametrize(

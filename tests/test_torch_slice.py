@@ -38,6 +38,7 @@ spread 10% wider, the query position 1% off, and light samples not uniform
 over the triangle each exceed at least one bound by 5x or more.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -95,25 +96,32 @@ def _recording_jax_infer(fn):
     return wrapped
 
 
-def _interpret_plane_intersectors(tris, bvh=None):
-    planes = JP.build_plane_table(tris)
-
-    def closest(o, d, tn, tf):
-        hit = JP.intersect_planes(o, d, planes, tris, tn, tf, interpret=True)
+def _logging_jax_intersectors(closest, occluded):
+    """Log every closest-hit and shadow ray of the JAX frame."""
+    def closest_rec(o, d, tn, tf):
+        hit = closest(o, d, tn, tf)
         jax.debug.callback(_jax_log("closest"), tf, d, hit.t, hit.prim, ordered=True)
         return hit
 
-    def occluded(o, d, tn, tf):
-        occ = JP.occluded_planes(o, d, planes, tn, tf, interpret=True)
+    def occluded_rec(o, d, tn, tf):
+        occ = occluded(o, d, tn, tf)
         jax.debug.callback(_jax_log("shadow"), tf, occ, ordered=True)
         return occ
 
-    return closest, occluded
+    return closest_rec, occluded_rec
+
+
+def _interpret_plane_intersectors(tris, bvh=None):
+    planes = JP.build_plane_table(tris)
+    return _logging_jax_intersectors(
+        lambda o, d, tn, tf: JP.intersect_planes(o, d, planes, tris, tn, tf, interpret=True),
+        lambda o, d, tn, tf: JP.occluded_planes(o, d, planes, tn, tf, interpret=True),
+    )
 
 
 def _recording_port_intersectors(make):
-    def make_recording(tris, planes):
-        closest, occluded = make(tris, planes)
+    def make_recording(tris, planes, bvh=None):
+        closest, occluded = make(tris, planes, bvh)
 
         def closest_rec(o, d, tn, tf):
             hit = closest(o, d, tn, tf)
@@ -138,30 +146,44 @@ def _recording(fn, key):
     return wrapped
 
 
-@pytest.fixture(scope="module")
-def setup():
+@contextlib.contextmanager
+def recording_frames(jax_make_intersectors):
+    """Both packages' frames with their intersectors, wavefront outputs and
+    cache inference recorded; the JAX frame takes ``jax_make_intersectors``."""
     prev = jax.config.jax_enable_compilation_cache
     jax.config.update("jax_enable_compilation_cache", False)  # see test_torch_mlp.py
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_integrator, "make_intersectors", _interpret_plane_intersectors)
-        mp.setattr(jax_frame, "trace_wavefront_chunked",
-                   _recording_jax_wavefront(jax_frame.trace_wavefront_chunked))
-        mp.setattr(jax_network, "infer", _recording_jax_infer(jax_network.infer))
-        mp.setattr(port_integrator, "make_intersectors",
-                   _recording_port_intersectors(port_integrator.make_intersectors))
-        mp.setattr(port_frame, "trace_wavefront",
-                   _recording(port_frame.trace_wavefront, "wavefront"))
-        mp.setattr(port_network, "infer", _recording(port_network.infer, "cache"))
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_integrator, "make_intersectors", jax_make_intersectors)
+            mp.setattr(jax_frame, "trace_wavefront_chunked",
+                       _recording_jax_wavefront(jax_frame.trace_wavefront_chunked))
+            mp.setattr(jax_network, "infer", _recording_jax_infer(jax_network.infer))
+            mp.setattr(port_integrator, "make_intersectors",
+                       _recording_port_intersectors(port_integrator.make_intersectors))
+            mp.setattr(port_frame, "trace_wavefront",
+                       _recording(port_frame.trace_wavefront, "wavefront"))
+            mp.setattr(port_network, "infer", _recording(port_network.infer, "cache"))
+            yield mp
+    finally:
+        jax.config.update("jax_enable_compilation_cache", prev)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    with recording_frames(_interpret_plane_intersectors):
         scene, system = cornell_box(RES)
         yield scene, system, jax_cornell_scene(RES)
-    jax.config.update("jax_enable_compilation_cache", prev)
 
 
-def _pair(setup, mode):
+def _pair(setup, mode, attach=None):
+    """One JAX and one port renderer with the same weights; ``attach(jr, pr)``
+    may replace their device scenes before the first frame."""
     scene, system, jscene = setup
     jr = JRenderer(jscene, system, render_mode=mode, train=False)
     pr = Renderer(scene, system, render_mode=mode, train=False, device="cpu")
     pr.net_state = state_from_numpy(jax.tree.map(np.asarray, jr.net_state))
+    if attach is not None:
+        attach(jr, pr)
     return jr, pr
 
 

@@ -13,6 +13,7 @@ explains why a few rays flip (grazing shadow rays that hit their own
 triangle on one side only).
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -72,25 +73,39 @@ def _port_assemble_with_jax_batches(fn):
     return wrapped
 
 
-@pytest.fixture(scope="module")
-def setup():
+@contextlib.contextmanager
+def training_pair(jax_make_intersectors, attach=None):
+    """A JAX and a port FULL + train renderer with the same weights, both
+    sides' intersector decisions logged, the port training on the JAX
+    frame's batches. The JAX frame takes ``jax_make_intersectors``;
+    ``attach(jr, pr)`` may replace the device scenes before the first frame."""
     prev = jax.config.jax_enable_compilation_cache
     jax.config.update("jax_enable_compilation_cache", False)  # see test_torch_mlp.py
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_integrator, "make_intersectors", _interpret_plane_intersectors)
-        mp.setattr(port_integrator, "make_intersectors",
-                   _recording_port_intersectors(port_integrator.make_intersectors))
-        mp.setattr(jax_frame, "assemble_training_batches",
-                   _recording_jax_assemble(jax_frame.assemble_training_batches))
-        mp.setattr(port_frame, "assemble_training_batches",
-                   _port_assemble_with_jax_batches(port_frame.assemble_training_batches))
-        scene, system = _system()
-        jscene = jax_cornell_scene(RES)
-        jr = JRenderer(jscene, system, render_mode=RenderMode.FULL, train=True, adaptive_tiles=False)
-        pr = Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device="cpu")
-        pr.net_state = N.state_from_numpy(jax.tree.map(np.asarray, jr.net_state))
-        yield jr, pr
-    jax.config.update("jax_enable_compilation_cache", prev)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_integrator, "make_intersectors", jax_make_intersectors)
+            mp.setattr(port_integrator, "make_intersectors",
+                       _recording_port_intersectors(port_integrator.make_intersectors))
+            mp.setattr(jax_frame, "assemble_training_batches",
+                       _recording_jax_assemble(jax_frame.assemble_training_batches))
+            mp.setattr(port_frame, "assemble_training_batches",
+                       _port_assemble_with_jax_batches(port_frame.assemble_training_batches))
+            scene, system = _system()
+            jscene = jax_cornell_scene(RES)
+            jr = JRenderer(jscene, system, render_mode=RenderMode.FULL, train=True, adaptive_tiles=False)
+            pr = Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device="cpu")
+            pr.net_state = N.state_from_numpy(jax.tree.map(np.asarray, jr.net_state))
+            if attach is not None:
+                attach(jr, pr)
+            yield jr, pr
+    finally:
+        jax.config.update("jax_enable_compilation_cache", prev)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    with training_pair(_interpret_plane_intersectors) as pair:
+        yield pair
 
 
 def _flipped(calls_jax, calls_port, n):
@@ -215,43 +230,49 @@ SLICE_LIMITS = {
 }
 
 
+def train_frame_readings(jr, pr, subframe) -> dict:
+    """One FULL + train frame on both sides, from the JAX state."""
+    _LOG["jax"].clear()
+    _LOG["port"].clear()
+    for r in (jr, pr):
+        r.restart_accumulation()
+        assert r.total_subframe == subframe
+    # each frame starts from the JAX state: the comparison is one frame's
+    # worth of training, not the drift of the frames before
+    pr.net_state = N.state_from_numpy(jax.tree.map(np.asarray, jr.net_state))
+    jstats = jr.render_frame()
+    ref = np.asarray(jr.image)
+    jax.effects_barrier()
+    pstats = pr.render_frame()
+    out = pr.image.numpy()
+    assert np.isfinite(out).all() and out.std() > 0.0
+    assert int(pr.net_state.opt.step) == int(jr.net_state.opt.step) == 4 * (subframe + 1)
+    keep = ~_flipped(_LOG["jax"], _LOG["port"], RES[0] * RES[1])
+    got = {
+        "flipped_share": 1.0 - keep.mean(),
+        "image_kept_abs": np.abs(out - ref)[keep].max(),
+        "image_kept_mean_rel": abs(out[keep].mean() / ref[keep].mean() - 1.0),
+        "loss_rel": abs(float(pstats.loss) / float(jstats.loss) - 1.0),
+        "records_gap": abs(int(pstats.num_train_records) - int(jstats.num_train_records)),
+        "image_mean_rel": abs(out.mean() / ref.mean() - 1.0),
+        "ema_abs": 0.0,
+        "ema_mean_abs": 0.0,
+        "params_abs": 0.0,
+    }
+    assert int(jstats.num_train_records) > 0
+    port_state = N.state_to_numpy(pr.net_state)
+    for name in ("w_in", "w_hidden", "w_out"):
+        d = np.abs(port_state[f"ema.{name}"] - np.asarray(getattr(jr.net_state.ema, name)))
+        got["ema_abs"] = max(got["ema_abs"], d.max())
+        got["ema_mean_abs"] = max(got["ema_mean_abs"], d.mean())
+        d = np.abs(port_state[f"params.{name}"] - np.asarray(getattr(jr.net_state.params, name)))
+        got["params_abs"] = max(got["params_abs"], d.max())
+    return got
+
+
 def test_full_train_frames_match_jax(setup):
     jr, pr = setup
     for subframe in range(3):
-        _LOG["jax"].clear()
-        _LOG["port"].clear()
-        for r in (jr, pr):
-            r.restart_accumulation()
-            assert r.total_subframe == subframe
-        # each frame starts from the JAX state: the comparison is one frame's
-        # worth of training, not the drift of the frames before
-        pr.net_state = N.state_from_numpy(jax.tree.map(np.asarray, jr.net_state))
-        jstats = jr.render_frame()
-        ref = np.asarray(jr.image)
-        jax.effects_barrier()
-        pstats = pr.render_frame()
-        out = pr.image.numpy()
-        assert np.isfinite(out).all() and out.std() > 0.0
-        assert int(pr.net_state.opt.step) == int(jr.net_state.opt.step) == 4 * (subframe + 1)
-        keep = ~_flipped(_LOG["jax"], _LOG["port"], RES[0] * RES[1])
-        got = {
-            "flipped_share": 1.0 - keep.mean(),
-            "image_kept_abs": np.abs(out - ref)[keep].max(),
-            "image_kept_mean_rel": abs(out[keep].mean() / ref[keep].mean() - 1.0),
-            "loss_rel": abs(float(pstats.loss) / float(jstats.loss) - 1.0),
-            "records_gap": abs(int(pstats.num_train_records) - int(jstats.num_train_records)),
-            "image_mean_rel": abs(out.mean() / ref.mean() - 1.0),
-            "ema_abs": 0.0,
-            "ema_mean_abs": 0.0,
-            "params_abs": 0.0,
-        }
-        assert int(jstats.num_train_records) > 0
-        port_state = N.state_to_numpy(pr.net_state)
-        for name in ("w_in", "w_hidden", "w_out"):
-            d = np.abs(port_state[f"ema.{name}"] - np.asarray(getattr(jr.net_state.ema, name)))
-            got["ema_abs"] = max(got["ema_abs"], d.max())
-            got["ema_mean_abs"] = max(got["ema_mean_abs"], d.mean())
-            d = np.abs(port_state[f"params.{name}"] - np.asarray(getattr(jr.net_state.params, name)))
-            got["params_abs"] = max(got["params_abs"], d.max())
+        got = train_frame_readings(jr, pr, subframe)
         over = {k: (v, SLICE_LIMITS[k]) for k, v in got.items() if not v <= SLICE_LIMITS[k]}
         assert not over, f"frame {subframe}: readings over their limits: {over}"
