@@ -22,7 +22,11 @@ Phases, each of which raises on failure (non-zero exit):
    FULL then NO_CACHE, ``train=False``, frequency encoding 64x5 from a seeded
    init, 8 timed frames each;
 6. training slice: FULL + train at 320x320 (the main path): frames until the
-   adaptive tile size settles, then 8 timed frames;
+   adaptive tile size settles, then 8 timed frames; then one more frame with
+   the inputs of every K1 and K2 launch recorded (lanes and live lanes of each
+   are printed), K1 and K2 held against their plain versions on each recorded
+   set, dead lanes included, and timed on it: the sum over the frame's
+   launches is the frame-weighted time, beside the bound of its live rays;
 7. large scene: FULL + train at 320x320 on ``cornell_objects`` (the wide
    BVH path): frames until the tile size settles, then 8 timed frames; W1,
    W2 and the path's gather must run, K1 and K2 must not;
@@ -84,7 +88,8 @@ def _rel(got, ref) -> float:
 
 # NVIDIA's data sheet for the H100 SXM: the rates the bounds are taken against
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12     # float32 outside the tensor cores
+F32_OPS_PER_S = 67e12     # float32 outside the tensor cores, a fused multiply-add counted as two
+F32_UNFUSED_OPS_PER_S = 33.5e12  # the same lanes issuing separate multiplies and adds
 BF16_OPS_PER_S = 989e12   # dense bf16 on the tensor cores
 
 
@@ -94,56 +99,6 @@ def _bound(nbytes, ops, ops_per_s):
     type, whichever is larger."""
     by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / ops_per_s
     return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations")
-
-
-def _ray_sets(r, first_t, gen):
-    """Ray sets of r's frame on the card: the camera rays and random rays from
-    their hit points (closest hit); shadow rays to random points of the mesh
-    lights and random segments (any hit). ``first_t(org, d, tmin, tmax)``
-    gives the camera rays' hit distances."""
-    import torch
-
-    from nrc_tpu_torch.ops.intersect import RT_MAX
-    from nrc_tpu_torch.render.frame import pixel_grid
-    from nrc_tpu_torch.scene.camera import generate_primary_rays
-    from nrc_tpu_torch.utils import rng as R
-
-    dev, n = r.device, r.cfg.num_pixels
-    pix, pidx = pixel_grid(r.cfg, dev)
-    _, jitter = R.rng2(R.tea(pidx, 0))
-    org, d = generate_primary_rays(pix, jitter, (r.cfg.width, r.cfg.height), *r._camera_arrays())
-    zeros = torch.zeros(n, device=dev)
-    far = torch.full((n,), RT_MAX, device=dev)
-    t_cam = first_t(org, d, zeros, far)
-    p_hit = torch.where((t_cam < RT_MAX)[:, None], org + t_cam[:, None] * d, org).contiguous()
-    d2 = torch.randn((n, 3), generator=gen, device=dev)
-    d2 = (d2 / d2.norm(dim=-1, keepdim=True)).contiguous()
-    eps = torch.full((n,), r.cfg.scene_epsilon, device=dev)
-    pool = r.device_scene.lights.mesh_row
-    light = pool[torch.randint(0, pool.shape[0], (n,), generator=gen, device=dev)]
-    uv = torch.rand((n, 2), generator=gen, device=dev)
-    su = uv[:, :1].sqrt()
-    target = (1 - su) * light[:, 0:3] + uv[:, 1:] * su * light[:, 3:6] + (su - uv[:, 1:] * su) * light[:, 6:9]
-    to_light = target - p_hit
-    dist = to_light.norm(dim=-1)
-    return {
-        "closest": [(org, d, zeros, far), (p_hit, d2, eps, far)],
-        "any": [(p_hit, (to_light / dist[:, None]).contiguous(), eps, (dist - r.cfg.scene_epsilon).contiguous()),
-                (p_hit, d2, eps, torch.rand((n,), generator=gen, device=dev) * 25.0)],
-    }
-
-
-def _settle_tiles(r):
-    """Render until the adaptive tile size has held for four frames (it
-    follows the record count two frames late); returns the sizes seen."""
-    sizes = [r.cfg.tile_size]
-    for _ in range(12):
-        r.render_frame()
-        sizes.append(r.cfg.tile_size)
-        if len(sizes) > 4 and len(set(sizes[-4:])) == 1:
-            break
-    _check(len(set(sizes[-4:])) == 1, f"the tile size did not settle: {sizes}")
-    return sizes
 
 
 def _counted(kernels, names, fn):
@@ -170,10 +125,12 @@ def main() -> int:
     from nrc_tpu_torch.ops import intersect_wide_cuda as WC
     from nrc_tpu_torch.ops import mlp_cuda as MC
     from nrc_tpu_torch.ops.bvh_wide import build_wide_bvh
+    from nrc_tpu_torch.ops.intersect import RT_MAX
     from nrc_tpu_torch.render.renderer import Renderer
     from nrc_tpu_torch.render.scene_device import upload_scene
     from nrc_tpu_torch.scene.scene_builder import cornell_box, cornell_objects
     from nrc_tpu_torch.tools import bench_gather
+    from nrc_tpu_torch.tools import bench_intersect as BI
     from nrc_tpu_torch.utils.tonemap import tonemap
 
     # plain references in full float32 (PyTorch's defaults, stated here)
@@ -238,7 +195,7 @@ def main() -> int:
     ds = r.device_scene
     n = r.cfg.num_pixels
     gen = torch.Generator(device=dev).manual_seed(1)
-    sets = _ray_sets(r, lambda o, dd, tn, tf: IC.closest_plain(o, dd, ds.planes, tn, tf)[0], gen)
+    sets = BI.ray_sets(r, lambda o, dd, tn, tf: IC.closest_plain(o, dd, ds.planes, tn, tf)[0], gen)
     report = {}
     prim_agree, t_err, occ_agree = [], 0.0, []
     for o, dd, tn, tf in sets["closest"]:
@@ -273,25 +230,28 @@ def main() -> int:
         max_abs_err=t_err,
         ms=_time_ms(lambda: IC.closest_cuda(o, dd, ds.planes, tn, tf)),
         plain_ms=_time_ms(lambda: IC.closest_plain(o, dd, ds.planes, tn, tf), iters=5),
-        **_bound(n * (32 + 8) + table_bytes, int((tf > tn).sum()) * num_tris * pair_ops, F32_OPS_PER_S),
+        **_bound(n * (32 + 12) + table_bytes, int((tf > tn).sum()) * num_tris * pair_ops, F32_OPS_PER_S),
         library_ms=None,
     )
     o, dd, tn, tf = sets["any"][0]
     occ_k = IC.occluded_cuda(o, dd, ds.planes, tn, tf)
     occ_p = IC.occluded_plain(o, dd, ds.planes, tn, tf)
-    pairs = 0
-    for c0, c1 in IC._chunks(n, num_tris):
-        _, hit = IC._tile_hits(o[c0:c1], dd[c0:c1], ds.planes, tn[c0:c1], tf[c0:c1])
-        first = torch.where(hit.any(dim=1), hit.int().argmax(dim=1) + 1, num_tris)
-        pairs += int(first[tf[c0:c1] > tn[c0:c1]].sum())
+    pairs = BI.pairs_to_first_hit((o, dd, tn, tf), ds.planes)
     report["occluded_planes"] = dict(
         max_abs_err=(occ_k.float() - occ_p.float()).abs().max().item(),
         ms=_time_ms(lambda: IC.occluded_cuda(o, dd, ds.planes, tn, tf)),
         plain_ms=_time_ms(lambda: IC.occluded_plain(o, dd, ds.planes, tn, tf), iters=5),
-        **_bound(n * (32 + 4) + table_bytes, pairs * pair_ops, F32_OPS_PER_S),
+        **_bound(n * (32 + 1) + table_bytes, pairs * pair_ops, F32_OPS_PER_S),
         library_ms=None,
     )
     print(f"K2 bound: {pairs} ray-triangle pairs up to each ray's first hit, of {n * num_tris}")
+    # The kernels keep the plain version's operation order, so they may not fuse
+    # a multiply with its add: at that rate the same operations take twice as long.
+    for name in ("intersect_planes", "occluded_planes"):
+        fused = report[name]["bound_ms"]
+        print(f"{name} on the all-live set: {report[name]['ms']:.4f} ms; bound {fused:.4f} ms at the fused "
+              f"multiply-add rate ({F32_OPS_PER_S / 1e12:g} TFLOP/s), {fused * F32_OPS_PER_S / F32_UNFUSED_OPS_PER_S:.4f} "
+              f"ms at the separate multiply and add rate ({F32_UNFUSED_OPS_PER_S / 1e12:g} T operations/s)")
 
     ema = r.net_state.ema
     w = (ema.w_in, ema.w_hidden, ema.w_out)
@@ -445,7 +405,7 @@ def main() -> int:
     # error is absolute and grows as 1 / (n.d): a grazing ray on one of the
     # tessellated objects' small triangles reads a few 1e-4 off.
     bvh = dsb.bvh
-    big_sets = _ray_sets(rb, lambda o, dd, tn, tf: WC.wide_traverse_cuda(o, dd, bvh, tn, tf, False)[0], gen)
+    big_sets = BI.ray_sets(rb, lambda o, dd, tn, tf: WC.wide_traverse_cuda(o, dd, bvh, tn, tf, False)[0], gen)
     big_planes = IC.build_plane_table(dsb.tris)
     row_bytes = bvh.rows.shape[1] * 4
     w_err, w_fetched, w_plain_ms = 0.0, [], []
@@ -551,7 +511,7 @@ def main() -> int:
 
     # ---- 6. training slice: FULL + train, the main path ------------------------
     rt = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
-    sizes = _settle_tiles(rt)
+    sizes = BI.settle_tiles(rt)
     trained, counts = _counted(kernels, kernels, lambda: rt.benchmark(8))
     rt.flush_stats()
     for name in ("intersect_planes", "occluded_planes", "fused_forward", "fused_train_grad", "fused_train4"):
@@ -568,8 +528,59 @@ def main() -> int:
           f"{rt.image.mean().item():.4f}, launches {counts}")
     print(f"FULL + train loss curve (per frame): {[round(v, 4) for v in rt.loss_history]}")
 
+    # ---- 6b. the sparse ray sets of that frame: every K1 and K2 launch recorded ----
+    # The integrator launches over all lanes at every bounce and marks a dead
+    # lane with an empty t range; the kernels compact the live ones. Each
+    # recorded set is held against the plain version under the limits of the
+    # all-live sets, and a dead lane must read RT_MAX, -1 or False.
+    recorded = BI.record_frame_launches(rt)
+    torch.cuda.synchronize()
+    _check({kind for kind, _ in recorded} == {"K1", "K2"}, "the recorded frame did not launch K1 and K2")
+    frame = {kind: dict(launches=0, lanes=0, live=0, ms=0.0, fused=0.0, unfused=0.0) for kind in ("K1", "K2")}
+    for i, (kind, rays) in enumerate(recorded):
+        o, dd, tn, tf = rays
+        live = tf > tn
+        lanes, n_live = o.shape[0], int(live.sum())
+        if kind == "K1":
+            tk, pk = IC.closest_cuda(o, dd, ds.planes, tn, tf)
+            tp, pp = IC.closest_plain(o, dd, ds.planes, tn, tf)
+            agree = (pk == pp).float().mean().item()
+            both = (pk == pp) & (pk >= 0)
+            rel = ((tk - tp).abs() / tp.abs())[both].max().item() if bool(both.any()) else 0.0
+            dead_ok = bool((pk[~live] == -1).all()) and bool((tk[~live] == RT_MAX).all())
+            _check(rel <= 1e-5, f"launch {i}: K1 t rel err {rel} > 1e-5")
+            pairs = n_live * num_tris
+            ms = BI.device_ms(lambda: IC.closest_cuda(o, dd, ds.planes, tn, tf))
+        else:
+            ok = IC.occluded_cuda(o, dd, ds.planes, tn, tf)
+            op = IC.occluded_plain(o, dd, ds.planes, tn, tf)
+            agree = (ok == op).float().mean().item()
+            dead_ok = not bool(ok[~live].any())
+            pairs = BI.pairs_to_first_hit(rays, ds.planes)
+            ms = BI.device_ms(lambda: IC.occluded_cuda(o, dd, ds.planes, tn, tf))
+        _check(agree >= 0.9999, f"launch {i}: {kind} disagrees with the plain version ({agree})")
+        _check(dead_ok, f"launch {i}: a dead lane of {kind} does not read as a miss")
+        nbytes = lanes * (32 + (12 if kind == "K1" else 1)) + table_bytes  # t f32 + prim i64, or one byte
+        fused = _bound(nbytes, pairs * pair_ops, F32_OPS_PER_S)["bound_ms"]
+        unfused = _bound(nbytes, pairs * pair_ops, F32_UNFUSED_OPS_PER_S)["bound_ms"]
+        print(f"launch {i:2d} {kind}: {lanes} lanes, {n_live} live ({n_live / lanes:.4f}), agreement {agree:.6f}, "
+              f"{ms:.4f} ms, bound {fused:.4f} ms")
+        tot = frame[kind]
+        tot["launches"] += 1
+        tot["lanes"] += lanes
+        tot["live"] += n_live
+        tot["ms"] += ms
+        tot["fused"] += fused
+        tot["unfused"] += unfused
+    for kind, tot in frame.items():
+        print(f"{kind} over the frame: {tot['launches']} launches, {tot['lanes']} lanes, {tot['live']} live "
+              f"({tot['live'] / tot['lanes']:.4f}); frame-weighted {tot['ms']:.4f} ms; bound of its live rays "
+              f"{tot['fused']:.4f} ms at the fused multiply-add rate, {tot['unfused']:.4f} ms at the separate "
+              f"multiply and add rate")
+    del recorded
+
     # ---- 7. the large scene: FULL + train through the wide BVH -------------------
-    sizes = _settle_tiles(rb)
+    sizes = BI.settle_tiles(rb)
     big, counts = _counted(kernels, kernels, lambda: rb.benchmark(8))
     rb.flush_stats()
     for name in ("wbvh_closest", "wbvh_any", path_gather, "fused_forward", "fused_train_grad", "fused_train4"):

@@ -18,6 +18,23 @@ holds the same numbers.
 Device rule: on CUDA tensors ``intersect_planes``/``occluded_planes`` launch
 ``csrc/intersect_planes.cu`` or raise; on CPU tensors they run the plain
 versions below, which compute the same arithmetic in the same order.
+
+The kernels K1/K2 (one templated CUDA kernel) replace the TPU kernels
+``intersect_planes`` and ``occluded_planes``. On an H100 they are bound by
+arithmetic, and most lanes the integrator hands them are dead (an empty
+t range marks an inactive ray; about 16 % of a training frame's lanes are
+live). The kernel therefore compacts the live rays of each 128-lane span
+into shared memory and writes the miss result of the dead lanes itself; a
+warp then holds 32 triangles in registers and streams the span's rays past
+them, so a span with one live ray still spreads over all its threads. A
+sign test on two fused multiply-adds, which can never reject a pair whose
+t lies in the range, decides whether any lane of the warp needs the
+division and the u, v planes at all. That exact path runs the operations
+of ``_tile_hits`` in their order (the source is built with ``-fmad=false``),
+so t and the winners equal the plain version's bit for bit; letting the
+sums contract into FMA was measured and not shipped (``PERF.md`` §6). The
+kernel writes int64 winners and one byte per ray into a ``torch.bool``
+tensor, so no PyTorch kernel follows it.
 """
 
 from __future__ import annotations
@@ -37,13 +54,13 @@ _PLAIN_CHUNK_ELEMS = 1 << 22
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+CLOSEST_ARGS = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P]
+ANYHIT_ARGS = [_P, _P, _P, _P, _P, _I, _I, _P, _P]
 CLOSEST_KERNEL = CudaKernel(
-    "intersect_planes.cu", "nrc_planes_closest",
-    [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P], extra_flags=("-fmad=false",),
+    "intersect_planes.cu", "nrc_planes_closest", CLOSEST_ARGS, extra_flags=("-fmad=false",),
 )
 ANYHIT_KERNEL = CudaKernel(
-    "intersect_planes.cu", "nrc_planes_any",
-    [_P, _P, _P, _P, _P, _I, _I, _P, _P], extra_flags=("-fmad=false",),
+    "intersect_planes.cu", "nrc_planes_any", ANYHIT_ARGS, extra_flags=("-fmad=false",),
 )
 
 
@@ -149,26 +166,26 @@ def closest_cuda(org, direction, planes, tmin, tmax):
     org, direction, planes, tmin, tmax = _kernel_inputs(org, direction, planes, tmin, tmax)
     n = org.shape[0]
     t = torch.empty((n,), dtype=torch.float32, device=org.device)
-    prim = torch.empty((n,), dtype=torch.int32, device=org.device)
+    prim = torch.empty((n,), dtype=torch.int64, device=org.device)
     if n:
         CLOSEST_KERNEL.launch(
             ptr(org), ptr(direction), ptr(tmin), ptr(tmax), ptr(planes),
             n, planes.shape[0], ptr(t), ptr(prim), current_stream(org.device),
         )
-    return t, prim.long()
+    return t, prim
 
 
 def occluded_cuda(org, direction, planes, tmin, tmax):
     """K2 on the card -> bool [N]."""
     org, direction, planes, tmin, tmax = _kernel_inputs(org, direction, planes, tmin, tmax)
     n = org.shape[0]
-    occ = torch.empty((n,), dtype=torch.int32, device=org.device)
+    occ = torch.empty((n,), dtype=torch.bool, device=org.device)  # one byte each, 0 or 1
     if n:
         ANYHIT_KERNEL.launch(
             ptr(org), ptr(direction), ptr(tmin), ptr(tmax), ptr(planes),
             n, planes.shape[0], ptr(occ), current_stream(org.device),
         )
-    return occ != 0
+    return occ
 
 
 def _on_cuda(org: torch.Tensor) -> bool:

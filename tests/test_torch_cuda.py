@@ -60,21 +60,30 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _soup(device, num_tris=1000, num_rays=3000):
-    """1000 triangles (a ragged last shared-memory chunk), ray count not a
-    multiple of the block, one degenerate triangle, some inactive lanes."""
+def _soup(device, num_tris=1000, num_rays=3000, live_share=None, twin=None):
+    """1000 triangles (a ragged last group of 32), ray count not a multiple
+    of the block, one degenerate triangle, some inactive lanes: every fifth,
+    or with ``live_share`` all but that share, scattered. ``twin=(a, b)``
+    makes triangle b a copy of triangle a."""
     rs = np.random.default_rng(0)
     p0 = rs.uniform(-2, 2, (num_tris, 3)).astype(np.float32)
     p1 = (p0 + rs.normal(size=p0.shape) * 0.5).astype(np.float32)
     p2 = (p0 + rs.normal(size=p0.shape) * 0.5).astype(np.float32)
-    p1[7] = p0[7]
+    if num_tris > 7:
+        p1[7] = p0[7]
+    if twin is not None:
+        for p in (p0, p1, p2):
+            p[twin[1]] = p[twin[0]]
     tris = TriSoA.build(p0, p1, p2, device=device)
     org = torch.tensor(rs.uniform(-3, 3, (num_rays, 3)), dtype=torch.float32, device=device)
     d = torch.tensor(rs.normal(size=(num_rays, 3)), dtype=torch.float32, device=device)
     d = d / d.norm(dim=-1, keepdim=True)
     tmin = torch.zeros(num_rays, device=device)
     tmax = torch.full((num_rays,), RT_MAX, device=device)
-    tmax[::5] = 0.0
+    if live_share is None:
+        tmax[::5] = 0.0
+    else:
+        tmax[torch.tensor(rs.random(num_rays) >= live_share, device=device)] = 0.0
     return tris, IC.build_plane_table(tris), org, d, tmin, tmax
 
 
@@ -91,6 +100,46 @@ def test_k1_k2_match_plain(cuda):
     assert torch.equal(hit.t, t_ref)  # same operations in the same order
     assert torch.equal(occ, occ_ref)
     assert 0.1 < (prim_ref >= 0).float().mean().item() < 0.9
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(live_share=0.16), dict(live_share=0.0), dict(num_rays=1, live_share=1.0),
+    dict(num_rays=1025), dict(num_tris=1), dict(num_tris=257), dict(num_tris=33, num_rays=100, live_share=0.5),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_k1_k2_sparse_and_ragged_sets_match_plain(cuda, kwargs):
+    """Scattered dead lanes, blocks with one live ray or none, a ray count one
+    past a multiple of every block size, one triangle, and one triangle past
+    a multiple of the 32 a warp holds: equal to the plain version bit for bit
+    (the same operations in the same order); dead lanes read RT_MAX, -1 and
+    False."""
+    tris, planes, org, d, tmin, tmax = _soup(cuda, **kwargs)
+    org = torch.where((tmax > tmin)[:, None], org, torch.full_like(org, float("nan")))
+    t, prim = IC.closest_cuda(org, d, planes, tmin, tmax)
+    t_ref, prim_ref = IC.closest_plain(org, d, planes, tmin, tmax)
+    occ = IC.occluded_cuda(org, d, planes, tmin, tmax * 0.5)
+    occ_ref = IC.occluded_plain(org, d, planes, tmin, tmax * 0.5)
+    torch.cuda.synchronize()
+    assert prim.dtype == torch.int64 and occ.dtype == torch.bool
+    assert torch.equal(prim, prim_ref) and torch.equal(t, t_ref) and torch.equal(occ, occ_ref)
+    dead = ~(tmax > tmin)
+    assert bool((prim[dead] == -1).all()) and bool((t[dead] == RT_MAX).all()) and not bool(occ[dead].any())
+
+
+@pytest.mark.parametrize("twin", [(3, 900), (40, 41), (100, 5)])
+def test_k1_ties_go_to_the_lowest_triangle(cuda, twin):
+    """Two coplanar copies of one triangle, in different groups of 32 (held
+    by different warps), side by side in one group, and the copy first: every
+    ray that hits the pair reports the lower index, as the plain version."""
+    tris, planes, org, d, tmin, tmax = _soup(cuda, twin=twin, live_share=1.0)
+    # aim a fifth of the rays at the twin's centroid
+    centre = (tris.p0[twin[0]] + (tris.e1[twin[0]] + tris.e2[twin[0]]) / 3.0)
+    d[::5] = centre - org[::5]
+    d = d / d.norm(dim=-1, keepdim=True)
+    t, prim = IC.closest_cuda(org, d, planes, tmin, tmax)
+    t_ref, prim_ref = IC.closest_plain(org, d, planes, tmin, tmax)
+    torch.cuda.synchronize()
+    assert torch.equal(prim, prim_ref) and torch.equal(t, t_ref)
+    assert int((prim == min(twin)).sum()) > 10 and not bool((prim == max(twin)).any())
 
 
 def test_k3_matches_plain(cuda):

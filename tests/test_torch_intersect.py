@@ -216,3 +216,88 @@ def test_large_scenes_refuse_brute_force(monkeypatch):
     assert occluded(org, d, tmin, tmax).tolist() == [True, False]
     small = upload_scene(cornell_box((16, 16))[0], "cpu")
     assert small.bvh is None and small.planes is not None
+
+
+# ---- scattered dead lanes: what the card's kernels compact away ---------------
+
+SPARSE_RAYS = 1300  # neither a multiple of 1024 nor of any block of rays
+SPARSE_CASES = {"all_live": 1.0, "live_16_percent": 0.16, "one_live": None, "none_live": 0.0}
+
+
+@pytest.fixture(scope="module", params=sorted(SPARSE_CASES))
+def sparse_case(request):
+    """The soup's rays with only a scattered share of lanes alive. A dead lane
+    has an empty t range (tmax = 0, as the integrator marks it) and carries
+    an origin of NaN or +-infinity, which must not leak into its result or
+    into a neighbour's."""
+    (p0, p1, p2), org, d, tmin, tmax = _random_soup(4, num_rays=SPARSE_RAYS)
+    rs = np.random.default_rng(5)
+    share = SPARSE_CASES[request.param]
+    if share is None:
+        planes = PC.build_plane_table(TriSoA.build(p0, p1, p2))
+        hits = PC.closest_plain(*(torch.from_numpy(x) for x in (org, d)), planes,
+                                torch.zeros(SPARSE_RAYS), torch.full((SPARSE_RAYS,), RT_MAX))[1] >= 0
+        live = np.zeros(SPARSE_RAYS, bool)
+        live[1025 + int(np.argmax(hits.numpy()[1025:]))] = True  # a ray that hits, past the first 1024 lanes
+    else:
+        live = rs.random(SPARSE_RAYS) < share
+    tmin = np.where(rs.random(SPARSE_RAYS) < 0.5, 0.0, 5e-5).astype(np.float32)
+    tmax = np.where(live, RT_MAX, 0.0).astype(np.float32)
+    poison = np.asarray([np.nan, np.inf, -np.inf], np.float32)[rs.integers(0, 3, SPARSE_RAYS)]
+    org = np.where(live[:, None], org, poison[:, None]).astype(np.float32)
+    jtris = JTriSoA.build(p0, p1, p2)
+    jplanes = JP.build_plane_table(jtris)
+    t = torch.from_numpy
+    return dict(name=request.param, live=live, jtris=jtris, jplanes=jplanes, tris=TriSoA.build(p0, p1, p2),
+                planes=planes_from_tpu_layout(jplanes), org=org, d=d, tmin=tmin, tmax=tmax,
+                torg=t(org), td=t(d), ttmin=t(tmin), ttmax=t(tmax))
+
+
+def test_closest_hit_with_dead_lanes_matches_tpu_kernel(sparse_case):
+    c = sparse_case
+    ref = JP.intersect_planes(c["org"], c["d"], c["jplanes"], c["jtris"], c["tmin"], c["tmax"],
+                              interpret=True)
+    out = PC.intersect_planes(c["torg"], c["td"], c["planes"], c["tris"], c["ttmin"], c["ttmax"])
+    dead = ~c["live"]
+    for prim, t in ((np.asarray(ref.prim), np.asarray(ref.t)), (out.prim.numpy(), out.t.numpy())):
+        assert (prim[dead] == -1).all() and (t[dead] == np.float32(RT_MAX)).all()
+        assert np.isfinite(t).all()
+    np.testing.assert_array_equal(out.prim.numpy(), np.asarray(ref.prim))
+    if c["live"].any():
+        hit_share = (out.prim.numpy()[c["live"]] >= 0).mean()
+        assert hit_share == 1.0 if c["name"] == "one_live" else hit_share > 0.2
+    # tolerances as in test_closest_hit_matches_tpu_kernel, for its reasons
+    np.testing.assert_allclose(out.t.numpy(), np.asarray(ref.t), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(out.u.numpy(), np.asarray(ref.u), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out.v.numpy(), np.asarray(ref.v), rtol=1e-5, atol=1e-5)
+
+
+def test_anyhit_with_dead_lanes_matches_tpu_kernel(sparse_case):
+    c = sparse_case
+    tmax = np.where(c["live"], 2.0, 0.0).astype(np.float32)  # segments, so that some rays stay free
+    ref = np.asarray(JP.occluded_planes(c["org"], c["d"], c["jplanes"], c["tmin"], tmax, interpret=True))
+    out = PC.occluded_planes(c["torg"], c["td"], c["planes"], c["ttmin"], torch.from_numpy(tmax)).numpy()
+    np.testing.assert_array_equal(out, ref)
+    assert not out[~c["live"]].any() and not ref[~c["live"]].any()
+    if c["name"] in ("all_live", "live_16_percent"):
+        assert 0.05 < out[c["live"]].mean() < 0.95
+
+
+@pytest.mark.parametrize("num_rays", [0, 1, 33])
+def test_result_types_on_the_cpu(num_rays):
+    """int64 winners and torch.bool occlusion, from the plain versions and
+    from the dispatching entry points alike (the card's kernels write the
+    same types)."""
+    (p0, p1, p2), org, d, tmin, tmax = _random_soup(6, num_tris=40, num_rays=max(num_rays, 1))
+    t = torch.from_numpy
+    rays = tuple(t(x[:num_rays]) for x in (org, d))
+    rng = tuple(t(x[:num_rays]) for x in (tmin, tmax))
+    tris = TriSoA.build(p0, p1, p2)
+    planes = PC.build_plane_table(tris)
+    t_plain, prim_plain = PC.closest_plain(*rays, planes, *rng)
+    hit = PC.intersect_planes(*rays, planes, tris, *rng)
+    for prim, tt in ((prim_plain, t_plain), (hit.prim, hit.t)):
+        assert prim.dtype == torch.int64 and tt.dtype == torch.float32
+        assert prim.shape == tt.shape == (num_rays,)
+    for occ in (PC.occluded_plain(*rays, planes, *rng), PC.occluded_planes(*rays, planes, *rng)):
+        assert occ.dtype == torch.bool and occ.shape == (num_rays,)
