@@ -12,7 +12,9 @@ Phases, each of which raises on failure (non-zero exit):
    the shapes the 320x320 frames give it (B = 16384 training rows,
    [4, 16384] for K6), with times (CUDA events), the least time the card
    could take for the same work (``bound_ms``) and, for the gathers, the
-   time of ``torch.index_select``. The row gathers K7-K9 bit for bit on the
+   time of ``torch.index_select``. K3-K6 (bf16 ``mma.sync`` tiles) are held
+   to ``tools/bench_mlp.py::CARD_LIMITS``, their machine code must hold HMMA
+   opcodes, and two runs of K6 must leave the same bits. The row gathers K7-K9 bit for bit on the
    walk's [131072, 160] table and on the path's other widths; the walk
    kernels W1/W2 on the 132 K-triangle ``cornell_objects`` scene against the
    plain walk, and W1 against the brute-force K1;
@@ -46,12 +48,15 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
+import ctypes
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -81,16 +86,10 @@ def _image_agreement(out, ref):
     return (rel.amax(dim=-1) < 1e-3).float().mean().item(), abs(out.mean().item() / ref.mean().item() - 1.0)
 
 
-def _rel(got, ref) -> float:
-    """Largest difference relative to the reference's largest entry."""
-    return ((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
-
-
 # NVIDIA's data sheet for the H100 SXM: the rates the bounds are taken against
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # float32 outside the tensor cores, a fused multiply-add counted as two
 F32_UNFUSED_OPS_PER_S = 33.5e12  # the same lanes issuing separate multiplies and adds
-BF16_OPS_PER_S = 989e12   # dense bf16 on the tensor cores
 
 
 def _bound(nbytes, ops, ops_per_s):
@@ -131,6 +130,7 @@ def main() -> int:
     from nrc_tpu_torch.scene.scene_builder import cornell_box, cornell_objects
     from nrc_tpu_torch.tools import bench_gather
     from nrc_tpu_torch.tools import bench_intersect as BI
+    from nrc_tpu_torch.tools import bench_mlp as BM
     from nrc_tpu_torch.utils.tonemap import tonemap
 
     # plain references in full float32 (PyTorch's defaults, stated here)
@@ -188,6 +188,22 @@ def main() -> int:
     for k, _ in kernels.values():
         k.build()  # the other entry points of the built libraries
     print(f"build: all kernels in {time.perf_counter() - t_build:.1f} s")
+    # K3-K6 run their products on the tensor cores: the machine code of each
+    # of their libraries must hold the bf16 mma opcode (HMMA in SASS)
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    n_hidden = net_cfg.n_hidden_layers - 1
+    for k in (MC.FORWARD_KERNEL, MC.BACKWARD_KERNEL, MC.TRAIN_GRAD_KERNEL):
+        sass = subprocess.run([str(cuobjdump), "-sass", k.library_path], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        hmma = sum("HMMA.16816.F32.BF16" in line for line in sass.splitlines())
+        print(f"{k.source}: {hmma} HMMA.16816.F32.BF16 in its SASS")
+        _check(hmma > 0, f"{k.source} holds no bf16 tensor-core opcode")
+    # the sources' own reckoning of a CTA's dynamic shared memory
+    smem_fwd = ctypes.CDLL(MC.FORWARD_KERNEL.library_path).nrc_mlp_forward_smem_bytes(n_hidden)
+    smem_grad = ctypes.CDLL(MC.TRAIN_GRAD_KERNEL.library_path).nrc_mlp_grad_smem_bytes(n_hidden)
+    print(f"dynamic shared memory a CTA ({n_hidden} hidden 64 -> 64 layers): mlp_forward_kernel "
+          f"{smem_fwd} bytes, mlp_grad_kernel {smem_grad} bytes of 232448")
+    _check(0 < 2 * smem_fwd <= 232448 and 0 < smem_grad <= 232448, "a CTA's shared memory does not fit")
 
     # ---- 3. kernels against their plain versions, at main-path shapes --------
     scene, system = cornell_box((320, 320))
@@ -258,34 +274,37 @@ def main() -> int:
     x = torch.rand((n, MC.LANE), generator=gen, device=dev)
     x[:, 66] = 1.0  # the ones channel after the 66 encoded features
     x[:, 67:] = 0.0
+    lim = BM.CARD_LIMITS
     yk = MC.fused_forward_cuda(*w, x, True)
     yp = MC.fused_forward_plain(*w, x, True)
     torch.cuda.synchronize()
-    torch.testing.assert_close(yk, yp, atol=1e-2, rtol=1e-2)  # bf16 operands
-    print(f"K3 max |err| {(yk - yp).abs().max().item():.3g} (atol 1e-2, rtol 1e-2)")
-    # Bounds of K3-K6. One multiply-add per weight and row in a forward pass
-    # (bf16 operands: the tensor cores' bf16 rate), as many again for the
-    # gradient of the activations and for that of the weights. Bytes: the
-    # rows read (x, and g or the targets), the rows written (y or dX), and the
-    # weights, gradients and optimizer state once each.
-    macs = sum(t.numel() for t in w)
-    w_bytes = 4 * macs
+    torch.testing.assert_close(yk, yp, atol=lim["k3_atol"], rtol=lim["k3_rtol"])  # bf16 operands
+    print(f"K3 max |err| {(yk - yp).abs().max().item():.3g} (atol {lim['k3_atol']:g}, rtol {lim['k3_rtol']:g})")
+    # Times of K3-K6 are device times (ten calls captured in a CUDA graph and
+    # replayed): the kernels take tens of microseconds, less than a wrapper's
+    # host cost, which a loop of eager launches would time instead.
+    # Bounds of K3-K6 (bench_mlp.mlp_bound says what is counted): the
+    # function's own bytes and operations. The per-CTA partial sums of dW that
+    # K4-K6 write and read back are this implementation's traffic, the price
+    # of a sum in a fixed order: they stand beside the bound as
+    # scratch_bound_ms and are no part of it.
     report["fused_forward"] = dict(
         max_abs_err=(yk - yp).abs().max().item(),
-        ms=_time_ms(lambda: MC.fused_forward_cuda(*w, x, True)),
-        plain_ms=_time_ms(lambda: MC.fused_forward_plain(*w, x, True)),
-        **_bound(4 * (x.numel() + yk.numel()) + w_bytes, 2 * macs * n, BF16_OPS_PER_S),
+        ms=BI.device_ms(lambda: MC.fused_forward_cuda(*w, x, True)),
+        plain_ms=BI.device_ms(lambda: MC.fused_forward_plain(*w, x, True), iters=5),
+        **BM.mlp_bound("K3", n, n_hidden),
         library_ms=None,
     )
 
-    # K4-K6 at the training batch of a frame: 4 x 16384 encoded queries.
-    # Gradients are compared relative to their largest entry. In K4 an
-    # activation next to a bf16 rounding boundary rounds one bf16 ulp apart
-    # when the sums run in another order (reads 9.6e-4; limit 2e-3). K5 and
-    # K6 are held near what they read (K5 9.1e-7, K6's state 5.4e-7 at most
-    # and 3.4e-9 on the mean after four steps): a skipped EMA update of the
-    # last step reads 5.6e-4 / 2.5e-4 there, a skipped Adam step 3.0e-3 /
-    # 1.4e-3 on the weights.
+    # K4-K6 at the training batch of a frame: 4 x 16384 encoded queries,
+    # held to bench_mlp.CARD_LIMITS, which says what each limit admits and why the
+    # largest difference is not among them: the mean difference of each
+    # gradient in units of its largest entry, the rows of dX with an entry
+    # far off, K6's state by the mean difference and the share of entries far
+    # apart per tensor. A dropped ReLU mask reads 5e-2 on the mean and 1.0 on
+    # the largest entry, a skipped EMA update of the last step 2.5e-4 on the
+    # mean and 0.72 on the share, a skipped Adam step 1.4e-3 and 0.97
+    # (tests/test_torch_mlp_tiles.py seeds these faults).
     b = 16384
     q4 = torch.rand((4, b, 15), generator=gen, device=dev)
     x4 = N.encode(q4.view(-1, 15), net_cfg).view(4, b, MC.LANE)
@@ -297,31 +316,23 @@ def main() -> int:
     got5 = MC.fused_train_grad_cuda(*wp, x4[1], t4[1])
     ref5 = MC.fused_train_grad_plain(*wp, x4[1], t4[1])
     torch.cuda.synchronize()
-    rel4 = max(_rel(a, p) for a, p in zip(got4, ref4))
-    rel5 = max(_rel(a, p) for a, p in zip(got5[1:], ref5[1:]))
-    loss_rel5 = abs(got5[0].item() / ref5[0].item() - 1.0)
-    print(f"K4 largest gradient error {rel4:.3g} of the largest entry (limit 2e-3); "
-          f"K5 {rel5:.3g} (limit 1e-5), loss {loss_rel5:.3g} relative (limit 1e-5)")
-    _check(rel4 <= 2e-3, "K4 disagrees with its plain version")
-    _check(rel5 <= 1e-5 and loss_rel5 <= 1e-5, "K5 disagrees with its plain version")
-    # K4: forward again, dX down to the input, dW. K5: forward, dX of every
-    # layer but the first (nothing consumes it), dW. K6: four times K5, and
-    # the weights, both moments and the EMA read and written once.
-    macs_first = wp[0].numel()
-    k5_ops = 2 * (3 * macs - macs_first) * b
-    k5_bytes = 4 * (x4[1].numel() + t4[1].numel() + 1) + 2 * w_bytes
+    print(f"K4: {BM.check_backward(got4, ref4, wp, x4[0], g_out)}")
+    print(f"K5: {BM.check_train_grad(got5, ref5)}")
+    work5 = BM.mlp_work("K5", b, n_hidden)
+    print(f"K4-K6: {work5['scratch_bytes']} bytes of partial sums per gradient kernel (written and read back "
+          f"once) beside the {work5['nbytes']} bytes K5's function must move")
     report["fused_backward"] = dict(
         max_abs_err=max((a - p).abs().max().item() for a, p in zip(got4, ref4)),
-        ms=_time_ms(lambda: MC.fused_backward_cuda(*wp, x4[0], g_out)),
-        plain_ms=_time_ms(lambda: MC.fused_backward_plain(*wp, x4[0], g_out)),
-        **_bound(4 * (2 * x4[0].numel() + g_out.numel()) + 2 * w_bytes, 2 * 3 * macs * b, BF16_OPS_PER_S),
+        ms=BI.device_ms(lambda: MC.fused_backward_cuda(*wp, x4[0], g_out)),
+        plain_ms=BI.device_ms(lambda: MC.fused_backward_plain(*wp, x4[0], g_out), iters=5),
+        **BM.mlp_bound("K4", b, n_hidden),
         library_ms=None,
     )
     report["fused_train_grad"] = dict(
         max_abs_err=max((a - p).abs().max().item() for a, p in zip(got5, ref5)),
-        ms=_time_ms(lambda: MC.fused_train_grad_cuda(*wp, x4[1], t4[1])),
-        plain_ms=_time_ms(lambda: MC.fused_train_grad_plain(*wp, x4[1], t4[1])),
-        **_bound(k5_bytes, k5_ops, BF16_OPS_PER_S),
+        ms=BI.device_ms(lambda: MC.fused_train_grad_cuda(*wp, x4[1], t4[1])),
+        plain_ms=BI.device_ms(lambda: MC.fused_train_grad_plain(*wp, x4[1], t4[1]), iters=5),
+        **BM.mlp_bound("K5", b, n_hidden),
         library_ms=None,
     )
     lr = torch.tensor(net_cfg.learning_rate, device=dev)
@@ -333,26 +344,29 @@ def main() -> int:
         return (st.params.tensors(), st.opt.mu.tensors(), st.opt.nu.tensors(), st.ema.tensors(),
                 st.opt.step)
 
-    sk, sp = fresh_state(), fresh_state()
+    def flat(state):
+        return [t for group in state[:4] for t in group]
+
+    sk, sk2, sp = fresh_state(), fresh_state(), fresh_state()
     lk = MC.fused_train4_cuda(*sk, x4, t4, lr, records, hyper)
+    lk2 = MC.fused_train4_cuda(*sk2, x4, t4, lr, records, hyper)
     lp = MC.fused_train4_plain(*sp, x4, t4, lr, records, hyper)
     torch.cuda.synchronize()
     loss_rel6 = ((lk - lp).abs() / lp.abs()).max().item()
-    dmax = max((a - p).abs().max().item() for ga, gp in zip(sk[:4], sp[:4]) for a, p in zip(ga, gp))
-    dmean = max((a - p).abs().mean().item() for ga, gp in zip(sk[:4], sp[:4]) for a, p in zip(ga, gp))
-    print(f"K6 losses {lk.tolist()} vs plain {lp.tolist()} ({loss_rel6:.3g} relative, limit 1e-5); "
-          f"state after 4 steps: largest |diff| {dmax:.3g} (limit 1e-5), "
-          f"largest mean |diff| {dmean:.3g} (limit 1e-7); step {int(sk[4])}")
-    _check(loss_rel6 <= 1e-5 and dmax <= 1e-5 and dmean <= 1e-7
-           and int(sk[4]) == int(sp[4]) == 4, "K6 disagrees with its plain version")
+    print(f"K6 losses {lk.tolist()} vs plain {lp.tolist()} ({loss_rel6:.3g} relative, limit {lim['loss']:g}); "
+          f"state after 4 steps: {BM.check_train_state(flat(sk), flat(sp))}; step {int(sk[4])}")
+    _check(loss_rel6 <= lim["loss"] and int(sk[4]) == int(sp[4]) == 4, "K6 disagrees with its plain version")
+    # no atomics, partial sums added in CTA order: the same bits from run to run
+    _check(torch.equal(lk, lk2) and all(torch.equal(a, c) for a, c in zip(flat(sk), flat(sk2))),
+           "two runs of K6 on the same inputs differ")
+    print("K6: two runs on the same inputs leave bit-equal losses, weights, moments and EMA")
     report["fused_train4"] = dict(
-        max_abs_err=dmax,
-        ms=_time_ms(lambda: MC.fused_train4_cuda(*sk, x4, t4, lr, records, hyper), iters=10),
-        plain_ms=_time_ms(lambda: MC.fused_train4_plain(*sp, x4, t4, lr, records, hyper), iters=5),
-        **_bound(4 * (x4.numel() + t4.numel() + 4) + 8 * w_bytes, 4 * k5_ops, BF16_OPS_PER_S),
+        max_abs_err=max((a - p).abs().max().item() for a, p in zip(flat(sk), flat(sp))),
+        ms=BI.device_ms(lambda: MC.fused_train4_cuda(*sk, x4, t4, lr, records, hyper)),
+        plain_ms=BI.device_ms(lambda: MC.fused_train4_plain(*sp, x4, t4, lr, records, hyper), iters=2),
+        **BM.mlp_bound("K6", b, n_hidden, steps=x4.shape[0]),
         library_ms=None,
     )
-
 
     # ---- 3b. the row gathers K7-K9: bit for bit, then timed through the tool ----
     big_scene, big_system = cornell_objects((320, 320))

@@ -9,13 +9,15 @@
 // f32, as there.
 //
 // What bounds it on an H100: per row about 3 x 25,600 multiply-adds
-// (forward, backward, dW) against 576 bytes of x and g in and 512 bytes of
-// dX out, so compute and shared-memory traffic, not device memory. The
-// design (mlp_grad.cuh): one thread per row on the CUDA cores, weights and a
-// 128-row block's bf16 activations in shared memory (~187 KB, one CTA per
-// SM), dW summed per CTA into a scratch row and the rows reduced in a fixed
-// order by a second kernel, so the result does not depend on CTA scheduling.
-// The tensor cores (mma.sync / wgmma on 64-row tiles) are later work.
+// (forward, backward, dW) on the tensor cores against 576 bytes of x and g in
+// and 512 bytes of dX out, plus the partial sums of dW: device memory, not
+// operations. The design (mlp_grad.cuh, the kTrain = false instantiation of
+// the kernel K5 uses): a warp owns 16 rows and runs every product as bf16
+// mma.sync tiles, activations and gradients passing from layer to layer in
+// registers; weights and a 128-row block's bf16 activations lie in shared
+// memory (~204 KB, one CTA per SM); dW is summed per CTA into a scratch row
+// and the rows are reduced in a fixed order by a second kernel, so the
+// result does not depend on CTA scheduling.
 
 #include "mlp_grad.cuh"
 

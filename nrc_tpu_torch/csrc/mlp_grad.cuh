@@ -1,181 +1,146 @@
-// Shared device code of the NRC cache MLP's gradient kernels K4 and K5/K6.
+// Shared device code of the NRC cache MLP's gradient kernels K4 and K5/K6,
+// on the tensor cores (mma_tiles.cuh has the tiles and the fragment maps).
 //
-// One CTA owns kRows batch rows, one thread per row. It stages every weight
-// as bf16 in shared memory, recomputes the forward chain
-// 128 -> 64 -> (64 -> 64) x n_hidden -> 16 row by row, and keeps each row's
-// bf16 activations in shared memory for the backward pass. Every product of
-// the TPU kernels rounds both operands to bf16 and sums in f32
+// One CTA of 8 warps owns 128 batch rows, a warp 16 of them. The CTA stages
+// every weight and its input rows as bf16 in shared memory. A warp recomputes
+// the forward chain 128 -> 64 -> (64 -> 64) x n_hidden -> 16 for its rows
+// with mma.sync m16n8k16, the activations passing from layer to layer in
+// registers; each layer's bf16 activations are also written to shared memory,
+// because the weight gradients need them by column. Every product of the TPU
+// kernels rounds both operands to bf16 and sums in f32
 // (nrc_tpu/ops/mlp_pallas.py::_mm, _mm_tn), so an activation, an input row
-// and a gradient row are stored as bf16 once and every later use is exact.
+// and a gradient row are rounded once and every later use is exact.
 //
-// The weight gradients dW = A^T G sum over the batch. The TPU kernels carry
-// that sum in VMEM across a sequential grid; CTAs here run in no order, so
-// each CTA writes the sum over its own rows to a scratch row
-// partial[blockIdx.x, :] and reduce_partials() adds the rows in CTA order.
-// Nothing uses atomics: the result is the same from run to run.
+// The way back: g' = mask * (g x W^T) is again a product of the warp's 16
+// rows, with W read as stored ([k, j] row-major is W^T as a column-major B),
+// and g' rounded to bf16 is the next step's A fragment. The ReLU mask of a
+// layer is 32 bits in a register, one per accumulator element the lane held
+// in the forward pass: of the bf16 activations for K5, of the f32 sums for K4.
+// The weight gradients dW = A^T G sum over the CTA's 128 rows: both operands
+// lie row by batch row in shared memory and load with ldmatrix.trans; the
+// 16 x 8 tiles of a dW are shared out among the 8 warps.
 //
-// Shared-memory rows are padded (130 and 66 bf16) so that the 32 threads of
-// a warp, one row each, hit 32 different banks; in the dW phases all threads
-// of a warp read the same activation (a broadcast) and consecutive gradient
-// columns.
+// dW sums over the whole batch. The TPU kernels carry that sum in VMEM across
+// a sequential grid; CTAs here run in no order, so each CTA writes the sum
+// over its own rows to a scratch row partial[blockIdx.x, :] and
+// reduce_partials() adds the rows in CTA order. Nothing uses atomics: the
+// result is the same from run to run. The scratch (25,601 floats per CTA,
+// 13 MB written and read at B = 16,384) is the price of that.
+//
+// What bounds it on an H100: per 16,384 rows 3 x 25,600 multiply-adds a row
+// (0.0025 ms at 989 TFLOP/s) against the 8.6 MB of rows its function must
+// move (0.0026 ms at 3.35 TB/s), so bytes by a hair. The 26 MB of scratch
+// traffic come on top and are this design's own (0.008 ms from device
+// memory, less from the L2, which holds them); in practice the chain of
+// barriers and dependent mma of one 128-row tile per SM decides: 203,808
+// bytes of shared memory for the shipped network leave room for one CTA an
+// SM.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_tiles.cuh"
 
 namespace nrc_mlp {
 
-typedef __nv_bfloat16 bf16;
-typedef __nv_bfloat162 bf162;
+using namespace nrc_mma;
 
-constexpr int kIn = 128;                 // padded encoded input
-constexpr int kWidth = 64;               // hidden width
-constexpr int kOut = 16;                 // padded output, RGB in columns 0-2
-constexpr int kRows = 128;               // rows (= threads) per CTA
-constexpr int kXStride = kIn + 2;        // bf16 per staged input row
-constexpr int kActStride = kWidth + 2;   // bf16 per staged activation / gradient row
-constexpr int kSmemLimit = 232448;       // an H100 CTA's shared memory
+constexpr int kThreads = kCtaThreads;                    // 8 warps
+constexpr int kRows = (kThreads / 32) * kWarpRows;       // 128 rows per CTA
+constexpr int kMaxHidden = 5;                            // what smem_bytes() allows
 
-__host__ __device__ inline int num_params(int n_hidden) {
-  return kIn * kWidth + n_hidden * kWidth * kWidth + kWidth * kOut;
+// bytes of dynamic shared memory: 32 for the loss sums, the staged weights,
+// the input rows [128, 136], the activations [H + 1, 128, 72] and the
+// gradient rows [128, 72]
+__host__ __device__ inline int smem_bytes(int n_hidden) {
+  const int halves = staged_weight_halves(n_hidden) + kRows * kXStride +
+                     (n_hidden + 2) * kRows * kStride;
+  return 32 + 2 * halves;
 }
 
-// bytes of dynamic shared memory; K4 adds one 64-bit ReLU mask per row and layer
-__host__ __device__ inline int smem_bytes(int n_hidden, bool f32_masks) {
-  const int halves = num_params(n_hidden) + kRows * kXStride +
-                     (n_hidden + 2) * kRows * kActStride;
-  return 16 + 2 * halves + (f32_masks ? 8 * (n_hidden + 1) * kRows : 0);
-}
-
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
-}
-
-// acc[0:kWidth] += a[0:n_in] @ w[n_in, kWidth]; a is this thread's bf16 row
-__device__ __forceinline__ void row_times_w(const bf16* a, const bf16* w, int n_in,
-                                            float* acc) {
+// the warp's A fragments -> its 16 bf16 rows of shared memory (rows = the
+// first of them, row stride kStride)
+template <int KT>
+__device__ __forceinline__ void store_a_frags(const uint32_t (&a)[KT][4], bf16* rows, int lane) {
 #pragma unroll
-  for (int j = 0; j < kWidth; ++j) acc[j] = 0.f;
-#pragma unroll 2
-  for (int k = 0; k < n_in; k += 2) {
-    const float2 av = load2(a + k);
-    const bf16* w0 = w + k * kWidth;
-    const bf16* w1 = w0 + kWidth;
+  for (int kt = 0; kt < KT; ++kt)
 #pragma unroll
-    for (int j = 0; j < kWidth; j += 2) {
-      const float2 p = load2(w0 + j);
-      const float2 q = load2(w1 + j);
-      acc[j] = fmaf(av.x, p.x, acc[j]);
-      acc[j + 1] = fmaf(av.x, p.y, acc[j + 1]);
-      acc[j] = fmaf(av.y, q.x, acc[j]);
-      acc[j + 1] = fmaf(av.y, q.y, acc[j + 1]);
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<uint32_t*>(rows + a_row(lane, j) * kStride + kt * 16 + a_col(lane, j)) =
+          a[kt][j];
+}
+
+// ReLU mask of a layer, bit 4 nt + i for accumulator element acc[nt][i]: of
+// the f32 sums (K4), or of the bf16 activations in the A fragments (K5)
+template <bool kFromF32>
+__device__ __forceinline__ uint32_t relu_mask(const float (&acc)[8][4], const uint32_t (&a)[4][4]) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // element (nt, i) sits in A register (nt & 1) * 2 + (i >> 1) of k-tile nt >> 1, half i & 1
+      const uint32_t half = (a[nt >> 1][(nt & 1) * 2 + (i >> 1)] >> (16 * (i & 1))) & 0x7fffu;
+      const bool on = kFromF32 ? acc[nt][i] > 0.f : half != 0u;
+      bits |= (on ? 1u : 0u) << (4 * nt + i);
     }
-  }
-}
-
-// relu -> bf16 row of shared memory; returns the mask bits of z > 0
-__device__ __forceinline__ uint64_t store_relu(const float* acc, bf16* dst) {
-  uint64_t bits = 0;
-#pragma unroll
-  for (int j = 0; j < kWidth; j += 2) {
-    *reinterpret_cast<bf162*>(dst + j) =
-        __floats2bfloat162_rn(fmaxf(acc[j], 0.f), fmaxf(acc[j + 1], 0.f));
-    bits |= (acc[j] > 0.f ? 1ull : 0ull) << j;
-    bits |= (acc[j + 1] > 0.f ? 1ull : 0ull) << (j + 1);
-  }
   return bits;
 }
 
-// ReLU mask of one stored bf16 activation row (K5/K6; K4 keeps the f32
-// pre-activations' bits from store_relu instead)
-__device__ __forceinline__ uint64_t act_mask(const bf16* act) {
-  uint64_t bits = 0;
+// g' = mask * acc, rounded to bf16: the A fragments of the next step back
+__device__ __forceinline__ void mask_to_a(const float (&acc)[8][4], uint32_t mask,
+                                          uint32_t (&a)[4][4]) {
+  float v[8][4];
 #pragma unroll
-  for (int j = 0; j < kWidth; ++j)
-    bits |= (__bfloat162float(act[j]) > 0.f ? 1ull : 0ull) << j;
-  return bits;
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[nt][i] = ((mask >> (4 * nt + i)) & 1u) ? acc[nt][i] : 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a[j][0] = pack_bf16(v[2 * j][0], v[2 * j][1]);
+    a[j][1] = pack_bf16(v[2 * j][2], v[2 * j][3]);
+    a[j][2] = pack_bf16(v[2 * j + 1][0], v[2 * j + 1][1]);
+    a[j][3] = pack_bf16(v[2 * j + 1][2], v[2 * j + 1][3]);
+  }
 }
 
-// One backward step for this thread's row: g_row[0:n_out] (bf16 in shared
-// memory) -> (g @ w^T) masked, rounded to bf16, written over g_row[0:kWidth].
-// w is [kWidth, n_out].
-template <int n_out>
-__device__ __forceinline__ void backprop_row(bf16* g_row, const bf16* w, uint64_t mask) {
-  float g[n_out];
-#pragma unroll
-  for (int j = 0; j < n_out; j += 2) {
-    const float2 v = load2(g_row + j);
-    g[j] = v.x;
-    g[j + 1] = v.y;
-  }
+// out[(m0 + i) * n_cols + n0 + j] = sum over the CTA's rows r of
+// a[r, m0 + i] * g[r, n0 + j] for i < 16, j < 8 NT: one warp's share of a
+// dW = A^T G. a has row stride kAStride, g row stride kStride.
+template <int NT, int kAStride>
+__device__ __forceinline__ void at_g(const bf16* a, int m0, const bf16* g, int n0, float* out,
+                                     int n_cols, int lane) {
+  float acc[NT][4];
+  zero_acc(acc);
+  const bf16* a_lane = a + quad_cols_first(lane, kAStride) + m0;
+  const bf16* g_lane = g + quad_rows_first(lane, kStride) + n0;
 #pragma unroll 2
-  for (int k = 0; k < kWidth; ++k) {
-    const bf16* wk = w + k * n_out;
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < n_out; j += 2) {
-      const float2 p = load2(wk + j);
-      s0 = fmaf(g[j], p.x, s0);
-      s1 = fmaf(g[j + 1], p.y, s1);
-    }
-    const float v = ((mask >> k) & 1ull) ? s0 + s1 : 0.f;
-    g_row[k] = __float2bfloat16_rn(v);
+  for (int ks = 0; ks < kRows / 16; ++ks) {
+    uint32_t af[4];
+    ldsm_x4_t(af, a_lane + ks * 16 * kAStride);
+    mma_step_w<NT, kStride>(af, g_lane + ks * 16 * kStride, acc);
   }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      out[(m0 + frag_row(lane, i)) * n_cols + n0 + nt * 8 + frag_col(lane, i)] = acc[nt][i];
 }
 
-// partial[k * n_cols + j] = sum over the CTA's rows r of a[r, k] * g[r, j],
-// a [kRows, n_k] with row stride a_stride, g [kRows, n_cols] with row stride
-// kActStride. Thread t owns column j = t % n_cols and a run of
-// n_k * n_cols / kRows consecutive k.
-template <int n_k, int n_cols>
-__device__ __forceinline__ void block_at_g(const bf16* a, int a_stride, const bf16* g,
-                                           float* partial) {
-  constexpr int kGroups = kRows / n_cols;       // threads sharing one column
-  constexpr int kPer = n_k / kGroups;           // k values per thread
-  const int j = threadIdx.x % n_cols;
-  const int k0 = (threadIdx.x / n_cols) * kPer;
-  float acc[kPer];
+// RelativeL2Luminance of one row (nrc_tpu/models/network.py:210-216): its
+// loss, and its output gradient in gr[0:3]. A row past the batch has diff 0.
+__device__ __forceinline__ float row_loss_grad(const float (&pred)[3], const float* target,
+                                               float grad_scale, float (&gr)[3]) {
+  const float lum = __fadd_rn(__fadd_rn(__fmul_rn(0.299f, pred[0]), __fmul_rn(0.587f, pred[1])),
+                              __fmul_rn(0.114f, pred[2]));
+  const float denom = __fadd_rn(__fmul_rn(lum, lum), 0.01f);
+  float loss = 0.f;
 #pragma unroll
-  for (int q = 0; q < kPer; ++q) acc[q] = 0.f;
-#pragma unroll 1
-  for (int r = 0; r < kRows; ++r) {
-    const float gj = __bfloat162float(g[r * kActStride + j]);
-    const bf16* ar = a + r * a_stride + k0;
-#pragma unroll
-    for (int q = 0; q < kPer; q += 2) {
-      const float2 av = load2(ar + q);
-      acc[q] = fmaf(av.x, gj, acc[q]);
-      acc[q + 1] = fmaf(av.y, gj, acc[q + 1]);
-    }
+  for (int c = 0; c < 3; ++c) {
+    const float diff = target != nullptr ? __fsub_rn(pred[c], target[c]) : 0.f;
+    loss = __fadd_rn(loss, __fdiv_rn(__fmul_rn(diff, diff), denom));
+    gr[c] = __fdiv_rn(__fmul_rn(grad_scale, diff), denom);
   }
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) partial[(k0 + q) * n_cols + j] = acc[q];
-}
-
-// dW_out [kWidth, kOut]: thread t owns row k = t % kWidth and kOut / 2
-// columns, so that the 16 output columns spread over all kRows threads
-__device__ __forceinline__ void block_at_gout(const bf16* a, const bf16* g, float* partial) {
-  constexpr int kPer = kOut * kWidth / kRows;   // 8
-  const int k = threadIdx.x % kWidth;
-  const int j0 = (threadIdx.x / kWidth) * kPer;
-  float acc[kPer];
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) acc[q] = 0.f;
-#pragma unroll 1
-  for (int r = 0; r < kRows; ++r) {
-    const float ak = __bfloat162float(a[r * kActStride + k]);
-    const bf16* gr = g + r * kActStride + j0;
-#pragma unroll
-    for (int q = 0; q < kPer; q += 2) {
-      const float2 gv = load2(gr + q);
-      acc[q] = fmaf(ak, gv.x, acc[q]);
-      acc[q + 1] = fmaf(ak, gv.y, acc[q + 1]);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) partial[k * kOut + j0 + q] = acc[q];
+  return loss;
 }
 
 // The gradient kernel. kTrain = false is K4 (fused_backward): gout is the
@@ -188,131 +153,160 @@ __device__ __forceinline__ void block_at_gout(const bf16* a, const bf16* g, floa
 // partial: [gridDim.x, P + 1] with P = num_params(n_hidden), laid out as
 // dW_in | dW_hidden | dW_out | loss.
 template <bool kTrain>
-__global__ void __launch_bounds__(kRows) mlp_grad_kernel(
+__global__ void __launch_bounds__(kThreads, 1) mlp_grad_kernel(
     const float* __restrict__ x, const float* __restrict__ gout,
     const float* __restrict__ w_in, const float* __restrict__ w_hidden,
     const float* __restrict__ w_out, int batch, int n_hidden, float grad_scale,
     float* __restrict__ dx, float* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s_red = reinterpret_cast<float*>(smem_raw);                 // [kRows / 32]
-  bf16* s_win = reinterpret_cast<bf16*>(smem_raw + 16);              // [kIn, kWidth]
-  bf16* s_wh = s_win + kIn * kWidth;                                  // [H, kWidth, kWidth]
-  bf16* s_wout = s_wh + n_hidden * kWidth * kWidth;                   // [kWidth, kOut]
-  bf16* s_x = s_wout + kWidth * kOut;                                 // [kRows, kXStride]
-  bf16* s_act = s_x + kRows * kXStride;                               // [H + 1, kRows, kActStride]
-  bf16* s_g = s_act + (n_hidden + 1) * kRows * kActStride;            // [kRows, kActStride]
-  uint64_t* s_mask = reinterpret_cast<uint64_t*>(s_g + kRows * kActStride);  // K4: [H + 1, kRows]
+  float* s_red = reinterpret_cast<float*>(smem_raw);                  // [kThreads / 32]
+  bf16* s_win = reinterpret_cast<bf16*>(smem_raw + 32);               // [kIn, kStride]
+  bf16* s_wh = s_win + kIn * kStride;                                  // [H, kWidth, kStride]
+  bf16* s_wout = s_wh + n_hidden * kWidth * kStride;                   // [kWidth, kOutStride]
+  bf16* s_x = s_wout + kWidth * kOutStride;                            // [kRows, kXStride]
+  bf16* s_act = s_x + kRows * kXStride;                                // [H + 1, kRows, kStride]
+  bf16* s_g = s_act + (n_hidden + 1) * kRows * kStride;                // [kRows, kStride]
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int row0 = blockIdx.x * kRows;
-  const int row = row0 + tid;
-  const bool live = row < batch;
+  const int warp_row0 = warp * kWarpRows;  // within the CTA
+  const int rows[2] = {row0 + warp_row0 + a_row(lane, 0), row0 + warp_row0 + a_row(lane, 1)};
   const int n_params = num_params(n_hidden);
   const int off_hidden = kIn * kWidth;
   const int off_out = off_hidden + n_hidden * kWidth * kWidth;
   float* part = partial + static_cast<size_t>(blockIdx.x) * (n_params + 1);
 
-  for (int i = tid; i < kIn * kWidth; i += kRows) s_win[i] = __float2bfloat16_rn(w_in[i]);
-  for (int i = tid; i < n_hidden * kWidth * kWidth; i += kRows)
-    s_wh[i] = __float2bfloat16_rn(w_hidden[i]);
-  for (int i = tid; i < kWidth * kOut; i += kRows) s_wout[i] = __float2bfloat16_rn(w_out[i]);
+  stage_weights(w_in, w_hidden, w_out, n_hidden, s_win, s_wh, s_wout);
   // input rows, coalesced; rows past the batch are zero and contribute nothing
-  for (int i = tid; i < kRows * kIn; i += kRows) {
-    const int r = i / kIn, c = i % kIn;
-    const float v = row0 + r < batch ? x[static_cast<size_t>(row0 + r) * kIn + c] : 0.f;
-    s_x[r * kXStride + c] = __float2bfloat16_rn(v);
+  for (int i = tid; i < kRows * (kIn / 4); i += kThreads) {
+    const int r = i / (kIn / 4), c = (i % (kIn / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < batch)
+      v = __ldcs(reinterpret_cast<const float4*>(x + static_cast<size_t>(row0 + r) * kIn + c));
+    *reinterpret_cast<uint2*>(s_x + r * kXStride + c) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
   }
   __syncthreads();
 
-  // ---- forward recompute, one row per thread ------------------------------
-  float acc[kWidth];
-  row_times_w(s_x + tid * kXStride, s_win, kIn, acc);
-  uint64_t bits = store_relu(acc, s_act + tid * kActStride);
-  if (!kTrain) s_mask[tid] = bits;
-  for (int l = 0; l < n_hidden; ++l) {
-    row_times_w(s_act + (l * kRows + tid) * kActStride, s_wh + l * kWidth * kWidth, kWidth, acc);
-    bits = store_relu(acc, s_act + ((l + 1) * kRows + tid) * kActStride);
-    if (!kTrain) s_mask[(l + 1) * kRows + tid] = bits;
-  }
-  const bf16* a_last = s_act + (n_hidden * kRows + tid) * kActStride;
-  bf16* g_row = s_g + tid * kActStride;
-
-  // ---- output gradient into s_g[:, 0:kOut] ---------------------------------
-  if (kTrain) {
-    // linear output, columns 0-2 only: RelativeL2Luminance (network.py:210-216)
-    float pred[3] = {0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int k = 0; k < kWidth; ++k) {
-      const float a = __bfloat162float(a_last[k]);
+  // ---- forward recompute: the warp's 16 rows, activations in registers ------
+  float acc[8][4];
+  uint32_t a[4][4];             // the current layer's activations as A fragments
+  uint32_t mask[kMaxHidden + 1];
+  zero_acc(acc);
+  {
+    const bf16* x_lane = s_x + warp_row0 * kXStride + quad_rows_first(lane, kXStride);
+    const bf16* w_lane = s_win + quad_rows_first(lane, kStride);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) pred[c] = fmaf(a, __bfloat162float(s_wout[k * kOut + c]), pred[c]);
+    for (int kt = 0; kt < kIn / 16; ++kt) {
+      uint32_t ax[4];
+      ldsm_x4(ax, x_lane + kt * 16);
+      mma_step_w<8, kStride>(ax, w_lane + kt * 16 * kStride, acc);
     }
-    const float lum = __fadd_rn(__fadd_rn(__fmul_rn(0.299f, pred[0]), __fmul_rn(0.587f, pred[1])),
-                                __fmul_rn(0.114f, pred[2]));
-    const float denom = __fadd_rn(__fmul_rn(lum, lum), 0.01f);
+  }
+  relu_to_a(acc, a);
+  mask[0] = relu_mask<!kTrain>(acc, a);
+  uint32_t mask_top = mask[0];
+  store_a_frags<4>(a, s_act + warp_row0 * kStride, lane);
+#pragma unroll
+  for (int l = 0; l < kMaxHidden; ++l) {
+    if (l < n_hidden) {
+      zero_acc(acc);
+      mm_a_w<4, 8, kStride>(a, s_wh + l * kWidth * kStride, acc, lane);
+      relu_to_a(acc, a);
+      mask[l + 1] = relu_mask<!kTrain>(acc, a);
+      mask_top = mask[l + 1];
+      store_a_frags<4>(a, s_act + ((l + 1) * kRows + warp_row0) * kStride, lane);
+    }
+  }
+
+  // ---- output gradient: A fragments ga of g [16, 16], and into s_g[:, 0:16] ---
+  uint32_t ga[1][4];
+  if (kTrain) {
+    // linear output; the loss reads columns 0-2, which lanes 0 and 1 of a quad hold
+    float o[2][4];
+    zero_acc(o);
+    mm_a_w<4, 2, kOutStride>(a, s_wout, o, lane);
+    const int q0 = lane & ~3;
     float row_loss = 0.f;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float diff = live ? __fsub_rn(pred[c], gout[static_cast<size_t>(row) * 3 + c]) : 0.f;
-      row_loss = __fadd_rn(row_loss, __fdiv_rn(__fmul_rn(diff, diff), denom));
-      g_row[c] = __float2bfloat16_rn(__fdiv_rn(__fmul_rn(grad_scale, diff), denom));
+    for (int half = 0; half < 2; ++half) {
+      const float pred[3] = {__shfl_sync(0xffffffffu, o[0][2 * half], q0),
+                             __shfl_sync(0xffffffffu, o[0][2 * half + 1], q0),
+                             __shfl_sync(0xffffffffu, o[0][2 * half], q0 + 1)};
+      const int row = rows[half];
+      float gr[3];
+      const float loss = row_loss_grad(
+          pred, row < batch ? gout + static_cast<size_t>(row) * 3 : nullptr, grad_scale, gr);
+      if ((lane & 3) == 0) row_loss = __fadd_rn(row_loss, loss);
+      ga[0][half] = (lane & 3) == 0 ? pack_bf16(gr[0], gr[1])
+                                    : ((lane & 3) == 1 ? pack_bf16(gr[2], 0.f) : 0u);
+      ga[0][2 + half] = 0u;
     }
-#pragma unroll
-    for (int c = 3; c < kOut; ++c) g_row[c] = __float2bfloat16_rn(0.f);
     // CTA loss sum in a fixed order: warp tree, then the warps in turn
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) row_loss += __shfl_xor_sync(0xffffffffu, row_loss, o);
-    if ((tid & 31) == 0) s_red[tid >> 5] = row_loss;
+    for (int o2 = 16; o2 > 0; o2 >>= 1) row_loss += __shfl_xor_sync(0xffffffffu, row_loss, o2);
+    if (lane == 0) s_red[warp] = row_loss;
   } else {
 #pragma unroll
-    for (int c = 0; c < kOut; ++c)
-      g_row[c] = __float2bfloat16_rn(live ? gout[static_cast<size_t>(row) * kOut + c] : 0.f);
+    for (int j = 0; j < 4; ++j) {
+      const int row = rows[j & 1];
+      float2 v = make_float2(0.f, 0.f);
+      if (row < batch)
+        v = *reinterpret_cast<const float2*>(gout + static_cast<size_t>(row) * kOut + a_col(lane, j));
+      ga[0][j] = pack_bf16(v.x, v.y);
+    }
   }
-  __syncthreads();
+  store_a_frags<1>(ga, s_g + warp_row0 * kStride, lane);
+  __syncthreads();  // every warp's activations and g rows are in shared memory
   if (kTrain && tid == 0) {
     float s = 0.f;
-    for (int w = 0; w < kRows / 32; ++w) s += s_red[w];
+    for (int w = 0; w < kThreads / 32; ++w) s += s_red[w];
     part[n_params] = s;
   }
 
-  // ---- backward: dW_out, then through w_out^T -------------------------------
-  block_at_gout(s_act + n_hidden * kRows * kActStride, s_g, part + off_out);
+  // ---- backward: dW_out, then through w_out^T ---------------------------------
+  if (warp < kWidth / 16)
+    at_g<2, kStride>(s_act + n_hidden * kRows * kStride, warp * 16, s_g, 0, part + off_out, kOut,
+                     lane);
+  zero_acc(acc);
+  mm_a_wt<1, 8, kOutStride>(ga, s_wout, acc, lane);
+  mask_to_a(acc, mask_top, a);  // from here on a holds the gradient rows
+  __syncthreads();              // s_g has been read
+  store_a_frags<4>(a, s_g + warp_row0 * kStride, lane);
   __syncthreads();
-  const bf16* a_top = s_act + (n_hidden * kRows + tid) * kActStride;
-  backprop_row<kOut>(g_row, s_wout, kTrain ? act_mask(a_top) : s_mask[n_hidden * kRows + tid]);
-  for (int l = n_hidden - 1; l >= 0; --l) {
-    __syncthreads();
-    block_at_g<kWidth, kWidth>(s_act + l * kRows * kActStride, kActStride, s_g,
-                               part + off_hidden + l * kWidth * kWidth);
-    __syncthreads();
-    const bf16* a_l = s_act + (l * kRows + tid) * kActStride;
-    backprop_row<kWidth>(g_row, s_wh + l * kWidth * kWidth,
-                         kTrain ? act_mask(a_l) : s_mask[l * kRows + tid]);
-  }
-  __syncthreads();
-  block_at_g<kIn, kWidth>(s_x, kXStride, s_g, part);
-
-  // ---- K4: dX = g @ w_in^T ----------------------------------------------------
-  if (!kTrain && live) {
-    float g[kWidth];
 #pragma unroll
-    for (int j = 0; j < kWidth; j += 2) {
-      const float2 v = load2(g_row + j);
-      g[j] = v.x;
-      g[j + 1] = v.y;
+  for (int l = kMaxHidden - 1; l >= 0; --l) {
+    if (l < n_hidden) {
+      // dW_hidden[l] [64, 64]: 4 x 8 tiles, four to a warp
+      at_g<4, kStride>(s_act + l * kRows * kStride, (warp >> 1) * 16, s_g, (warp & 1) * 32,
+                       part + off_hidden + l * kWidth * kWidth, kWidth, lane);
+      zero_acc(acc);
+      mm_a_wt<4, 8, kStride>(a, s_wh + l * kWidth * kStride, acc, lane);
+      mask_to_a(acc, mask[l], a);
+      __syncthreads();
+      store_a_frags<4>(a, s_g + warp_row0 * kStride, lane);
+      __syncthreads();
     }
-    float* dxr = dx + static_cast<size_t>(row) * kIn;
-#pragma unroll 2
-    for (int k = 0; k < kIn; ++k) {
-      const bf16* wk = s_win + k * kWidth;
-      float s0 = 0.f, s1 = 0.f;
+  }
+  // dW_in [128, 64]: 8 x 8 tiles, a row of eight to a warp
+  at_g<8, kXStride>(s_x, warp * 16, s_g, 0, part, kWidth, lane);
+
+  // ---- K4: dX = g @ w_in^T, in two halves of 64 columns -----------------------
+  if (!kTrain) {
 #pragma unroll
-      for (int j = 0; j < kWidth; j += 2) {
-        const float2 p = load2(wk + j);
-        s0 = fmaf(g[j], p.x, s0);
-        s1 = fmaf(g[j + 1], p.y, s1);
-      }
-      dxr[k] = s0 + s1;
+    for (int part_n = 0; part_n < kIn / kWidth; ++part_n) {
+      zero_acc(acc);
+      mm_a_wt<4, 8, kStride>(a, s_win + part_n * kWidth * kStride, acc, lane);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          if (rows[half] < batch)
+            *reinterpret_cast<float2*>(dx + static_cast<size_t>(rows[half]) * kIn +
+                                       part_n * kWidth + nt * 8 + frag_col(lane, 0)) =
+                make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
     }
   }
 }
@@ -343,13 +337,13 @@ inline cudaError_t launch_grad(const float* x, const float* gout, const float* w
                                int n_hidden, float grad_scale, float* dx, float* partial,
                                float* grad, float* loss, float loss_scale,
                                const long long* num_records, cudaStream_t stream) {
-  const int smem = smem_bytes(n_hidden, !kTrain);
-  if (smem > kSmemLimit || batch <= 0) return cudaErrorInvalidValue;
+  const int smem = smem_bytes(n_hidden);
+  if (n_hidden > kMaxHidden || smem > kSmemLimit || batch <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(mlp_grad_kernel<kTrain>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (batch + kRows - 1) / kRows;
-  mlp_grad_kernel<kTrain><<<blocks, kRows, smem, stream>>>(
+  mlp_grad_kernel<kTrain><<<blocks, kThreads, smem, stream>>>(
       x, gout, w_in, w_hidden, w_out, batch, n_hidden, grad_scale, dx, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

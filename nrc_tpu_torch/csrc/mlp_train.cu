@@ -18,15 +18,20 @@
 // not carried over. x4 is rounded to bf16 where it is staged, as the TPU
 // kernel rounds it before the call.
 //
-// What bounds them on an H100: the gradient kernel, as K4 (mlp_backward.cu):
-// ~3 x 25,600 multiply-adds per row on the CUDA cores with every operand in
-// shared memory; the reduction reads [128 CTAs, 25,601] f32 (13 MB) once;
-// the Adam + EMA update is one elementwise pass over 25,600 weights (five
-// f32 arrays, ~0.5 MB). K6 is one host call that issues, per step, the
-// gradient kernel, the reduction and the update on one stream with no host
-// synchronisation, and counts the gradient kernels it launches in
-// *grad_launches, which the wrapper adds to K5's launch count. A persistent
-// kernel that keeps the weights on chip across the four steps is later work.
+// What bounds them on an H100: the gradient kernel (mlp_grad.cuh) runs every
+// product as bf16 mma.sync tiles with the activations in registers, so its
+// ~3 x 25,600 multiply-adds per row are 0.0025 ms of tensor-core time at
+// B = 16,384, and the 8.6 MB of rows its function must move 0.0026 ms. On top
+// it writes [128 CTAs, 25,601] f32 of partial sums (13 MB) that the
+// reduction reads back: the price of a sum in a fixed order, and traffic of
+// this design, not of the function. The Adam + EMA update is one
+// elementwise pass over 25,600 weights (five f32 arrays, ~0.5 MB). K6 is one
+// host call that launches, per step, the gradient kernel, the reduction and
+// the update on one stream with no host synchronisation (13 launches, each
+// waiting for the one before: their latencies, not their work, are K6's
+// time), and counts the gradient kernels it launches in *grad_launches,
+// which the wrapper adds to K5's launch count. It does not keep the weights
+// on chip across the four steps: every step stages them anew.
 
 #include "mlp_grad.cuh"
 
@@ -81,6 +86,9 @@ __global__ void advance_step(long long* step, int n, const long long* num_record
 }
 
 }  // namespace
+
+// bytes of dynamic shared memory of a CTA of the gradient kernel (K4-K6)
+extern "C" int nrc_mlp_grad_smem_bytes(int n_hidden) { return nrc_mlp::smem_bytes(n_hidden); }
 
 extern "C" int nrc_mlp_train_grad(const float* x, const float* target, const float* w_in,
                                   const float* w_hidden, const float* w_out, int batch,

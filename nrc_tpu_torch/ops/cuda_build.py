@@ -101,11 +101,13 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.extra_flags = tuple(extra_flags)
         self.launches = 0
+        self.library_path = None  # the built shared library, once build() has run
         self._fn = None
 
     def build(self) -> str:
         """Build and bind the entry point; returns the compiler log."""
         lib, log = build_library(self.source, self.extra_flags)
+        self.library_path = lib._name
         if self._fn is None:
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes

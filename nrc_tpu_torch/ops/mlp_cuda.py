@@ -3,7 +3,10 @@
 Counterpart of ``nrc_tpu/ops/mlp_pallas.py``. x [B, 128] runs through the
 bias-free chain 128 -> 64 -> (64 -> 64) x H -> 16 with ReLU between layers;
 every product rounds both operands to bf16 and sums in f32. Weights keep the
-JAX layout: w_in [128, 64], w_hidden [H, 64, 64], w_out [64, 16].
+JAX layout: w_in [128, 64], w_hidden [H, 64, 64], w_out [64, 16]. On the card
+every product of K3-K6 is a bf16 ``mma.sync`` tile on the tensor cores
+(``csrc/mma_tiles.cuh``): a warp owns 16 rows and the activations pass from
+layer to layer in registers.
 
 - K3 ``fused_forward`` (``csrc/mlp_forward.cu``): the forward, optionally
   with a ReLU on the output.
@@ -43,9 +46,13 @@ from .cuda_build import CudaKernel, check_cuda_tensor, current_stream, ptr
 LANE = 128
 WIDTH = 64
 OUT_PAD = 16
-MAX_HIDDEN = 16       # K3: shared-memory budget of one CTA (227 KB) holds up to 26
-MAX_HIDDEN_GRAD = 5   # K4-K6: weights + a 128-row block's activations (mlp_grad.cuh)
 GRAD_ROWS = 128       # rows per CTA of the gradient kernels (mlp_grad.cuh kRows)
+# The deepest networks whose shared memory fits a CTA of an H100 (232,448
+# bytes). The layout is the sources' own (csrc/mma_tiles.cuh,
+# mlp_grad.cuh::smem_bytes); tests/test_torch_mlp_tiles.py holds these two
+# numbers to it.
+MAX_HIDDEN = 22       # K3: the weights staged as bf16
+MAX_HIDDEN_GRAD = 5   # K4-K6: weights + a 128-row block's input, activations, gradient
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
