@@ -22,16 +22,28 @@ Phases, each of which raises on failure (non-zero exit):
    through autograd;
 5. serving slice: ``Renderer`` on the 1224-triangle Cornell box at 320x320,
    FULL then NO_CACHE, ``train=False``, frequency encoding 64x5 from a seeded
-   init, 8 timed frames each;
-6. training slice: FULL + train at 320x320 (the main path): frames until the
-   adaptive tile size settles, then 8 timed frames; then one more frame with
-   the inputs of every K1 and K2 launch recorded (lanes and live lanes of each
-   are printed), K1 and K2 held against their plain versions on each recorded
-   set, dead lanes included, and timed on it: the sum over the frame's
-   launches is the frame-weighted time, beside the bound of its live rays;
+   init, 8 timed frames each, each frame one CUDA graph replay;
+6. training slice: FULL + train at 320x320 (the main path), replayed: frames
+   until the adaptive tile size settles, then 8 timed frames, then 4 frames
+   whose launches per replayed frame the kernels line reports (the counts
+   each graph recorded at its capture, added at each replay); the same
+   renderer eagerly and replayed under the profiler (ms/frame, device busy,
+   idle share, kernels and syncs per frame) and the bytes its graphs hold;
+   then one more frame, run eagerly, with the inputs of every K1 and K2
+   launch recorded (lanes and live lanes of each are printed), K1 and K2
+   held against their plain versions on each recorded set, dead lanes
+   included, and timed on it: the sum over the frame's launches is the
+   frame-weighted time, beside the bound of its live rays;
+6c. graph replay against eager frames: two renderers from the same start,
+   one replaying graphs and one eager, through FULL + train frames with a
+   forced tile-size change, ``restart_accumulation``, ``reset_cache`` and
+   ``set_hyper_params``; after every frame the image, weights, moments,
+   EMA, step and stats must be equal bit for bit. On the Cornell box (12
+   frames) and on ``cornell_objects`` (8 frames);
 7. large scene: FULL + train at 320x320 on ``cornell_objects`` (the wide
-   BVH path): frames until the tile size settles, then 8 timed frames; W1,
-   W2 and the path's gather must run, K1 and K2 must not;
+   BVH path), replayed: frames until the tile size settles, then 8 timed
+   frames and 4 more counted; W1, W2 and the path's gather must run, K1 and
+   K2 must not;
 8. convergence: the JAX package's online-training oracle
    (``tests/test_frame.py:92-139``) on the port's Cornell box at 64x64 with
    8x8 tiles: the loss falls over 40 frames, and after a restart 48 FULL +
@@ -42,13 +54,16 @@ Phases, each of which raises on failure (non-zero exit):
    Once by brute force and once with the wide BVH attached.
 
 Every path that runs a kernel is driven with the launch counts set to 0 just
-before it and read just after; each kernel must have been launched there.
+before it and read just after; each kernel must have been launched there. A
+graph replay runs no Python: the renderer adds the launches each graph
+recorded at its capture, once per replay.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
 import ctypes
+import dataclasses
 import itertools
 import json
 import math
@@ -108,6 +123,85 @@ def _counted(kernels, names, fn):
     return out, {name: kernels[name][0].launches for name in names}
 
 
+def _with_tiles(system, tiles):
+    return dataclasses.replace(system, tile_size=tiles)
+
+
+def _replayed_launches(r, kernels, frames=4):
+    """Launches per frame of each kernel over ``frames`` more frames, every
+    one of them a graph replay."""
+    replays = r.replays
+    _, counts = _counted(kernels, kernels, lambda: r.render(frames))
+    _check(r.replays - replays == frames, "a frame of the counted run was not a graph replay")
+    _check(all(n % frames == 0 for n in counts.values()), f"launches differ from frame to frame: {counts}")
+    return {name: n // frames for name, n in counts.items()}
+
+
+def _print_eager_and_replayed(PF, r, label):
+    """The same renderer's frames eagerly and replayed, under the profiler."""
+    rows = {}
+    for capture in (False, True):
+        r.capture = capture
+        rows["replayed" if capture else "eager"] = PF.profile_mode(r, 4, 10, stacks=False)
+    r.capture = True
+    for kind, row in rows.items():
+        print(f"{label} {kind}: {row['ms_per_frame_median']:.3f} ms/frame median of 10 "
+              f"({row['ms_per_frame_min']:.3f}-{row['ms_per_frame_max']:.3f}), device busy "
+              f"{row['device_busy_ms_per_frame']:.3f} ms/frame, idle {100 * row['device_idle_share']:.1f} %, "
+              f"{row['kernel_launches_per_frame']:.0f} kernels and {row['host_syncs_and_copies_per_frame']:.1f} "
+              f"syncs and copies per frame")
+    print(f"{label} graphs: " + ", ".join(f"tile {k[2][0]}x{k[2][1]} {g.nbytes} bytes" for k, g in r.graphs.items()))
+
+
+def _replay_matches_eager(scene, system, dev, frames, label):
+    """Eager and replayed FULL + train frames from the same start, with a
+    tile-size change, a restart, a reset of the cache and new
+    hyper-parameters on the way; equal bit for bit after every frame."""
+    import torch
+
+    from nrc_tpu_torch.config import RenderMode
+    from nrc_tpu_torch.render.renderer import Renderer
+
+    def bits(r):
+        st = r.net_state
+        out = [t.detach().view(torch.int32) for m in (st.params, st.ema, st.opt.mu, st.opt.nu)
+               for t in m.tensors()]
+        s = r.last_stats
+        return out + [st.opt.step, r.image.view(torch.int32), s.loss.view(torch.int32), s.num_train_records,
+                      s.traced_rays]
+
+    pair = [Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device=dev, capture=c)
+            for c in (False, True)]
+    t0 = system.tile_size
+    events = {2: ("tile size", lambda r: setattr(r, "cfg", _with_tiles(r.cfg, (2 * t0[0], 2 * t0[1])))),
+              4: ("tile size back", lambda r: setattr(r, "cfg", _with_tiles(r.cfg, t0))),
+              5: ("restart_accumulation", lambda r: r.restart_accumulation()),
+              6: ("reset_cache", lambda r: r.reset_cache()),
+              7: ("set_hyper_params(learning_rate=5e-3)", lambda r: r.set_hyper_params(learning_rate=5e-3)),
+              9: ("set_hyper_params(train_unbiased_ratio=0.25)",
+                  lambda r: r.set_hyper_params(train_unbiased_ratio=0.25))}
+    done = []
+    for f in range(frames):
+        if f in events:
+            name, act = events[f]
+            for r in pair:
+                act(r)
+            done.append(name)
+        for r in pair:
+            r.render_frame()
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(bits(pair[0]), bits(pair[1]))]
+        _check(all(same), f"{label} frame {f}: replayed and eager frames differ ({same})")
+    for r in pair:
+        r.flush_stats()
+    replayed = pair[1]
+    print(f"{label}: {frames} FULL + train frames replayed ({replayed.replays} replays, {len(replayed.graphs)} graphs, "
+          f"{sum(g.nbytes for g in replayed.graphs.values())} bytes) and eager, bit for bit equal after every frame "
+          f"(image, weights, EMA, moments, step, loss, records, traced rays), across {done}; "
+          f"loss {replayed.loss_history[-1]:.4f}")
+    _check(replayed.replays >= frames // 2, f"{label}: only {replayed.replays} of {frames} frames were replays")
+
+
 def main() -> int:
     import torch
 
@@ -131,6 +225,7 @@ def main() -> int:
     from nrc_tpu_torch.tools import bench_gather
     from nrc_tpu_torch.tools import bench_intersect as BI
     from nrc_tpu_torch.tools import bench_mlp as BM
+    from nrc_tpu_torch.tools import profile_frame as PF
     from nrc_tpu_torch.utils.tonemap import tonemap
 
     # plain references in full float32 (PyTorch's defaults, stated here)
@@ -530,7 +625,6 @@ def main() -> int:
     rt.flush_stats()
     for name in ("intersect_planes", "occluded_planes", "fused_forward", "fused_train_grad", "fused_train4"):
         _check(counts[name] > 0, f"{name} was not launched by the FULL + train run")
-        launches[name] = counts[name]
     _check(counts[path_gather] > 0, f"{path_gather} was not launched by the FULL + train run")
     # K5's gradient kernel runs inside K6, once per step, counted where K6 launches it
     _check(counts["fused_train_grad"] == 4 * counts["fused_train4"], "K6 did not launch K5 four times")
@@ -541,6 +635,11 @@ def main() -> int:
           f"{records} records in the last frame, loss {trained['loss']:.4f}, image mean "
           f"{rt.image.mean().item():.4f}, launches {counts}")
     print(f"FULL + train loss curve (per frame): {[round(v, 4) for v in rt.loss_history]}")
+    per_frame = _replayed_launches(rt, kernels)
+    for name in ("intersect_planes", "occluded_planes", "fused_forward", "fused_train_grad", "fused_train4",
+                 path_gather):
+        launches[name] = per_frame[name]
+    _print_eager_and_replayed(PF, rt, "FULL + train")
 
     # ---- 6b. the sparse ray sets of that frame: every K1 and K2 launch recorded ----
     # The integrator launches over all lanes at every bounce and marks a dead
@@ -593,6 +692,9 @@ def main() -> int:
               f"multiply and add rate")
     del recorded
 
+    # ---- 6c. graph replay against eager frames, bit for bit -----------------------
+    _replay_matches_eager(scene, _with_tiles(system, (4, 4)), dev, 12, "Cornell box")
+
     # ---- 7. the large scene: FULL + train through the wide BVH -------------------
     sizes = BI.settle_tiles(rb)
     big, counts = _counted(kernels, kernels, lambda: rb.benchmark(8))
@@ -601,7 +703,8 @@ def main() -> int:
         _check(counts[name] > 0, f"{name} was not launched by the large-scene run")
     for name in ("intersect_planes", "occluded_planes"):
         _check(counts[name] == 0, f"{name} was launched by the large-scene run")
-    launches.update({name: counts[name] for name in ("wbvh_closest", "wbvh_any", path_gather)})
+    big_frame = _replayed_launches(rb, kernels)
+    launches.update({name: big_frame[name] for name in ("wbvh_closest", "wbvh_any")})
     launches.update({name: bench_counts[name] for name in gather_names if name != path_gather})
     _check(rb.image.shape == (n, 3) and bool(torch.isfinite(rb.image).all()) and rb.image.std().item() > 0.0,
            "large-scene image bad")
@@ -613,6 +716,9 @@ def main() -> int:
           f"{big['traced_rays_per_frame']:.0f} rays/frame, {int(rb.last_stats.num_train_records)} records in the "
           f"last frame, loss {big['loss']:.4f}, image mean {rb.image.mean().item():.4f}, launches {counts}")
     print(f"cornell_objects loss curve (per frame): {[round(v, 4) for v in rb.loss_history]}")
+    _print_eager_and_replayed(PF, rb, "cornell_objects FULL + train")
+    del rb
+    _replay_matches_eager(big_scene, _with_tiles(big_system, (4, 4)), dev, 8, "cornell_objects")
 
     # ---- 8. convergence: the JAX package's Cornell oracle ----------------------
     small, small_sys = cornell_box((64, 64))

@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kWarpThreads = 256;       // 8 warps per block
@@ -119,11 +121,31 @@ bool vector_ok(const void* table, const void* out, int row_words) {
          reinterpret_cast<uintptr_t>(out) % 16 == 0;
 }
 
-int sm_count() {
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  return sms > 0 ? sms : 1;
+// The SM count, and the resident kernel's limit of dynamic shared memory
+// raised to kResidentBytes, once per device: a launch then makes no query
+// and no attribute call (both cost the host time at every launch).
+template <typename Word>
+cudaError_t resident_setup(int* sms) {
+  static std::mutex lock;
+  static int known_device = -1, known_sms = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> guard(lock);
+  if (device != known_device) {
+    int count = 0;
+    if ((err = cudaFuncSetAttribute(gather_resident_kernel<Word>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    kResidentBytes)) != cudaSuccess)
+      return err;
+    if ((err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device)) !=
+        cudaSuccess)
+      return err;
+    known_device = device;
+    known_sms = count > 0 ? count : 1;
+  }
+  *sms = known_sms;
+  return cudaSuccess;
 }
 
 template <typename Word>
@@ -133,12 +155,11 @@ int launch_resident(const Word* table, const long long* idx, Word* out, int n, i
   int staged_rows = kResidentBytes / row_bytes;
   if (staged_rows > num_rows) staged_rows = num_rows;
   const int smem = staged_rows * row_bytes;
-  cudaError_t err = cudaFuncSetAttribute(gather_resident_kernel<Word>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int sms = 1;
+  cudaError_t err = resident_setup<Word>(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int warps_per_block = kResidentThreads >> 5;
   int blocks = (n + warps_per_block - 1) / warps_per_block;
-  const int sms = sm_count();
   if (blocks > sms) blocks = sms;
   gather_resident_kernel<Word><<<blocks, kResidentThreads, smem, stream>>>(
       table, idx, out, n, row_words, num_rows, staged_rows);

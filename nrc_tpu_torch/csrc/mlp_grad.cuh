@@ -38,6 +38,8 @@
 
 #pragma once
 
+#include <mutex>
+
 #include "mma_tiles.cuh"
 
 namespace nrc_mlp {
@@ -328,6 +330,27 @@ __global__ void reduce_partials(const float* __restrict__ partial, int n_blocks,
   }
 }
 
+// Raise the gradient kernel's limit of dynamic shared memory to `smem`, once
+// per (device, size): a launch then makes no attribute call, which costs the
+// host time at every frame (mlp_forward.cu keeps its grid the same way).
+template <bool kTrain>
+inline cudaError_t allow_smem(int smem) {
+  static std::mutex lock;
+  static int known_device = -1, known_smem = -1;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> guard(lock);
+  if (device != known_device || smem != known_smem) {
+    err = cudaFuncSetAttribute(mlp_grad_kernel<kTrain>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    known_device = device;
+    known_smem = smem;
+  }
+  return cudaSuccess;
+}
+
 // Launch the gradient kernel and the reduction on `stream`. grad receives
 // the P summed weight gradients; with loss != nullptr (K5/K6) *loss receives
 // loss_scale times the summed loss (0 when *num_records == 0).
@@ -339,8 +362,7 @@ inline cudaError_t launch_grad(const float* x, const float* gout, const float* w
                                const long long* num_records, cudaStream_t stream) {
   const int smem = smem_bytes(n_hidden);
   if (n_hidden > kMaxHidden || smem > kSmemLimit || batch <= 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(mlp_grad_kernel<kTrain>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = allow_smem<kTrain>(smem);
   if (err != cudaSuccess) return err;
   const int blocks = (batch + kRows - 1) / kRows;
   mlp_grad_kernel<kTrain><<<blocks, kThreads, smem, stream>>>(

@@ -145,6 +145,19 @@ def state_to_numpy(state: NetworkState) -> dict:
     return out
 
 
+@torch.no_grad()
+def copy_state(dst: NetworkState, src: NetworkState) -> None:
+    """Copy ``src``'s weights, EMA, moments and step into ``dst``'s tensors
+    (of the same shapes, on any device)."""
+    for a, b in ((dst.params, src.params), (dst.ema, src.ema),
+                 (dst.opt.mu, src.opt.mu), (dst.opt.nu, src.opt.nu)):
+        for t, u in zip(a.tensors(), b.tensors()):
+            if t.shape != u.shape:
+                raise ValueError(f"network state shape {tuple(u.shape)}, expected {tuple(t.shape)}")
+            t.copy_(u)
+    dst.opt.step.copy_(src.opt.step)
+
+
 def _pad_input(x: torch.Tensor, d_in: int) -> torch.Tensor:
     """Pad encoded features to 128 with a single ones channel, then zeros."""
     b = x.shape[0]

@@ -9,7 +9,10 @@ carries a hash of the source and flags, so an edited source rebuilds.
 
 ``CudaKernel`` is the launch handle a wrapper holds: it builds lazily, runs
 the C entry point on PyTorch's current stream, raises when the entry point
-returns a CUDA error, and counts its launches.
+returns a CUDA error, and counts its launches. A launch made while a CUDA
+graph is being captured runs nothing; the code that captures reads the
+counts around the capture (``launch_counts``), puts them back, and adds the
+graph's share at each replay.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -31,6 +34,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# every launch handle made, in the order made
+KERNELS: List["CudaKernel"] = []
 
 # (source, extra flags) -> (loaded library, compiler log)
 _LIBRARIES: Dict[Tuple[str, Tuple[str, ...]], Tuple[ctypes.CDLL, str]] = {}
@@ -103,6 +109,7 @@ class CudaKernel:
         self.launches = 0
         self.library_path = None  # the built shared library, once build() has run
         self._fn = None
+        KERNELS.append(self)
 
     def build(self) -> str:
         """Build and bind the entry point; returns the compiler log."""
@@ -122,6 +129,11 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} at launch")
         self.launches += 1
+
+
+def launch_counts() -> Dict[CudaKernel, int]:
+    """Every launch handle's count of launches."""
+    return {k: k.launches for k in KERNELS}
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

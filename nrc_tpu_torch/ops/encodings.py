@@ -10,6 +10,7 @@ The hash-grid encoding is not ported yet.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -22,13 +23,17 @@ M_PI = math.pi
 POS = slice(0, 3)
 
 
+@functools.lru_cache(maxsize=None)
+def _frequencies(n_frequencies: int, d: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[d * F]: 2^j for j < F, repeated d times. Made once per device and
+    shape: it is copied from the host, which a captured frame cannot do."""
+    return torch.tensor([2.0 ** j for j in range(n_frequencies)], dtype=dtype, device=device).repeat(d)
+
+
 def triangle_wave(x: torch.Tensor, n_frequencies: int) -> torch.Tensor:
     """[..., D] -> [..., D * F]; column d*F + j is tri(x_d * 2^j), a
     unit-period triangle wave in [0, 1]."""
-    d = x.shape[-1]
-    freqs = torch.tensor(
-        [2.0 ** j for j in range(n_frequencies)], dtype=x.dtype, device=x.device
-    ).repeat(d)
+    freqs = _frequencies(n_frequencies, x.shape[-1], x.dtype, x.device)
     xs = torch.repeat_interleave(x, n_frequencies, dim=-1) * freqs
     return torch.abs(2.0 * (xs - torch.floor(xs + 0.5)))
 

@@ -11,9 +11,16 @@ incremental mean of ``raygeneration.cu:406-411``; then radiance propagation,
 batch assembly and the four Adam + EMA steps (``Device::nrcTrainRadiance``,
 ``Device.cpp:1473-1513``).
 
-Nothing in a frame reads a value back to the host but the bounce loop's
-"any ray alive" flag: the record count, the loss and the training skip on a
-frame without records stay on the device (K6 reads the count).
+The counters ``iteration_index`` and ``total_subframe`` come as 0-d int64
+tensors on the frame's device (``Renderer``) or as Python ints (direct
+calls). On the card a frame reads nothing back to the host and copies
+nothing to it: the bounce loop runs every bounce (``integrator._all_done``),
+the record count, the loss and the training skip on a frame without records
+stay on the device (K6 reads the count), and the accumulation weight is
+computed there. So ``Renderer`` can capture it as one CUDA graph. On the
+CPU the bounce loop still stops when no ray is alive, a read per bounce.
+The only reads of a frame's results are ``Renderer``'s non-blocking copies
+of the loss and the record count, outside the graph.
 ``DEBUG_TIME_VIEW`` waits for the time-view ramp's port and raises.
 """
 
@@ -138,13 +145,22 @@ def assemble_training_batches(total_subframe: int, rec_query, rec_target, rec_co
             comp_t[:cap][sel].view(NUM_BATCHES, BATCH_SIZE, 3), num_records)
 
 
+def accumulation_weight(iteration_index):
+    """1 / (i + 1) in float32, the incremental mean's weight: a Python float
+    for an int, a 0-d float32 tensor on the device for a tensor. The
+    division is correctly rounded on both sides, so the two are bit-equal."""
+    if isinstance(iteration_index, torch.Tensor):
+        return 1.0 / (iteration_index.to(torch.float32) + 1.0)
+    return float(np.float32(1.0) / (np.float32(iteration_index) + np.float32(1.0)))
+
+
 def frame_step(
     scene: DeviceScene,
     net_state: N.NetworkState,
     image: torch.Tensor,          # [H*W, 3] accumulated HDR
     camera: CameraArrays,
-    iteration_index: int,         # accumulation index (resets on camera move)
-    total_subframe: int,          # ever-increasing (RNG stream)
+    iteration_index,              # accumulation index (resets on camera move): int or i64 0-d tensor
+    total_subframe,               # ever-increasing (RNG stream): int or i64 0-d tensor
     cfg: FrameConfig,
     net_cfg: NetworkConfig,
     learning_rate: Optional[torch.Tensor] = None,  # f32 scalar on the device
@@ -195,7 +211,7 @@ def frame_step(
         ofs += cfg.num_tiles
 
     # ---- accumulate into the image ---------------------------------------
-    w_acc = float(np.float32(1.0) / (np.float32(iteration_index) + np.float32(1.0)))
+    w_acc = accumulation_weight(iteration_index)
     if mode == RenderMode.FULL:
         contrib = out.radiance + out.last_render_throughput * cache[:n_pixels]
         image = image + (contrib - image) * w_acc

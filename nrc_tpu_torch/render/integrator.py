@@ -22,8 +22,13 @@ suffix in the reference.
 
 The JAX package splits large wavefronts into bands under ``lax.map``
 (``trace_wavefront_chunked``); the outputs are per ray, so one pass over all
-rays computes the same thing. The bounce loop stops when no ray is alive,
-like the JAX ``while_loop`` (one device-to-host read of a flag per bounce).
+rays computes the same thing. On the CPU the bounce loop stops when no ray
+is alive, like the JAX ``while_loop`` (a read of a flag per bounce). On the
+card it runs all ``max_depth`` bounces, like the JAX package's fixed-length
+scan (``NRC_BOUNCE_SCAN``), and reads nothing back, so that a frame can be
+captured as a CUDA graph: a dead lane traces an empty t range, which
+K1/K2 and W1/W2 answer without work, and every update is masked by
+``alive`` or ``hit_valid``, so the outputs are the same bit for bit.
 
 Transport features that are not ported (volumes, textures, cutouts,
 layered/measured/noise materials, curves, shadow-ray Russian roulette) raise
@@ -134,6 +139,12 @@ class _State(NamedTuple):
     rec_target: Optional[torch.Tensor] = None
     end_query: Optional[torch.Tensor] = None
     end_mask: Optional[torch.Tensor] = None
+
+
+def _all_done(alive: torch.Tensor) -> bool:
+    """The bounce loop's early exit: no ray is alive. A read of the device,
+    so only off the card; on a CUDA tensor it is never done."""
+    return alive.device.type != "cuda" and not bool(alive.any())
 
 
 def trace_wavefront(
@@ -427,10 +438,11 @@ def trace_wavefront(
         )
 
     # depth 0 sets the camera's area threshold; depths 1..max_depth
-    # accumulate the spread and stop once every lane has terminated
+    # accumulate the spread (off the card they stop once every lane has
+    # terminated)
     state = bounce(state, True, 0)
     for depth in range(1, cfg.max_depth + 1):
-        if not bool(state.alive.any()):
+        if _all_done(state.alive):
             break
         state = bounce(state, False, depth)
 

@@ -8,6 +8,23 @@ once per subframe, restarts accumulation on state changes, and adapts the
 training tile size between frames from a two-frame-old record count, read
 from a non-blocking copy so that the frame loop never waits for it.
 
+On a CUDA device a frame is one CUDA graph replay: the counterpart of the
+JAX package's ``jax.jit`` of the frame per static ``FrameConfig``
+(``nrc_tpu/render/renderer.py:263-286``). The shapes of a frame depend only
+on ``cfg``, so one graph per ``cfg`` serves, and at most ``MAX_GRAPHS`` are
+kept. The first frame of a new ``cfg`` runs eagerly on a side stream (the
+warm-up PyTorch asks for before a capture; it also builds every kernel),
+and the same frame is then captured for the next ones, into a memory pool
+of its own (no two graphs share one: the tile size can return to an older
+graph at any frame). A graph reads and
+writes fixed tensors, so the renderer keeps its state in place: the image,
+the camera, the two frame counters (0-d int64 tensors, advanced by the
+frame's last operation; ``iteration`` and ``total_subframe`` read a host
+mirror), the learning rate, the network state (a new state is copied in)
+and the traced-ray sum (``traced_rays``). A new scene drops the graphs. A capture that fails
+raises; nothing falls back to eager frames. ``capture=False`` runs the same
+frames eagerly on the card, to compare with.
+
 ``device`` decides where everything runs; a CUDA device without a card
 raises, and nothing falls back to the CPU.
 """
@@ -17,8 +34,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from collections import deque
-from typing import Optional
+from collections import OrderedDict, deque
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,9 +49,30 @@ from ..config import (
     adjust_tile_size,
 )
 from ..models import network as N
+from ..ops.cuda_build import CudaKernel, launch_counts
 from ..scene.scene_builder import Scene
 from .frame import CameraArrays, FrameStats, frame_step
 from .scene_device import DeviceScene, upload_scene
+
+MAX_GRAPHS = 16  # as the JAX package bounds its compile cache
+
+
+def frame_key(cfg: FrameConfig) -> tuple:
+    """Every field of ``cfg`` as a hashable key: a change to any of them
+    selects another graph, as it makes the JAX package compile again."""
+    return tuple(
+        tuple(sorted(v)) if isinstance(v, frozenset) else v for v in dataclasses.astuple(cfg)
+    )
+
+
+class FrameGraph(NamedTuple):
+    """One captured frame: the graph, its output buffers, the kernel launches
+    one replay makes, and the bytes its memory pool took at the capture."""
+
+    graph: torch.cuda.CUDAGraph
+    stats: FrameStats
+    launches: Dict[CudaKernel, int]
+    nbytes: int
 
 
 class Renderer:
@@ -49,16 +87,20 @@ class Renderer:
         train: bool = True,
         adaptive_tiles: bool = True,
         device=torch.device("cuda"),
+        capture: bool = True,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device='cuda'): no CUDA device is available")
+        # frames on the card replay graphs; False runs them eagerly
+        self.capture = capture
+        self.graphs: "OrderedDict[tuple, FrameGraph]" = OrderedDict()
         self.scene = scene
         self.system = system
         self.net_cfg = net_cfg or NetworkConfig()
         self.hyper = NRCHyperParams(learning_rate=self.net_cfg.learning_rate)
         self.adaptive_tiles = adaptive_tiles
-        self.device_scene: DeviceScene = upload_scene(scene, self.device)
+        self.device_scene = upload_scene(scene, self.device)
 
         # per-scene normalization of query positions (the reference hardcodes
         # 0.005 for Cornell, hit.cu:595-597; derived from the scene AABB)
@@ -79,24 +121,79 @@ class Renderer:
             walk_length=system.walk_length,
             position_scale=0.1 / max(extent, 1e-6),
         )
+        self._net_state: Optional[N.NetworkState] = None
         self.reset_cache()
         # a device scalar: a learning-rate edit changes a value, not a kernel
         self.learning_rate = torch.tensor(
             self.hyper.learning_rate, dtype=torch.float32, device=self.device
         )
-        self.image = torch.zeros((w * h, 3), dtype=torch.float32, device=self.device)
-        self.iteration = 0
-        self.total_subframe = 0
+        self._image = torch.zeros((w * h, 3), dtype=torch.float32, device=self.device)
+        # (iteration, total_subframe) on the device, and their host mirrors
+        self._counters = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self._host_counters = [0, 0]
+        # rays traced since the last zero_(), summed on the device by each frame
+        self.traced_rays = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.replays = 0  # frames run as a graph replay
+        self._frustum: Optional[np.ndarray] = None
+        self._camera_rows = torch.zeros((4, 3), dtype=torch.float32, device=self.device)
+        self._camera = CameraArrays(*self._camera_rows.unbind(0))
         self.last_stats: Optional[FrameStats] = None
         self.loss_history: deque = deque(maxlen=256)
         self._pending_stats: deque = deque()
+
+    # -- state the graphs read, kept in place --------------------------------
+
+    @property
+    def image(self) -> torch.Tensor:
+        """[H*W, 3] accumulated HDR; the frames write it in place."""
+        return self._image
+
+    @property
+    def iteration(self) -> int:
+        return self._host_counters[0]
+
+    @iteration.setter
+    def iteration(self, value: int) -> None:
+        self._host_counters[0] = int(value)
+        self._counters[0].fill_(int(value))  # a fill kernel, not a copy
+
+    @property
+    def total_subframe(self) -> int:
+        return self._host_counters[1]
+
+    @total_subframe.setter
+    def total_subframe(self, value: int) -> None:
+        self._host_counters[1] = int(value)
+        self._counters[1].fill_(int(value))
+
+    @property
+    def net_state(self) -> N.NetworkState:
+        return self._net_state
+
+    @net_state.setter
+    def net_state(self, state: N.NetworkState) -> None:
+        """The first state is bound; a later one is copied into it, so the
+        graphs go on reading the same tensors."""
+        if self._net_state is None:
+            self._net_state = state
+        else:
+            N.copy_state(self._net_state, state)
+
+    @property
+    def device_scene(self) -> DeviceScene:
+        return self._device_scene
+
+    @device_scene.setter
+    def device_scene(self, scene: DeviceScene) -> None:
+        self._device_scene = scene
+        self.graphs.clear()  # they read the old scene's tensors
 
     # -- state management --------------------------------------------------
 
     def restart_accumulation(self) -> None:
         """Camera/material change restarts progressive accumulation."""
         self.iteration = 0
-        self.image = torch.zeros_like(self.image)
+        self._image.zero_()
 
     def reset_cache(self) -> None:
         """Re-create the network (GUI 'reset cache' -> ``Device.cpp:2415-2421``)
@@ -134,9 +231,13 @@ class Renderer:
         )
 
     def _camera_arrays(self) -> CameraArrays:
-        return CameraArrays(
-            *(torch.as_tensor(a, device=self.device) for a in self.scene.camera.frustum())
-        )
+        """The camera's (P, U, V, W) on the device, copied there only when
+        the camera has moved."""
+        frustum = np.stack(self.scene.camera.frustum())
+        if self._frustum is None or not np.array_equal(frustum, self._frustum):
+            self._camera_rows.copy_(torch.from_numpy(frustum))
+            self._frustum = frustum
+        return self._camera
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -144,21 +245,84 @@ class Renderer:
 
     # -- frame loop --------------------------------------------------------
 
+    def _frame(self) -> FrameStats:
+        """One frame on the renderer's state, as a graph captures it: the
+        image written back in place, the traced rays summed and both
+        counters advanced on the device."""
+        with torch.no_grad():
+            image, stats = frame_step(
+                self.device_scene,
+                self.net_state,
+                self._image,
+                self._camera,
+                self._counters[0],
+                self._counters[1],
+                self.cfg,
+                self.net_cfg,
+                self.learning_rate,
+            )
+            self._image.copy_(image)
+            self.traced_rays.add_(stats.traced_rays)
+            self._counters.add_(1)
+        return stats
+
+    def _capture(self, key: tuple) -> FrameStats:
+        """The frame eagerly on a side stream, then the same frame captured
+        for the next frames with this ``cfg``. Returns the eager frame's
+        stats."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            stats = self._frame()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                graph_stats = self._frame()
+        except Exception as e:
+            raise RuntimeError(f"capturing the frame of {self.cfg} failed") from e
+        finally:
+            # a launch under capture ran nothing: count it at each replay
+            launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+            for k in launches:
+                k.launches = before[k]
+        self._keep(key, FrameGraph(graph, graph_stats, launches,
+                                   torch.cuda.memory_reserved(self.device) - reserved))
+        return stats
+
+    def _keep(self, key: tuple, entry: FrameGraph) -> None:
+        """Cache a graph; beyond ``MAX_GRAPHS`` the one used longest ago goes."""
+        self.graphs[key] = entry
+        while len(self.graphs) > MAX_GRAPHS:
+            self.graphs.popitem(last=False)
+
+    def _replay(self) -> FrameStats:
+        key = frame_key(self.cfg)
+        entry = self.graphs.get(key)
+        if entry is None:
+            return self._capture(key)
+        self.graphs.move_to_end(key)
+        entry.graph.replay()
+        self.replays += 1
+        for k, n in entry.launches.items():
+            k.launches += n
+        return entry.stats
+
     def render_frame(self) -> FrameStats:
-        """One subframe (1 spp accumulated)."""
-        self.image, stats = frame_step(
-            self.device_scene,
-            self.net_state,
-            self.image,
-            self._camera_arrays(),
-            self.iteration,
-            self.total_subframe,
-            self.cfg,
-            self.net_cfg,
-            self.learning_rate,
-        )
-        self.iteration += 1
-        self.total_subframe += 1
+        """One subframe (1 spp accumulated). On the card the stats are the
+        graph's own buffers, which the next frame of the same ``cfg``
+        overwrites."""
+        self._camera_arrays()
+        if self.device.type == "cuda" and self.capture:
+            stats = self._replay()
+        else:
+            stats = self._frame()
+        self._host_counters[0] += 1
+        self._host_counters[1] += 1
         self.last_stats = stats
         if self.cfg.train:
             # start the copy of loss and record count now and read it two
@@ -208,24 +372,27 @@ class Renderer:
     def benchmark(self, spp: int) -> dict:
         """Timed loop (``Application::benchmark``, Application.cpp:496-540):
         one warm-up frame, then ``spp`` timed frames from a fresh
-        accumulation. The traced-ray count is read after the timer stops."""
+        accumulation. The frames sum their traced rays on the device; the
+        sum is read after the timer stops."""
         self.render_frame()
         self.restart_accumulation()
+        self.traced_rays.zero_()
         self._sync()
-        frame_stats = []
         t0 = time.perf_counter()
         for _ in range(spp):
-            frame_stats.append(self.render_frame())
+            self.render_frame()
         self._sync()
         dt = time.perf_counter() - t0
-        traced = sum(int(s.traced_rays) for s in frame_stats)
+        traced = int(self.traced_rays)
         return {
-            "loss": float(frame_stats[-1].loss),
+            "loss": float(self.last_stats.loss),
             "spp": spp,
             "seconds": dt,
             "ms_per_frame": 1e3 * dt / spp,
             "fps": spp / dt,
             "mrays_per_s": traced / dt / 1e6,
+            # every path running all its segments (nrc_tpu/render/renderer.py:397-398)
+            "potential_mrays_per_s": self.cfg.num_pixels * spp * (self.cfg.max_depth + 1) / dt / 1e6,
             "traced_rays_per_frame": traced / spp,
         }
 

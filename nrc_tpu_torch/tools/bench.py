@@ -1,0 +1,122 @@
+"""The port's benchmark: traced Mrays/s of a Cornell FULL + train frame on one card.
+
+Run from the root of a checkout on a machine with one CUDA card:
+
+    python3 -m nrc_tpu_torch.tools.bench
+
+The configuration of the JAX package's ``bench.py:82-89``: the Cornell box
+(``cornell_box``, 1224 triangles) at 320x320, FULL render mode with online
+training, 4x4 training tiles held fixed (``adaptive_tiles=False``),
+frequency encoding 64x5 from a seeded init. Three warm-up frames (the first
+captures the frame's CUDA graph), then 5 reps of 32 frames, each frame one
+graph replay, the accumulation and the training carried from rep to rep.
+
+Per rep: host ms/frame (the host clock around the rep, which ends in a
+synchronise), device ms/frame (CUDA events around the rep's replays on the
+stream) and the rep's own traced rays (closest-hit segments of live lanes
++ shadow rays with a valid light sample, summed by the frames on the
+device, ``Renderer.traced_rays``). The value is the median rep's traced
+rays over that rep's own host time. ``potential_mrays_per_s`` counts, as
+``bench.py`` does, (pixels + tiles) x (max_depth + 1) x 2 rays a frame. The
+spread is the reps' smallest and largest values. The last line is one JSON
+object with the keys of ``bench.py``'s line (``metric``, ``value``,
+``unit``, ``potential_mrays_per_s``, ``timing``), the per-rep numbers and
+the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from ..config import RenderMode
+from ..render.renderer import Renderer
+from ..scene.scene_builder import cornell_box
+
+RES = 320
+TILE = (4, 4)
+WARMUP = 3
+FRAMES = 32
+REPS = 5
+
+
+def run_rep(r: Renderer, frames: int) -> dict:
+    """``frames`` frames; host and device ms/frame and the traced rays."""
+    r.traced_rays.zero_()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(r.device)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(frames):
+        r.render_frame()
+    end.record()
+    torch.cuda.synchronize(r.device)
+    host_s = time.perf_counter() - t0
+    traced = int(r.traced_rays)
+    return {
+        "host_ms_per_frame": 1e3 * host_s / frames,
+        "device_ms_per_frame": start.elapsed_time(end) / frames,
+        "traced_rays": traced,
+        "mrays_per_s": traced / host_s / 1e6,
+    }
+
+
+def run(frames: int = FRAMES, reps: int = REPS) -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench: no CUDA device is available")
+    dev = torch.device("cuda", 0)
+    scene, system = cornell_box((RES, RES))
+    system = dataclasses.replace(system, tile_size=TILE)
+    r = Renderer(scene, system, render_mode=RenderMode.FULL, train=True, adaptive_tiles=False, device=dev)
+    for _ in range(WARMUP):
+        r.render_frame()
+    replays = r.replays
+    rows = [run_rep(r, frames) for _ in range(reps)]
+    r.flush_stats()
+    if r.replays - replays != frames * reps:
+        raise RuntimeError("a timed frame was not a graph replay")
+    median = sorted(rows, key=lambda row: row["host_ms_per_frame"])[reps // 2]
+    fps = 1e3 / median["host_ms_per_frame"]
+    cfg = r.cfg
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    values = [row["mrays_per_s"] for row in rows]
+    return {
+        "metric": "mrays_per_s",
+        "value": median["mrays_per_s"],
+        "unit": "Mrays/s",
+        "potential_mrays_per_s": (cfg.num_pixels + cfg.num_tiles) * (cfg.max_depth + 1) * 2 * fps / 1e6,
+        "timing": f"{frames} graph-replayed frames a rep, the median rep of {reps} by host time, "
+                  "with that rep's own traced rays",
+        "host_ms_per_frame": median["host_ms_per_frame"],
+        "device_ms_per_frame": median["device_ms_per_frame"],
+        "traced_rays_per_frame": median["traced_rays"] / frames,
+        "spread_mrays_per_s": [min(values), max(values)],
+        "spread_host_ms_per_frame": [min(row["host_ms_per_frame"] for row in rows),
+                                     max(row["host_ms_per_frame"] for row in rows)],
+        "reps": rows,
+        "loss_last": r.loss_history[-1],
+        "device": smi,
+    }
+
+
+def main() -> int:
+    result = run()
+    print(result["device"])
+    for i, row in enumerate(result["reps"]):
+        print(f"rep {i}: {row['host_ms_per_frame']:.3f} host ms/frame, {row['device_ms_per_frame']:.3f} device "
+              f"ms/frame, {row['traced_rays']} traced rays, {row['mrays_per_s']:.3f} Mrays/s", file=sys.stderr)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

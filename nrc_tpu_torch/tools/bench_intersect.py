@@ -99,9 +99,10 @@ def ray_sets(r: Renderer, first_t, gen) -> dict:
 
 
 def record_frame_launches(renderer: Renderer) -> list:
-    """Render one frame with the two callables of ``make_intersectors``
-    wrapped; returns [(kind, (org, dir, tmin, tmax))] in launch order, kind
-    "K1" for the closest hit and "K2" for the any hit."""
+    """Render one frame eagerly (a graph replay calls no Python) with the two
+    callables of ``make_intersectors`` wrapped; returns [(kind, (org, dir,
+    tmin, tmax))] in launch order, kind "K1" for the closest hit and "K2"
+    for the any hit."""
     recorded = []
     original = integrator.make_intersectors
 
@@ -116,10 +117,12 @@ def record_frame_launches(renderer: Renderer) -> list:
         return keep("K1", closest), keep("K2", occluded)
 
     integrator.make_intersectors = recording
+    capture, renderer.capture = renderer.capture, False
     try:
         renderer.render_frame()
     finally:
         integrator.make_intersectors = original
+        renderer.capture = capture
     return recorded
 
 

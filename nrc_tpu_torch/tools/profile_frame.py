@@ -1,4 +1,4 @@
-"""Where a frame's time goes on the card: one traced window of frames.
+"""Where a frame's time goes on the card, frames run eagerly and replayed.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -8,21 +8,32 @@ Four configurations at 320x320 (frequency encoding 64x5, seeded init). On
 the 1224-triangle Cornell box: FULL and NO_CACHE with ``train=False`` (the
 serving side), then FULL + train, the main path, after the adaptive tile
 size has settled. On the 132 K-triangle ``cornell_objects`` scene, which
-goes through the wide BVH: FULL + train, likewise settled. For each it first times 20 frames one by
-one with the profiler off (host clock around each frame, ending in a
-synchronise), then traces 4 frames with ``torch.profiler`` and reads the
-trace: device busy time (the union of kernel, memcpy and memset intervals),
-the device's idle share of the traced wall time, kernel launches and
-host-to-device syncs per frame, and device time by kernel group: K1 (closest
-hit), K2 (shadow rays), W1/W2 (the wide-BVH walks that take their place on
-the large scene), the row gathers, K3 (cache MLP), K5 (the training
-gradient, launched by K6), K6's reduction and Adam + EMA kernels, and
-everything else, which is
-PyTorch's own elementwise, gather, sort and reduction kernels (the six
-largest of them are listed by name). The training
-side of a frame is FULL + train less FULL. The last line is one JSON object
-with the same numbers. The chrome traces (tens of MB each) go to a
-temporary directory and are removed.
+goes through the wide BVH: FULL + train, likewise settled.
+
+Each configuration runs twice from the same renderer: eagerly
+(``Renderer.capture = False``; every kernel issued from Python) and
+replayed (one CUDA graph per frame, the renderer's default on the card).
+For each, it times 20 frames one by one with the profiler off (host clock
+around each frame, ending in a synchronise), then traces 4 frames with
+``torch.profiler`` and reads the trace: device busy time (the union of
+kernel, memcpy and memset intervals), the device's idle share of the traced
+wall time (and of the frames timed without it, since tracing slows the
+host), kernel launches and host syncs and copies (``cudaMemcpyAsync``
+and every ``*Synchronize``) per frame, and device time by kernel group: K1
+(closest hit), K2 (shadow rays), W1/W2 (the wide-BVH walks that take their
+place on the large scene), the row gathers, K3 (cache MLP), K5 (the
+training gradient, launched by K6), K6's reduction and Adam + EMA kernels,
+and everything else, which is PyTorch's own elementwise, gather, sort and
+reduction kernels (the six largest are listed by name). CUPTI records the
+kernels a graph launches, so the groups read the same in both columns.
+
+Every sync and copy is named by its call site: two more frames are traced
+with Python stacks, and each ``cudaMemcpyAsync`` or synchronize is put
+under the innermost function of the port (or of this tool) that encloses it
+and the call it made there; a copy also names its direction from the
+device's record of it. The bytes each captured graph holds are listed.
+The last line is one JSON object with all of it. The chrome traces (tens of
+MB each) go to a temporary directory and are removed.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ from ..scene.scene_builder import cornell_box, cornell_objects
 RES = 320
 TIMED_FRAMES = 20
 TRACED_FRAMES = 4
+STACK_FRAMES = 2
 
 # (label, substrings that a kernel's name must all hold)
 GROUPS = (("K1 nrc_planes_closest", ("planes_kernel<false>",)),
@@ -59,6 +71,8 @@ GROUPS = (("K1 nrc_planes_closest", ("planes_kernel<false>",)),
           ("K6 reduce + Adam/EMA", ("reduce_partials",)),
           ("K6 reduce + Adam/EMA", ("adam_ema_kernel",)),
           ("K6 reduce + Adam/EMA", ("advance_step",)))
+# the files whose functions name a call site
+OWN_CODE = ("nrc_tpu_torch/", "chip_smoke.py")
 
 
 def _group(name: str) -> str:
@@ -77,15 +91,13 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def profile_mode(r: Renderer, label: str, frames: int, timed: int) -> dict:
-    r.render(2)  # warm: kernels built, caches filled
-    times = []
-    for _ in range(timed):
-        t0 = time.perf_counter()
-        r.render(1)
-        times.append(1e3 * (time.perf_counter() - t0))
+def _is_sync_or_copy(e) -> bool:
+    return e.get("cat") == "cuda_runtime" and ("Synchronize" in e["name"] or e["name"] == "cudaMemcpyAsync")
+
+
+def _traced_events(r: Renderer, frames: int, with_stack: bool):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, with_stack=with_stack) as prof:
         t0 = time.perf_counter()
         r.render(frames)
         wall_us = 1e6 * (time.perf_counter() - t0)
@@ -94,6 +106,70 @@ def profile_mode(r: Renderer, label: str, frames: int, timed: int) -> dict:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    return events, wall_us
+
+
+def _frame_name(e) -> str:
+    """``path/to/file.py(12): fn`` -> ``file.py:fn``; a built-in keeps its name."""
+    name = e["name"]
+    if "): " in name and ".py(" in name:
+        path, fn = name.split("): ", 1)
+        return f"{os.path.basename(path.split('(')[0])}:{fn}"
+    return name.replace("<built-in method ", "").split(" of ")[0].rstrip(">")
+
+
+def call_sites(events, frames: int) -> dict:
+    """Every ``cudaMemcpyAsync`` and synchronize of a trace taken with Python
+    stacks -> {call site: count per frame}. The site is the innermost
+    function of the port that encloses the call, and the call it made; a
+    copy also names its direction (a device-to-device copy is no host
+    transfer)."""
+    py = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "python_function":
+            py[e.get("tid")].append(e)
+    # a copy's direction, from the device's record of it ("Memcpy DtoH ...")
+    kinds = {e.get("args", {}).get("correlation"): e["name"].split(" (")[0]
+             for e in events if e.get("cat") == "gpu_memcpy"}
+    sites = collections.Counter()
+    for tid, frames_of_tid in py.items():
+        runtime = [e for e in events if _is_sync_or_copy(e) and e.get("tid") == tid]
+        timeline = sorted([(e["ts"], -e["dur"], 0, i) for i, e in enumerate(frames_of_tid)]
+                          + [(e["ts"], -e["dur"], 1, i) for i, e in enumerate(runtime)])
+        stack = []
+        for ts, _, kind, i in timeline:
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] < ts:
+                stack.pop()
+            if kind == 0:
+                stack.append(frames_of_tid[i])
+                continue
+            own = [k for k, f in enumerate(stack) if any(o in f["name"] for o in OWN_CODE)]
+            if own:
+                k = own[-1]
+                site = _frame_name(stack[k])
+                if k + 1 < len(stack):
+                    site += " -> " + _frame_name(stack[k + 1])
+            else:
+                site = "outside the port"
+            call = runtime[i]["name"]
+            kind = kinds.get(runtime[i].get("args", {}).get("correlation"))
+            sites[f"{site} [{call}{', ' + kind if kind else ''}]"] += 1
+    unplaced = sum(1 for e in events if _is_sync_or_copy(e)) - sum(sites.values())
+    if unplaced:
+        sites["no Python stack on its thread"] += unplaced
+    return {k: v / frames for k, v in sites.most_common()}
+
+
+def profile_mode(r: Renderer, frames: int, timed: int, stacks: bool = True) -> dict:
+    """Time ``timed`` frames one by one, then trace ``frames``; with
+    ``stacks`` also name the syncs and copies of ``STACK_FRAMES`` more."""
+    r.render(2)  # warm: kernels built, caches filled, graphs captured
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        r.render(1)
+        times.append(1e3 * (time.perf_counter() - t0))
+    events, wall_us = _traced_events(r, frames, with_stack=False)
     device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not device:
         raise RuntimeError("the profiler recorded no device activity")
@@ -104,12 +180,10 @@ def profile_mode(r: Renderer, label: str, frames: int, timed: int) -> dict:
         by_group[group] += e["dur"]
         if group == "PyTorch kernels":
             glue[e["name"][:96]] += e["dur"]
-    syncs = sum(1 for e in events if e.get("cat") == "cuda_runtime"
-                and ("Synchronize" in e["name"] or e["name"] == "cudaMemcpyAsync"))
+    syncs = sum(1 for e in events if _is_sync_or_copy(e))
     busy = _busy_us((e["ts"], e["ts"] + e["dur"]) for e in device)
     kernels = sum(1 for e in device if e["cat"] == "kernel")
-    return {
-        "mode": label,
+    out = {
         "tile_size": list(r.cfg.tile_size),
         "ms_per_frame_median": statistics.median(times),
         "ms_per_frame_min": min(times),
@@ -119,11 +193,28 @@ def profile_mode(r: Renderer, label: str, frames: int, timed: int) -> dict:
         "traced_wall_ms_per_frame": wall_us / frames / 1e3,
         "device_busy_ms_per_frame": busy / frames / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
+        # the profiler slows the host: the share of a frame timed without it
+        "device_idle_share_unprofiled": 1.0 - busy / frames / 1e3 / statistics.median(times),
         "kernel_launches_per_frame": kernels / frames,
+        "graph_launches_per_frame": sum(1 for e in events if e.get("name") == "cudaGraphLaunch") / frames,
         "host_syncs_and_copies_per_frame": syncs / frames,
         "device_ms_per_frame_by_group": {k: v / frames / 1e3 for k, v in by_group.most_common()},
         "top_pytorch_kernels_ms_per_frame": {k: v / frames / 1e3 for k, v in glue.most_common(6)},
     }
+    if stacks:
+        stack_events, _ = _traced_events(r, STACK_FRAMES, with_stack=True)
+        out["syncs_and_copies_by_call_site_per_frame"] = call_sites(stack_events, STACK_FRAMES)
+    return out
+
+
+def profile_both(r: Renderer, label: str) -> dict:
+    """The same renderer eagerly, then replayed."""
+    r.capture = False
+    eager = profile_mode(r, TRACED_FRAMES, TIMED_FRAMES)
+    r.capture = True
+    replayed = profile_mode(r, TRACED_FRAMES, TIMED_FRAMES)
+    replayed["graphs"] = {f"tile {k[2][0]}x{k[2][1]}": g.nbytes for k, g in r.graphs.items()}
+    return {"mode": label, "eager": eager, "replayed": replayed}
 
 
 def main() -> int:
@@ -134,14 +225,14 @@ def main() -> int:
     results = []
     for mode in (RenderMode.FULL, RenderMode.NO_CACHE):
         r = Renderer(scene, system, render_mode=mode, train=False, device=dev)
-        results.append(profile_mode(r, mode.name, TRACED_FRAMES, TIMED_FRAMES))
+        results.append(profile_both(r, mode.name))
     r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
     r.render(8)  # the tile size follows the record count two frames late
-    results.append(profile_mode(r, "FULL + train", TRACED_FRAMES, TIMED_FRAMES))
+    results.append(profile_both(r, "FULL + train"))
     big, big_system = cornell_objects((RES, RES))
     r = Renderer(big, big_system, render_mode=RenderMode.FULL, device=dev)
     r.render(8)
-    results.append(profile_mode(r, "cornell_objects FULL + train", TRACED_FRAMES, TIMED_FRAMES))
+    results.append(profile_both(r, "cornell_objects FULL + train"))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True, timeout=60,

@@ -10,6 +10,11 @@ tensors holding values in [0, 2^32) and every step masks with
 ``& 0xFFFFFFFF``. Logical ``>>`` is exact because the values are
 non-negative, and the largest product (``seed * 1664525`` < 2^53) fits in
 int64 without wrapping.
+
+A frame's counters reach ``tea`` as 0-d device tensors (``Renderer``) or as
+Python ints (direct calls). An int stays a Python int: its rounds are
+scalar operands of the tensor operations, so no tensor is made from it and
+nothing is copied to the device.
 """
 
 from __future__ import annotations
@@ -22,14 +27,15 @@ _LCG_C = 1013904223
 
 
 def as_seed(x, device=None) -> torch.Tensor:
-    """Any integer tensor or Python int -> int64 seed tensor in [0, 2^32)."""
+    """Any integer tensor or array -> int64 seed tensor in [0, 2^32)."""
     return torch.as_tensor(x, dtype=torch.int64, device=device) & MASK32
 
 
 def tea(val0, val1, rounds: int = 4) -> torch.Tensor:
-    """Tiny Encryption Algorithm hash (reference ``tea<N>``); broadcasts."""
+    """Tiny Encryption Algorithm hash (reference ``tea<N>``); broadcasts.
+    ``val1`` may be a Python int, which no tensor is made of."""
     v0 = as_seed(val0)
-    v1 = as_seed(val1, v0.device)
+    v1 = val1 & MASK32 if isinstance(val1, int) else as_seed(val1, v0.device)
     s0 = 0
     for _ in range(rounds):
         s0 = (s0 + 0x9E3779B9) & MASK32

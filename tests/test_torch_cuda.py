@@ -455,3 +455,86 @@ def test_renderer_with_a_bvh_goes_through_the_walk(cuda):
     assert all(a > b for a, b in zip(after[:3], before[:3])) and after[3:] == before[3:]
     img = r.image_hdr()
     assert np.isfinite(img).all() and img.std() > 0
+
+
+# ---- the frame as a CUDA graph -----------------------------------------------
+
+def _frame_bits(r):
+    st = r.net_state
+    s = r.last_stats
+    return ([t.detach().view(torch.int32) for m in (st.params, st.ema, st.opt.mu, st.opt.nu) for t in m.tensors()]
+            + [st.opt.step, r.image.view(torch.int32), s.loss.view(torch.int32), s.num_train_records,
+               s.traced_rays])
+
+
+def _graph_pair(cuda, res=(64, 64), tiles=(8, 8)):
+    import dataclasses
+
+    scene, system = cornell_box(res)
+    system = dataclasses.replace(system, tile_size=tiles)
+    return [Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device=cuda, capture=c)
+            for c in (False, True)]
+
+
+def test_replayed_frames_equal_eager_frames(cuda):
+    """FULL + train frames, eager and replayed from the same start, through a
+    tile-size change, a restart, a reset of the cache and a new learning
+    rate: bit for bit equal after every frame."""
+    import dataclasses
+
+    pair = _graph_pair(cuda)
+    steps = {2: lambda r: setattr(r, "cfg", dataclasses.replace(r.cfg, tile_size=(16, 16))),
+             4: lambda r: setattr(r, "cfg", dataclasses.replace(r.cfg, tile_size=(8, 8))),
+             5: lambda r: r.restart_accumulation(),
+             6: lambda r: r.reset_cache(),
+             7: lambda r: r.set_hyper_params(learning_rate=5e-3)}
+    for f in range(9):
+        for r in pair:
+            if f in steps:
+                steps[f](r)
+            r.render_frame()
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(_frame_bits(pair[0]), _frame_bits(pair[1]))]
+        assert all(same), f"frame {f}: {same}"
+    assert pair[1].replays == 7 and len(pair[1].graphs) == 2 and pair[0].replays == 0
+    assert all(g.nbytes > 0 for g in pair[1].graphs.values())
+
+
+def test_replay_counts_the_launches_it_recorded(cuda):
+    eager, replayed = _graph_pair(cuda)
+    kernels = (IC.CLOSEST_KERNEL, IC.ANYHIT_KERNEL, MC.FORWARD_KERNEL, MC.TRAIN_GRAD_KERNEL, MC.TRAIN4_KERNEL,
+               GC.PATH_KERNEL)
+    for r in (eager, replayed):
+        r.render_frame()
+    counts = []
+    for r in (eager, replayed):
+        before = [k.launches for k in kernels]
+        r.render(3)
+        counts.append([k.launches - b for k, b in zip(kernels, before)])
+    assert replayed.replays == 3
+    assert counts[0] == counts[1] and all(c > 0 for c in counts[1]), counts
+    assert counts[1][3] == 4 * counts[1][4]  # K5 four times in each K6
+
+
+def test_benchmark_traced_rays_under_replay(cuda):
+    """Every replay writes the same stats buffers: the timed run's traced
+    rays are summed on the device, not read from them afterwards."""
+    eager, replayed = _graph_pair(cuda)
+    res = replayed.benchmark(4)
+    eager.render_frame()
+    eager.restart_accumulation()
+    counts = [int(eager.render_frame().traced_rays) for _ in range(4)]
+    assert replayed.replays >= 4 and res["traced_rays_per_frame"] * 4 == sum(counts)
+    assert len(set(counts)) > 1
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A frame that reads the device cannot be captured: the renderer raises
+    and does not fall back to eager frames."""
+    from nrc_tpu_torch.render import integrator
+
+    monkeypatch.setattr(integrator, "_all_done", lambda alive: not bool(alive.any()))
+    _, replayed = _graph_pair(cuda)
+    with pytest.raises(RuntimeError, match="capturing the frame"):
+        replayed.render_frame()
+    assert not replayed.graphs
