@@ -14,8 +14,10 @@ Phases, each of which raises on failure (non-zero exit):
    could take for the same work (``bound_ms``) and, for the gathers, the
    time of ``torch.index_select``. K3-K6 (bf16 ``mma.sync`` tiles) are held
    to ``tools/bench_mlp.py::CARD_LIMITS``, their machine code must hold HMMA
-   opcodes, and two runs of K6 must leave the same bits. The row gathers K7-K9 bit for bit on the
-   walk's [131072, 160] table and on the path's other widths; the walk
+   opcodes, K6 must be one kernel launch per call and two runs of it must leave the same bits, and at
+   1000 and 129 rows it must equal K5 + the plain update composed step by step. The row
+   gathers K7-K9 bit for bit on the walk's [131072, 160] table, on the TPU resident kernel's own
+   [8192, 160] and on the path's other tables, and timed on them beside ``index_select``; the walk
    kernels W1/W2 on the 132 K-triangle ``cornell_objects`` scene against the
    plain walk, and W1 against the brute-force K1;
 4. train_step: four ``train_step``s on the card, K3 forward + K4 backward
@@ -26,14 +28,17 @@ Phases, each of which raises on failure (non-zero exit):
 6. training slice: FULL + train at 320x320 (the main path), replayed: frames
    until the adaptive tile size settles, then 8 timed frames, then 4 frames
    whose launches per replayed frame the kernels line reports (the counts
-   each graph recorded at its capture, added at each replay); the same
+   each graph recorded at its capture, added at each replay): K6 once, K5
+   never (K6 is one persistent kernel); the same
    renderer eagerly and replayed under the profiler (ms/frame, device busy,
    idle share, kernels and syncs per frame) and the bytes its graphs hold;
    then one more frame, run eagerly, with the inputs of every K1 and K2
    launch recorded (lanes and live lanes of each are printed), K1 and K2
    held against their plain versions on each recorded set, dead lanes
    included, and timed on it: the sum over the frame's launches is the
-   frame-weighted time, beside the bound of its live rays;
+   frame-weighted time, beside the bound of its live rays; and the row
+   gathers of one eager frame recorded, held bit for bit and timed: K7's
+   frame-weighted time beside ``index_select``'s and its byte bound;
 6c. graph replay against eager frames: two renderers from the same start,
    one replaying graphs and one eager, through FULL + train frames with a
    forced tile-size change, ``restart_accumulation``, ``reset_cache`` and
@@ -68,6 +73,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -121,6 +127,30 @@ def _counted(kernels, names, fn):
         kernels[name][0].launches = 0
     out = fn()
     return out, {name: kernels[name][0].launches for name in names}
+
+
+def _ptxas(log):
+    """Per entry function of a ``-Xptxas -v`` log: its registers, shared
+    memory and spills, on one line."""
+    out, name, spills = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            short = re.search(r"(mlp_\w*?kernel|gather_\w*?kernel|\w*planes_kernel|\w*wbvh_kernel|reduce_partials)",
+                              m.group(1))
+            name = short.group(1) if short else m.group(1)
+            if "gather_warp_kernel" in name:  # <word, resident>
+                name = "gather_warp_kernel" + ("<uint4" if "I5uint4" in m.group(1) else "<u32") + (", resident>" if "Lb1EE" in m.group(1)
+                                                                              else ">")
+            else:
+                for code, arg in (("ILb1E", "<true>"), ("ILb0E", "<false>"), ("I5uint4", "<uint4>"), ("IjE", "<u32>")):
+                    if code in m.group(1):
+                        name += arg
+        elif "spill stores" in ln:
+            spills = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}, {spills}")
+    return out
 
 
 def _with_tiles(system, tiles):
@@ -266,8 +296,7 @@ def main() -> int:
     def build(name):
         t0 = time.perf_counter()
         log = kernels[name][0].build()
-        info = [ln.strip() for ln in log.splitlines() if "ptxas info" in ln and ("Used" in ln or "spill" in ln)]
-        return f"build {kernels[name][0].source} in {time.perf_counter() - t0:.1f} s; " + " | ".join(info)
+        return f"build {kernels[name][0].source} in {time.perf_counter() - t0:.1f} s; " + " | ".join(_ptxas(log))
 
     def build_native(_):
         t0 = time.perf_counter()
@@ -408,14 +437,18 @@ def main() -> int:
     wp = [t.detach() for t in r.net_state.params.tensors()]
     got4 = MC.fused_backward_cuda(*wp, x4[0], g_out)
     ref4 = MC.fused_backward_plain(*wp, x4[0], g_out)
-    got5 = MC.fused_train_grad_cuda(*wp, x4[1], t4[1])
+    # no path of the port launches K5 since K6 became one kernel: this check is
+    # its one launch (the kernels line shows it as check_launches)
+    got5, k5_counts = _counted(kernels, ("fused_train_grad",), lambda: MC.fused_train_grad_cuda(*wp, x4[1], t4[1]))
+    check_launches = dict(k5_counts)
     ref5 = MC.fused_train_grad_plain(*wp, x4[1], t4[1])
     torch.cuda.synchronize()
     print(f"K4: {BM.check_backward(got4, ref4, wp, x4[0], g_out)}")
     print(f"K5: {BM.check_train_grad(got5, ref5)}")
     work5 = BM.mlp_work("K5", b, n_hidden)
-    print(f"K4-K6: {work5['scratch_bytes']} bytes of partial sums per gradient kernel (written and read back "
-          f"once) beside the {work5['nbytes']} bytes K5's function must move")
+    print(f"K4-K6: {work5['scratch_bytes']} bytes of partial sums per gradient (written and read back "
+          f"once; K6's persistent kernel per step, [{MC.train4_grid(b, torch.cuda.get_device_properties(0).multi_processor_count)}, "
+          f"P + 1] float32) beside the {work5['nbytes']} bytes K5's function must move")
     report["fused_backward"] = dict(
         max_abs_err=max((a - p).abs().max().item() for a, p in zip(got4, ref4)),
         ms=BI.device_ms(lambda: MC.fused_backward_cuda(*wp, x4[0], g_out)),
@@ -443,14 +476,17 @@ def main() -> int:
         return [t for group in state[:4] for t in group]
 
     sk, sk2, sp = fresh_state(), fresh_state(), fresh_state()
-    lk = MC.fused_train4_cuda(*sk, x4, t4, lr, records, hyper)
+    lk, k6_counts = _counted(kernels, ("fused_train4", "fused_train_grad"),
+                             lambda: MC.fused_train4_cuda(*sk, x4, t4, lr, records, hyper))
     lk2 = MC.fused_train4_cuda(*sk2, x4, t4, lr, records, hyper)
     lp = MC.fused_train4_plain(*sp, x4, t4, lr, records, hyper)
     torch.cuda.synchronize()
+    _check(k6_counts == {"fused_train4": 1, "fused_train_grad": 0}, f"K6 is not one kernel launch: {k6_counts}")
     loss_rel6 = ((lk - lp).abs() / lp.abs()).max().item()
     print(f"K6 losses {lk.tolist()} vs plain {lp.tolist()} ({loss_rel6:.3g} relative, limit {lim['loss']:g}); "
           f"state after 4 steps: {BM.check_train_state(flat(sk), flat(sp))}; step {int(sk[4])}")
     _check(loss_rel6 <= lim["loss"] and int(sk[4]) == int(sp[4]) == 4, "K6 disagrees with its plain version")
+    print(f"K6: one kernel launch per call ({k6_counts})")
     # no atomics, partial sums added in CTA order: the same bits from run to run
     _check(torch.equal(lk, lk2) and all(torch.equal(a, c) for a, c in zip(flat(sk), flat(sk2))),
            "two runs of K6 on the same inputs differ")
@@ -462,6 +498,38 @@ def main() -> int:
         **BM.mlp_bound("K6", b, n_hidden, steps=x4.shape[0]),
         library_ms=None,
     )
+    # K6 on small batches, 8 and 2 CTAs of one 128-row tile each: there K6
+    # sums a step's gradient in K5's order, so it is held to CARD_LIMITS against
+    # K5's kernel and the plain update composed step by step
+    # (bench_mlp.train4_from_k5). Against the plain K6 the readings are printed,
+    # not held: at 1000 rows K5's tensor-core sums, through four Adam steps, can
+    # read above the state limits, which were set at 16,384 rows (PERF.md §7).
+    for bs in (1000, 129):
+        gen_b = torch.Generator(device=dev).manual_seed(bs)
+        q4b = torch.rand((4, bs, 15), generator=gen_b, device=dev)
+        x4b = N.encode(q4b.view(-1, 15), net_cfg).view(4, bs, MC.LANE)
+        t4b = torch.rand((4, bs, 3), generator=gen_b, device=dev) * 2.0
+        rec_b = torch.tensor(bs, device=dev)
+        s_k, s_c, s_p = fresh_state(), fresh_state(), fresh_state()
+        l_k = MC.fused_train4_cuda(*s_k, x4b, t4b, lr, rec_b, hyper)
+        l_c, flat_c = BM.train4_from_k5(*s_c, x4b, t4b, lr, hyper)
+        l_p = MC.fused_train4_plain(*s_p, x4b, t4b, lr, rec_b, hyper)
+        torch.cuda.synchronize()
+
+        def loss_rel(a, ref):
+            return ((a - ref).abs() / ref.abs()).max().item()
+
+        equal = torch.equal(l_k, l_c) and all(torch.equal(a, c) for a, c in zip(flat(s_k), flat_c))
+        print(f"K6 at B = {bs} ({MC.train4_grid(bs, torch.cuda.get_device_properties(0).multi_processor_count)} "
+              f"CTAs): against K5 + the plain update step by step: bit for bit {equal}, losses "
+              f"{loss_rel(l_k, l_c):.3g} relative, {BM.check_train_state(flat(s_k), flat_c)}")
+        _check(loss_rel(l_k, l_c) <= lim["loss"], f"K6 at B = {bs} disagrees with K5 + the plain update")
+        for label, (ls, st) in (("K6", (l_k, flat(s_k))), ("K5 + the plain update", (l_c, flat_c))):
+            mean_b, largest_b, far_b = BM.train_state_gap(st, flat(s_p))
+            print(f"  {label} against the plain K6 at B = {bs} (reading, not held): losses {loss_rel(ls, l_p):.3g} "
+                  f"relative (limit at 16,384 rows {lim['loss']:g}), largest mean |diff| of a tensor {mean_b:.3g} "
+                  f"({lim['k6_mean']:g}), largest share beyond {lim['k6_far_at']:g}: {far_b:.3g} ({lim['k6_far']:g}), "
+                  f"largest |diff| {largest_b:.3g}")
 
     # ---- 3b. the row gathers K7-K9: bit for bit, then timed through the tool ----
     big_scene, big_system = cornell_objects((320, 320))
@@ -474,8 +542,10 @@ def main() -> int:
     _check(torch.equal(dsb.bvh.rows.view(torch.int32).cpu(), torch.from_numpy(wide["rows"]).view(torch.int32)),
            "the uploaded row table is not the built one, bit for bit")
     walk_table = torch.randn((131072, 160), generator=gen, device=dev)
-    tables = {"walk table [131072, 160]": walk_table, "BVH rows": dsb.bvh.rows, "tri_shade": dsb.tri_shade,
-              "mat_row": dsb.mat_row, "tris.packed": dsb.tris.packed}
+    tables = {"walk table [131072, 160]": walk_table, "resident table [8192, 160]": walk_table[:8192].clone(),
+              "BVH rows": dsb.bvh.rows, "tri_shade": dsb.tri_shade, "mat_row": dsb.mat_row,
+              "tris.packed": dsb.tris.packed, "Cornell tri_shade": ds.tri_shade, "Cornell mat_row": ds.mat_row,
+              "Cornell tris.packed": ds.tris.packed}
     mismatched = 0
     for label, table in tables.items():
         for count in (2048, n):
@@ -491,13 +561,21 @@ def main() -> int:
           f"at N = 2048 and {n}")
     # the timing tool is the path that runs all three variants: counts read around it
     gather_names = ("gather_rows", "gather_rows_resident", "gather_rows_block")
-    bench, bench_counts = _counted(kernels, gather_names, lambda: bench_gather.run(131072, 160, (2048, n), iters=20))
-    at_n = {res["variant"]: res for res in bench["results"] if res["n"] == n}
+    bench, bench_counts = _counted(kernels, gather_names,
+                                   lambda: bench_gather.run(bench_gather.TABLES, (2048, n), iters=20))
+    at_n = {res["variant"]: res for res in bench["results"] if res["n"] == n and res["table"] == "[131072, 160]"}
+    for (label, width), rows in itertools.groupby(
+            [r for r in bench["results"] if r["n"] == n], key=lambda r: (r["table"], r["cols"])):
+        ms = {r["variant"]: r["ms"] for r in rows}
+        print(f"gathers at N = {n} on {label} ({width} columns): K7 {ms['warp']:.4f}, K8 {ms['resident']:.4f}, "
+              f"K9 {ms['block']:.4f}, index_select {ms['index_select']:.4f} ms"
+              + ("; K7 LOSES to index_select" if ms["warp"] > ms["index_select"] else ""))
     for name, variant in zip(gather_names, ("warp", "resident", "block")):
         _check(bench_counts[name] > 0, f"{name} was not launched by bench_gather")
+        # bound: bench_gather.bound_ms, the distinct rows of each index set read once
         report[name] = dict(
             max_abs_err=float(mismatched), ms=at_n[variant]["ms"], plain_ms=at_n["plain"]["ms"],
-            **_bound(2 * n * 160 * 4 + n * 8, 0, F32_OPS_PER_S), library_ms=at_n["index_select"]["ms"],
+            bound_ms=at_n[variant]["bound_ms"], bound_by="bytes", library_ms=at_n["index_select"]["ms"],
         )
     fastest = min(("warp", "resident", "block"), key=lambda v: at_n[v]["ms"])
     print(f"gather variants at N = {n}: fastest {fastest}; the path launches "
@@ -623,11 +701,11 @@ def main() -> int:
     sizes = BI.settle_tiles(rt)
     trained, counts = _counted(kernels, kernels, lambda: rt.benchmark(8))
     rt.flush_stats()
-    for name in ("intersect_planes", "occluded_planes", "fused_forward", "fused_train_grad", "fused_train4"):
+    for name in ("intersect_planes", "occluded_planes", "fused_forward", "fused_train4"):
         _check(counts[name] > 0, f"{name} was not launched by the FULL + train run")
     _check(counts[path_gather] > 0, f"{path_gather} was not launched by the FULL + train run")
-    # K5's gradient kernel runs inside K6, once per step, counted where K6 launches it
-    _check(counts["fused_train_grad"] == 4 * counts["fused_train4"], "K6 did not launch K5 four times")
+    # K6 is one persistent kernel: it launches nothing of K5's
+    _check(counts["fused_train_grad"] == 0, "the FULL + train run launched K5")
     _check(bool(torch.isfinite(rt.image).all()) and rt.image.std().item() > 0.0, "FULL + train image bad")
     records = int(rt.last_stats.num_train_records)
     print(f"FULL + train 320x320: tile sizes {sizes}, {trained['ms_per_frame']:.3f} ms/frame, "
@@ -636,9 +714,11 @@ def main() -> int:
           f"{rt.image.mean().item():.4f}, launches {counts}")
     print(f"FULL + train loss curve (per frame): {[round(v, 4) for v in rt.loss_history]}")
     per_frame = _replayed_launches(rt, kernels)
-    for name in ("intersect_planes", "occluded_planes", "fused_forward", "fused_train_grad", "fused_train4",
-                 path_gather):
-        launches[name] = per_frame[name]
+    _check(per_frame["fused_train4"] == 1 and per_frame["fused_train_grad"] == 0,
+           f"a replayed FULL + train frame launches K6 {per_frame['fused_train4']} times and K5 "
+           f"{per_frame['fused_train_grad']} times (1 and 0 expected)")
+    for name, count in per_frame.items():
+        launches.setdefault(name, count)
     _print_eager_and_replayed(PF, rt, "FULL + train")
 
     # ---- 6b. the sparse ray sets of that frame: every K1 and K2 launch recorded ----
@@ -691,6 +771,20 @@ def main() -> int:
               f"{tot['fused']:.4f} ms at the fused multiply-add rate, {tot['unfused']:.4f} ms at the separate "
               f"multiply and add rate")
     del recorded
+    # the row gathers of one eager frame: each held bit for bit, then K7's
+    # frame-weighted time beside index_select's and the byte bound (each
+    # gathered row read once and written once, plus its index)
+    gathered = bench_gather.record_frame_gathers(rt)
+    for table, idx in gathered:
+        _check(torch.equal(GC.gather_rows(table, idx).view(torch.int32), table[idx].view(torch.int32)),
+               f"a gather of the frame on {tuple(table.shape)} disagrees with the plain version")
+    fw = bench_gather.frame_weighted(gathered, GC.PATH_KERNEL)
+    print(f"K7 over one FULL + train frame: {fw['launches']} launches, {fw['rows']} rows, frame-weighted "
+          f"{fw['ms']:.4f} ms, index_select {fw['index_select_ms']:.4f} ms, bound {fw['bound_ms']:.4f} ms "
+          f"({100 * fw['bound_ms'] / fw['ms']:.1f} % of it); by width: "
+          + "; ".join(f"{w} columns: {v['launches']} launches, {v['rows']} rows, {v['ms']:.4f} ms, index_select "
+                      f"{v['index_select_ms']:.4f}, bound {v['bound_ms']:.4f}" for w, v in sorted(fw["by_width"].items())))
+    del gathered
 
     # ---- 6c. graph replay against eager frames, bit for bit -----------------------
     _replay_matches_eager(scene, _with_tiles(system, (4, 4)), dev, 12, "Cornell box")
@@ -699,13 +793,14 @@ def main() -> int:
     sizes = BI.settle_tiles(rb)
     big, counts = _counted(kernels, kernels, lambda: rb.benchmark(8))
     rb.flush_stats()
-    for name in ("wbvh_closest", "wbvh_any", path_gather, "fused_forward", "fused_train_grad", "fused_train4"):
+    for name in ("wbvh_closest", "wbvh_any", path_gather, "fused_forward", "fused_train4"):
         _check(counts[name] > 0, f"{name} was not launched by the large-scene run")
     for name in ("intersect_planes", "occluded_planes"):
         _check(counts[name] == 0, f"{name} was launched by the large-scene run")
     big_frame = _replayed_launches(rb, kernels)
     launches.update({name: big_frame[name] for name in ("wbvh_closest", "wbvh_any")})
-    launches.update({name: bench_counts[name] for name in gather_names if name != path_gather})
+    # K8 and K9 are on no path of the renderer: bench_gather's launches are their check's
+    check_launches.update({name: bench_counts[name] for name in gather_names if name != path_gather})
     _check(rb.image.shape == (n, 3) and bool(torch.isfinite(rb.image).all()) and rb.image.std().item() > 0.0,
            "large-scene image bad")
     _check(math.isfinite(big["loss"]), "large-scene loss not finite")
@@ -782,9 +877,13 @@ def main() -> int:
                    "FULL + train: the card's training disagrees with the CPU path")
 
     print(smi)
+    # launches: per replayed FULL + train frame (W1/W2: per replayed cornell_objects
+    # frame; K4: over train_step's four steps); check_launches: a kernel that no
+    # path launches, its launches in its own check
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=f"nrc_tpu_torch/csrc/{k.source}", replaces=replaces,
-             launches=launches[name], **report[name])
+             launches=launches[name], **report[name],
+             **({"check_launches": check_launches[name]} if name in check_launches else {}))
         for name, (k, replaces) in kernels.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

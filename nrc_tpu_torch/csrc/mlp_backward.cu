@@ -27,5 +27,5 @@ extern "C" int nrc_mlp_backward(const float* x, const float* g_out, const float*
                                 void* stream) {
   return static_cast<int>(nrc_mlp::launch_grad<false>(
       x, g_out, w_in, w_hidden, w_out, batch, n_hidden, 0.f, dx, partial, grad, nullptr, 0.f,
-      nullptr, static_cast<cudaStream_t>(stream)));
+      static_cast<cudaStream_t>(stream)));
 }

@@ -22,10 +22,12 @@
 //
 // dW sums over the whole batch. The TPU kernels carry that sum in VMEM across
 // a sequential grid; CTAs here run in no order, so each CTA writes the sum
-// over its own rows to a scratch row partial[blockIdx.x, :] and
-// reduce_partials() adds the rows in CTA order. Nothing uses atomics: the
-// result is the same from run to run. The scratch (25,601 floats per CTA,
-// 13 MB written and read at B = 16,384) is the price of that.
+// over its own rows to a scratch row partial[blockIdx.x, :] and the rows are
+// added in CTA order: by reduce_partials() for K4/K5, inside the persistent
+// kernel of K6 (mlp_train.cu). Nothing uses atomics: the result is the same
+// from run to run. The scratch (25,601 floats per CTA, 13 MB written and read
+// at B = 16,384) is the price of that. grad_tile() is the body shared by the
+// one-tile-a-CTA kernel of K4/K5 and K6's persistent kernel.
 //
 // What bounds it on an H100: per 16,384 rows 3 x 25,600 multiply-adds a row
 // (0.0025 ms at 989 TFLOP/s) against the 8.6 MB of rows its function must
@@ -107,10 +109,12 @@ __device__ __forceinline__ void mask_to_a(const float (&acc)[8][4], uint32_t mas
 
 // out[(m0 + i) * n_cols + n0 + j] = sum over the CTA's rows r of
 // a[r, m0 + i] * g[r, n0 + j] for i < 16, j < 8 NT: one warp's share of a
-// dW = A^T G. a has row stride kAStride, g row stride kStride.
+// dW = A^T G. a has row stride kAStride, g row stride kStride. With
+// accumulate the sum is added to what out holds (a CTA's later tile; each
+// entry has one writer in the CTA, so the order is fixed).
 template <int NT, int kAStride>
 __device__ __forceinline__ void at_g(const bf16* a, int m0, const bf16* g, int n0, float* out,
-                                     int n_cols, int lane) {
+                                     int n_cols, int lane, bool accumulate) {
   float acc[NT][4];
   zero_acc(acc);
   const bf16* a_lane = a + quad_cols_first(lane, kAStride) + m0;
@@ -124,8 +128,10 @@ __device__ __forceinline__ void at_g(const bf16* a, int m0, const bf16* g, int n
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      out[(m0 + frag_row(lane, i)) * n_cols + n0 + nt * 8 + frag_col(lane, i)] = acc[nt][i];
+    for (int i = 0; i < 4; ++i) {
+      float* o = out + (m0 + frag_row(lane, i)) * n_cols + n0 + nt * 8 + frag_col(lane, i);
+      *o = accumulate ? *o + acc[nt][i] : acc[nt][i];
+    }
 }
 
 // RelativeL2Luminance of one row (nrc_tpu/models/network.py:210-216): its
@@ -145,44 +151,34 @@ __device__ __forceinline__ float row_loss_grad(const float (&pred)[3], const flo
   return loss;
 }
 
-// The gradient kernel. kTrain = false is K4 (fused_backward): gout is the
-// output gradient [batch, 16], ReLU masks come from the f32 pre-activations,
-// and dx [batch, 128] is written. kTrain = true is K5 (fused_train_grad):
-// gout is the target [batch, 3], the RelativeL2Luminance loss and its
-// gradient (grad_scale = 2 / (3 batch)) are formed per row, masks come from
-// the bf16 activations, and the CTA's loss sum goes to partial[P].
-//
-// partial: [gridDim.x, P + 1] with P = num_params(n_hidden), laid out as
-// dW_in | dW_hidden | dW_out | loss.
-template <bool kTrain>
-__global__ void __launch_bounds__(kThreads, 1) mlp_grad_kernel(
-    const float* __restrict__ x, const float* __restrict__ gout,
-    const float* __restrict__ w_in, const float* __restrict__ w_hidden,
-    const float* __restrict__ w_out, int batch, int n_hidden, float grad_scale,
-    float* __restrict__ dx, float* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s_red = reinterpret_cast<float*>(smem_raw);                  // [kThreads / 32]
-  bf16* s_win = reinterpret_cast<bf16*>(smem_raw + 32);               // [kIn, kStride]
-  bf16* s_wh = s_win + kIn * kStride;                                  // [H, kWidth, kStride]
-  bf16* s_wout = s_wh + n_hidden * kWidth * kStride;                   // [kWidth, kOutStride]
-  bf16* s_x = s_wout + kWidth * kOutStride;                            // [kRows, kXStride]
-  bf16* s_act = s_x + kRows * kXStride;                                // [H + 1, kRows, kStride]
-  bf16* s_g = s_act + (n_hidden + 1) * kRows * kStride;                // [kRows, kStride]
+// A CTA's shared memory, carved from the dynamic allocation
+struct GradSmem {
+  float* red;   // [kThreads / 32] the warps' loss sums
+  bf16* win;    // [kIn, kStride]
+  bf16* wh;     // [H, kWidth, kStride]
+  bf16* wout;   // [kWidth, kOutStride]
+  bf16* x;      // [kRows, kXStride]
+  bf16* act;    // [H + 1, kRows, kStride]
+  bf16* g;      // [kRows, kStride]
+};
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * kRows;
-  const int warp_row0 = warp * kWarpRows;  // within the CTA
-  const int rows[2] = {row0 + warp_row0 + a_row(lane, 0), row0 + warp_row0 + a_row(lane, 1)};
-  const int n_params = num_params(n_hidden);
-  const int off_hidden = kIn * kWidth;
-  const int off_out = off_hidden + n_hidden * kWidth * kWidth;
-  float* part = partial + static_cast<size_t>(blockIdx.x) * (n_params + 1);
+__device__ __forceinline__ GradSmem carve_smem(unsigned char* smem_raw, int n_hidden) {
+  GradSmem s;
+  s.red = reinterpret_cast<float*>(smem_raw);
+  s.win = reinterpret_cast<bf16*>(smem_raw + 32);
+  s.wh = s.win + kIn * kStride;
+  s.wout = s.wh + n_hidden * kWidth * kStride;
+  s.x = s.wout + kWidth * kOutStride;
+  s.act = s.x + kRows * kXStride;
+  s.g = s.act + (n_hidden + 1) * kRows * kStride;
+  return s;
+}
 
-  stage_weights(w_in, w_hidden, w_out, n_hidden, s_win, s_wh, s_wout);
-  // input rows, coalesced; rows past the batch are zero and contribute nothing
-  for (int i = tid; i < kRows * (kIn / 4); i += kThreads) {
+// The input rows row0 .. row0 + 127 of x [batch, 128] as bf16, coalesced; rows
+// past the batch are zero and contribute nothing
+__device__ __forceinline__ void stage_rows(const float* __restrict__ x, int batch, int row0,
+                                           bf16* s_x) {
+  for (int i = threadIdx.x; i < kRows * (kIn / 4); i += kThreads) {
     const int r = i / (kIn / 4), c = (i % (kIn / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < batch)
@@ -190,7 +186,34 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_grad_kernel(
     *reinterpret_cast<uint2*>(s_x + r * kXStride + c) =
         make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
   }
-  __syncthreads();
+}
+
+// The gradient of one 128-row tile, rows row0 .. row0 + 127, with the weights
+// and the tile's input rows staged and a __syncthreads() behind them. It
+// ends with every warp's last read of s.x and s.g: a caller that stages
+// again synchronises first. kTrain = false is K4 (fused_backward): gout is
+// the output gradient [batch, 16], ReLU masks come from the f32
+// pre-activations, and dx [batch, 128] is written. kTrain = true is K5
+// (fused_train_grad): gout is the target [batch, 3], the RelativeL2Luminance
+// loss and its gradient (grad_scale = 2 / (3 batch)) are formed per row, masks
+// come from the bf16 activations, and the tile's loss sum goes to part[P].
+//
+// part: the CTA's partial row [P + 1] with P = num_params(n_hidden), laid out
+// as dW_in | dW_hidden | dW_out | loss; with accumulate the tile's sums are
+// added to it, else they are written.
+template <bool kTrain>
+__device__ __forceinline__ void grad_tile(const GradSmem& s, const float* __restrict__ gout,
+                                          int batch, int n_hidden, float grad_scale, int row0,
+                                          float* __restrict__ dx, float* __restrict__ part,
+                                          bool accumulate) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int warp_row0 = warp * kWarpRows;  // within the CTA
+  const int rows[2] = {row0 + warp_row0 + a_row(lane, 0), row0 + warp_row0 + a_row(lane, 1)};
+  const int n_params = num_params(n_hidden);
+  const int off_hidden = kIn * kWidth;
+  const int off_out = off_hidden + n_hidden * kWidth * kWidth;
 
   // ---- forward recompute: the warp's 16 rows, activations in registers ------
   float acc[8][4];
@@ -198,8 +221,8 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_grad_kernel(
   uint32_t mask[kMaxHidden + 1];
   zero_acc(acc);
   {
-    const bf16* x_lane = s_x + warp_row0 * kXStride + quad_rows_first(lane, kXStride);
-    const bf16* w_lane = s_win + quad_rows_first(lane, kStride);
+    const bf16* x_lane = s.x + warp_row0 * kXStride + quad_rows_first(lane, kXStride);
+    const bf16* w_lane = s.win + quad_rows_first(lane, kStride);
 #pragma unroll
     for (int kt = 0; kt < kIn / 16; ++kt) {
       uint32_t ax[4];
@@ -210,26 +233,26 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_grad_kernel(
   relu_to_a(acc, a);
   mask[0] = relu_mask<!kTrain>(acc, a);
   uint32_t mask_top = mask[0];
-  store_a_frags<4>(a, s_act + warp_row0 * kStride, lane);
+  store_a_frags<4>(a, s.act + warp_row0 * kStride, lane);
 #pragma unroll
   for (int l = 0; l < kMaxHidden; ++l) {
     if (l < n_hidden) {
       zero_acc(acc);
-      mm_a_w<4, 8, kStride>(a, s_wh + l * kWidth * kStride, acc, lane);
+      mm_a_w<4, 8, kStride>(a, s.wh + l * kWidth * kStride, acc, lane);
       relu_to_a(acc, a);
       mask[l + 1] = relu_mask<!kTrain>(acc, a);
       mask_top = mask[l + 1];
-      store_a_frags<4>(a, s_act + ((l + 1) * kRows + warp_row0) * kStride, lane);
+      store_a_frags<4>(a, s.act + ((l + 1) * kRows + warp_row0) * kStride, lane);
     }
   }
 
-  // ---- output gradient: A fragments ga of g [16, 16], and into s_g[:, 0:16] ---
+  // ---- output gradient: A fragments ga of g [16, 16], and into s.g[:, 0:16] ---
   uint32_t ga[1][4];
   if (kTrain) {
     // linear output; the loss reads columns 0-2, which lanes 0 and 1 of a quad hold
     float o[2][4];
     zero_acc(o);
-    mm_a_w<4, 2, kOutStride>(a, s_wout, o, lane);
+    mm_a_w<4, 2, kOutStride>(a, s.wout, o, lane);
     const int q0 = lane & ~3;
     float row_loss = 0.f;
 #pragma unroll
@@ -249,7 +272,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_grad_kernel(
     // CTA loss sum in a fixed order: warp tree, then the warps in turn
 #pragma unroll
     for (int o2 = 16; o2 > 0; o2 >>= 1) row_loss += __shfl_xor_sync(0xffffffffu, row_loss, o2);
-    if (lane == 0) s_red[warp] = row_loss;
+    if (lane == 0) s.red[warp] = row_loss;
   } else {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -260,47 +283,47 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_grad_kernel(
       ga[0][j] = pack_bf16(v.x, v.y);
     }
   }
-  store_a_frags<1>(ga, s_g + warp_row0 * kStride, lane);
+  store_a_frags<1>(ga, s.g + warp_row0 * kStride, lane);
   __syncthreads();  // every warp's activations and g rows are in shared memory
   if (kTrain && tid == 0) {
-    float s = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) s += s_red[w];
-    part[n_params] = s;
+    float sum = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) sum += s.red[w];
+    part[n_params] = accumulate ? part[n_params] + sum : sum;
   }
 
   // ---- backward: dW_out, then through w_out^T ---------------------------------
   if (warp < kWidth / 16)
-    at_g<2, kStride>(s_act + n_hidden * kRows * kStride, warp * 16, s_g, 0, part + off_out, kOut,
-                     lane);
+    at_g<2, kStride>(s.act + n_hidden * kRows * kStride, warp * 16, s.g, 0, part + off_out, kOut,
+                     lane, accumulate);
   zero_acc(acc);
-  mm_a_wt<1, 8, kOutStride>(ga, s_wout, acc, lane);
+  mm_a_wt<1, 8, kOutStride>(ga, s.wout, acc, lane);
   mask_to_a(acc, mask_top, a);  // from here on a holds the gradient rows
-  __syncthreads();              // s_g has been read
-  store_a_frags<4>(a, s_g + warp_row0 * kStride, lane);
+  __syncthreads();              // s.g has been read
+  store_a_frags<4>(a, s.g + warp_row0 * kStride, lane);
   __syncthreads();
 #pragma unroll
   for (int l = kMaxHidden - 1; l >= 0; --l) {
     if (l < n_hidden) {
       // dW_hidden[l] [64, 64]: 4 x 8 tiles, four to a warp
-      at_g<4, kStride>(s_act + l * kRows * kStride, (warp >> 1) * 16, s_g, (warp & 1) * 32,
-                       part + off_hidden + l * kWidth * kWidth, kWidth, lane);
+      at_g<4, kStride>(s.act + l * kRows * kStride, (warp >> 1) * 16, s.g, (warp & 1) * 32,
+                       part + off_hidden + l * kWidth * kWidth, kWidth, lane, accumulate);
       zero_acc(acc);
-      mm_a_wt<4, 8, kStride>(a, s_wh + l * kWidth * kStride, acc, lane);
+      mm_a_wt<4, 8, kStride>(a, s.wh + l * kWidth * kStride, acc, lane);
       mask_to_a(acc, mask[l], a);
       __syncthreads();
-      store_a_frags<4>(a, s_g + warp_row0 * kStride, lane);
+      store_a_frags<4>(a, s.g + warp_row0 * kStride, lane);
       __syncthreads();
     }
   }
   // dW_in [128, 64]: 8 x 8 tiles, a row of eight to a warp
-  at_g<8, kXStride>(s_x, warp * 16, s_g, 0, part, kWidth, lane);
+  at_g<8, kXStride>(s.x, warp * 16, s.g, 0, part, kWidth, lane, accumulate);
 
   // ---- K4: dX = g @ w_in^T, in two halves of 64 columns -----------------------
   if (!kTrain) {
 #pragma unroll
     for (int part_n = 0; part_n < kIn / kWidth; ++part_n) {
       zero_acc(acc);
-      mm_a_wt<4, 8, kStride>(a, s_win + part_n * kWidth * kStride, acc, lane);
+      mm_a_wt<4, 8, kStride>(a, s.win + part_n * kWidth * kStride, acc, lane);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -313,18 +336,37 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_grad_kernel(
   }
 }
 
-// out[i] = scale_i * sum over b of partial[b, i], b in order; i < count.
-// The last entry (i == count - 1) is scaled by last_scale, and set to 0 when
-// num_records is given and holds 0. It goes to *last_out when that is given.
+// The gradient kernel of K4 (kTrain = false) and K5 (kTrain = true): one
+// 128-row tile a CTA, its sums to partial[blockIdx.x, :], a row of [gridDim.x,
+// P + 1] (see grad_tile).
+template <bool kTrain>
+__global__ void __launch_bounds__(kThreads, 1) mlp_grad_kernel(
+    const float* __restrict__ x, const float* __restrict__ gout,
+    const float* __restrict__ w_in, const float* __restrict__ w_hidden,
+    const float* __restrict__ w_out, int batch, int n_hidden, float grad_scale,
+    float* __restrict__ dx, float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const GradSmem s = carve_smem(smem_raw, n_hidden);
+  const int row0 = blockIdx.x * kRows;
+  stage_weights(w_in, w_hidden, w_out, n_hidden, s.win, s.wh, s.wout);
+  stage_rows(x, batch, row0, s.x);
+  __syncthreads();
+  grad_tile<kTrain>(s, gout, batch, n_hidden, grad_scale, row0, dx,
+                    partial + static_cast<size_t>(blockIdx.x) * (num_params(n_hidden) + 1), false);
+}
+
+// out[i] = sum over b of partial[b, i], b in order; i < count. The last
+// entry (i == count - 1) goes to *last_out, scaled by last_scale, when
+// last_out is given.
 __global__ void reduce_partials(const float* __restrict__ partial, int n_blocks, int stride,
                                 int count, float* __restrict__ out, float* __restrict__ last_out,
-                                float last_scale, const long long* __restrict__ num_records) {
+                                float last_scale) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
   float s = 0.f;
   for (int b = 0; b < n_blocks; ++b) s += partial[static_cast<size_t>(b) * stride + i];
   if (last_out != nullptr && i == count - 1) {
-    *last_out = (num_records != nullptr && *num_records == 0) ? 0.f : s * last_scale;
+    *last_out = s * last_scale;
   } else {
     out[i] = s;
   }
@@ -351,15 +393,14 @@ inline cudaError_t allow_smem(int smem) {
   return cudaSuccess;
 }
 
-// Launch the gradient kernel and the reduction on `stream`. grad receives
-// the P summed weight gradients; with loss != nullptr (K5/K6) *loss receives
-// loss_scale times the summed loss (0 when *num_records == 0).
+// Launch the gradient kernel and the reduction on `stream` (K4, K5). grad
+// receives the P summed weight gradients; with loss != nullptr (K5) *loss
+// receives loss_scale times the summed loss.
 template <bool kTrain>
 inline cudaError_t launch_grad(const float* x, const float* gout, const float* w_in,
                                const float* w_hidden, const float* w_out, int batch,
                                int n_hidden, float grad_scale, float* dx, float* partial,
-                               float* grad, float* loss, float loss_scale,
-                               const long long* num_records, cudaStream_t stream) {
+                               float* grad, float* loss, float loss_scale, cudaStream_t stream) {
   const int smem = smem_bytes(n_hidden);
   if (n_hidden > kMaxHidden || smem > kSmemLimit || batch <= 0) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem<kTrain>(smem);
@@ -372,7 +413,7 @@ inline cudaError_t launch_grad(const float* x, const float* gout, const float* w
   const int n_params = num_params(n_hidden);
   const int count = loss != nullptr ? n_params + 1 : n_params;
   reduce_partials<<<(count + 255) / 256, 256, 0, stream>>>(
-      partial, blocks, n_params + 1, count, grad, loss, loss_scale, num_records);
+      partial, blocks, n_params + 1, count, grad, loss, loss_scale);
   return cudaGetLastError();
 }
 

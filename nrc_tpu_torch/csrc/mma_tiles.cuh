@@ -121,13 +121,16 @@ __device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
 // thread and turn; unrolled so that a thread has several reads in flight
 // (the staging is the fixed cost of a CTA: K3 at 102,400 rows took 0.0338 ms
 // before the unrolling and 0.0316 after, NVIDIA H100 80GB HBM3, 700 W).
-template <int kCols, int kDstStride>
+// kCoherent reads through the L2 only (ld.global.cg): for weights that other
+// CTAs of the same kernel have written (K6's persistent kernel), which the
+// read-only path and the L1 may hold stale.
+template <int kCols, int kDstStride, bool kCoherent = false>
 __device__ __forceinline__ void stage_bf16(const float* __restrict__ src, int rows, bf16* dst) {
   const float4* src4 = reinterpret_cast<const float4*>(src);
   const int count = rows * (kCols / 4);
 #pragma unroll 5
   for (int i = threadIdx.x; i < count; i += kCtaThreads) {
-    const float4 v = src4[i];
+    const float4 v = kCoherent ? __ldcg(src4 + i) : src4[i];
     const int r = i / (kCols / 4), c = (i % (kCols / 4)) * 4;
     *reinterpret_cast<uint2*>(dst + r * kDstStride + c) =
         make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
@@ -135,13 +138,14 @@ __device__ __forceinline__ void stage_bf16(const float* __restrict__ src, int ro
 }
 
 // all weights, as w_in [128, 72] | w_hidden [H, 64, 72] | w_out [64, 24]
+template <bool kCoherent = false>
 __device__ __forceinline__ void stage_weights(const float* __restrict__ w_in,
                                               const float* __restrict__ w_hidden,
                                               const float* __restrict__ w_out, int n_hidden,
                                               bf16* s_in, bf16* s_hidden, bf16* s_out) {
-  stage_bf16<kWidth, kStride>(w_in, kIn, s_in);
-  stage_bf16<kWidth, kStride>(w_hidden, n_hidden * kWidth, s_hidden);
-  stage_bf16<kOut, kOutStride>(w_out, kWidth, s_out);
+  stage_bf16<kWidth, kStride, kCoherent>(w_in, kIn, s_in);
+  stage_bf16<kWidth, kStride, kCoherent>(w_hidden, n_hidden * kWidth, s_hidden);
+  stage_bf16<kOut, kOutStride, kCoherent>(w_out, kWidth, s_out);
 }
 
 // ---- products of a warp's 16 rows ------------------------------------------------

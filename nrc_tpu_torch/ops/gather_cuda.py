@@ -19,9 +19,13 @@ points:
 
 - ``GATHER_KERNEL`` (K7, ``nrc_gather_rows``): table in device memory, one
   warp per row, four rows' loads in flight per warp;
-- ``RESIDENT_KERNEL`` (K8, ``nrc_gather_rows_resident``): each block stages
-  the table's leading rows (the top levels of the tree) in shared memory and
-  serves those indices from there;
+- ``RESIDENT_KERNEL`` (K8, ``nrc_gather_rows_resident``): the table kept in
+  the L2 for the launch (rows read evict-last when the table fits half the
+  L2, the output written evict-first), rows moved by bulk asynchronous
+  copies through a ring of row slots in shared memory per thread; a table
+  whose rows the bulk copies cannot move (not a multiple of 16 bytes, as
+  the path's ``tri_shade`` and ``tris.packed``) takes K8's word loop, the
+  warp loop with the same L2 policies;
 - ``BLOCK_KERNEL`` (K9, ``nrc_gather_rows_block``): one thread block per
   gathered row.
 

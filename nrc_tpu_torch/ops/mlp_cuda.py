@@ -19,10 +19,10 @@ layer to layer in registers.
   masks from the bf16 activations; loss and weight gradients, no dX.
 - K6 ``fused_train4`` (same file): four K5 steps, each followed by L2 +
   bias-corrected Adam + EMA, updating weights, moments, EMA and the step
-  count in place; nothing changes when ``num_records`` is 0. Its one host
-  call launches K5's gradient kernel once per step; the entry point counts
-  those launches where it makes them and hands the count back, and the
-  wrapper adds it to K5's.
+  count in place; nothing changes when ``num_records`` is 0. One
+  cooperative launch of a persistent kernel for all four steps: a CTA per
+  SM (``train4_grid``), grid barriers between a step's gradient, its
+  reduction + update and the next step. It launches nothing of K5's.
 
 Device rule: on CUDA tensors each wrapper launches its kernel or raises; on
 CPU tensors it runs the plain version, which computes the TPU kernel's
@@ -68,8 +68,7 @@ TRAIN_GRAD_KERNEL = CudaKernel(
 )
 TRAIN4_KERNEL = CudaKernel(
     "mlp_train.cu", "nrc_mlp_train4",
-    [_P, _P, _I, _I, _I] + [_P] * 12 + [_P, _P, _P] + [_F] * 10 + [_P] * 3
-    + [ctypes.POINTER(_I), _P],
+    [_P, _P, _I, _I, _I] + [_P] * 12 + [_P, _P, _P] + [_F] * 10 + [_I, _P, _P, _P],
 )
 
 
@@ -174,7 +173,7 @@ def fused_train_grad_plain(w_in, w_h, w_out, x, target):
 def adam_ema(p, g, m, v, e, t, lr, hyper: AdamHyper):
     """One L2 + bias-corrected Adam + EMA update of a weight tensor ``p``
     with gradient ``g``, moments ``m``, ``v`` and EMA ``e`` at step count
-    ``t`` (float32 tensor, counted from 1), in ``adam_ema_kernel``'s
+    ``t`` (float32 tensor, counted from 1), in ``csrc/mlp_train.cu::adam_ema``'s
     operation order. Returns the new (p, m, v, e)."""
     b1, b2, eps, l2, decay = hyper
     g = g + l2 * p
@@ -284,8 +283,27 @@ def fused_train_grad_cuda(w_in, w_h, w_out, x, target):
     return (flat[-1], *split_params(flat, n_hidden))
 
 
+def train4_grid(b: int, sms: int) -> int:
+    """CTAs of K6's persistent kernel for a batch of ``b`` rows on a card of
+    ``sms`` SMs: one per SM, and no more than there are 128-row tiles (a CTA
+    with more than one tile adds them to its partial row in tile order). The
+    one place the grid is chosen: the launch takes it as the scratch's rows
+    and checks only that the CTAs can be co-resident."""
+    return min(-(-b // GRAD_ROWS), sms)
+
+
+def train4_scratch(b: int, n_hidden: int, dev) -> torch.Tensor:
+    """K6's partial sums on card ``dev``: a row of P + 1 floats (dW_in |
+    dW_hidden | dW_out | loss) per CTA, [train4_grid(b, SMs), P + 1]."""
+    if n_hidden > MAX_HIDDEN_GRAD:
+        raise ValueError(f"{n_hidden} hidden layers > {MAX_HIDDEN_GRAD}")
+    grid = train4_grid(b, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return torch.empty((grid, num_params(n_hidden) + 1), dtype=torch.float32, device=dev)
+
+
 def fused_train4_cuda(w, mu, nu, ema, step, x4, t4, lr, num_records, hyper: AdamHyper):
-    """K6 on the card; arguments and in-place semantics as ``fused_train4_plain``."""
+    """K6 on the card; arguments and in-place semantics as ``fused_train4_plain``.
+    One kernel launch per call."""
     dev = x4.device
     x4, t4 = x4.contiguous(), t4.contiguous()
     nb, b = x4.shape[0], x4.shape[1]
@@ -302,20 +320,17 @@ def fused_train4_cuda(w, mu, nu, ema, step, x4, t4, lr, num_records, hyper: Adam
     check_cuda_tensor("step", step, torch.int64, (), dev)
     check_cuda_tensor("lr", lr, torch.float32, (), dev)
     check_cuda_tensor("num_records", num_records, torch.int64, (), dev)
-    partial, flat = _grad_scratch(b, n_hidden, dev)
-    losses = torch.zeros(nb, dtype=torch.float32, device=dev)
+    partial = train4_scratch(b, n_hidden, dev)
+    losses = torch.empty(nb, dtype=torch.float32, device=dev)  # the kernel writes every entry
     inv_count = 1.0 / float(b * 3)
     b1, b2, eps, l2, decay = hyper
-    grad_launches = _I(0)
     TRAIN4_KERNEL.launch(
         ptr(x4), ptr(t4), nb, b, n_hidden,
         *(ptr(t) for t in (*w, *mu, *nu, *ema)),
         ptr(step), ptr(lr), ptr(num_records),
         b1, 1.0 - b1, b2, 1.0 - b2, eps, l2, decay, 1.0 - decay, 2.0 * inv_count, inv_count,
-        ptr(partial), ptr(flat), ptr(losses), ctypes.byref(grad_launches), current_stream(dev),
+        partial.shape[0], ptr(partial), ptr(losses), current_stream(dev),
     )
-    # K5's gradient kernel, as nrc_mlp_train4 counted its launches of it
-    TRAIN_GRAD_KERNEL.launches += grad_launches.value
     return losses
 
 

@@ -275,13 +275,39 @@ def check_train_grad(got, ref) -> str:
     return text
 
 
+def train_state_gap(got, ref):
+    """Over the tensors of two K6 states: (largest mean |diff|, largest
+    |diff|, largest share of a tensor's entries beyond ``k6_far_at``)."""
+    gaps = [gap(a, r, CARD_LIMITS["k6_far_at"], 1.0) for a, r in zip(got, ref)]
+    return tuple(max(g[i] for g in gaps) for i in range(3))
+
+
+def train4_from_k5(w, mu, nu, ema, step, x4, t4, lr, hyper):
+    """K6's steps composed from K5 (its kernel on CUDA tensors) and the
+    plain ``adam_ema``, without touching the arguments: returns (losses, the new
+    weights, moments and EMA as one flat list). Where each CTA of K6 holds one
+    128-row tile, K6 sums a step's gradient in K5's order, so the two differ
+    only in how the update runs; against the plain K6 this reads what K5's
+    tensor-core sums leave after the steps' Adam updates."""
+    cur = [[t.detach().clone() for t in group] for group in (w, mu, nu, ema)]
+    losses = []
+    for k in range(x4.shape[0]):
+        # a step's slice of an odd batch is not 16-byte aligned: copies are
+        loss, *grads = MC.fused_train_grad(*cur[0], x4[k].clone(), t4[k].clone())
+        losses.append(loss)
+        t = step.to(torch.float32) + float(k + 1)
+        for i, g in enumerate(grads):
+            for group, new in zip(cur, MC.adam_ema(cur[0][i], g, cur[1][i], cur[2][i], cur[3][i], t, lr, hyper)):
+                group[i] = new
+    return torch.stack(losses), [t for group in cur for t in group]
+
+
 def check_train_state(got, ref) -> str:
     """Hold two K6 states (sequences of weight, moment and EMA tensors in the
     same order) to ``CARD_LIMITS``: the largest mean difference of a tensor
     and the largest share of a tensor's entries far apart."""
     lim = CARD_LIMITS
-    gaps = [gap(a, r, lim["k6_far_at"], 1.0) for a, r in zip(got, ref)]
-    mean, largest, far = (max(g[i] for g in gaps) for i in range(3))
+    mean, largest, far = train_state_gap(got, ref)
     text = f"largest mean |diff| of a tensor {mean:.3g} (limit {lim['k6_mean']:g}), largest share of a " \
            f"tensor's entries beyond {lim['k6_far_at']:g}: {far:.3g} (limit {lim['k6_far']:g}), largest " \
            f"|diff| {largest:.3g}"

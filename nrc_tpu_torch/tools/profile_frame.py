@@ -21,9 +21,9 @@ wall time (and of the frames timed without it, since tracing slows the
 host), kernel launches and host syncs and copies (``cudaMemcpyAsync``
 and every ``*Synchronize``) per frame, and device time by kernel group: K1
 (closest hit), K2 (shadow rays), W1/W2 (the wide-BVH walks that take their
-place on the large scene), the row gathers, K3 (cache MLP), K5 (the
-training gradient, launched by K6), K6's reduction and Adam + EMA kernels,
-and everything else, which is PyTorch's own elementwise, gather, sort and
+place on the large scene), the row gathers, K3 (cache MLP), K4/K5 (the
+gradients and their reduction, off the frame), K6 (the four training steps,
+one persistent kernel), and everything else, which is PyTorch's own elementwise, gather, sort and
 reduction kernels (the six largest are listed by name). CUPTI records the
 kernels a graph launches, so the groups read the same in both columns.
 
@@ -63,14 +63,13 @@ GROUPS = (("K1 nrc_planes_closest", ("planes_kernel<false>",)),
           ("W1 nrc_wbvh_closest", ("wbvh_kernel<", "false>")),
           ("W2 nrc_wbvh_any", ("wbvh_kernel<", "true>")),
           ("K7-K9 row gathers", ("gather_warp_kernel",)),
-          ("K7-K9 row gathers", ("gather_resident_kernel",)),
+          ("K7-K9 row gathers", ("gather_bulk_kernel",)),
           ("K7-K9 row gathers", ("gather_block_kernel",)),
           ("K3 nrc_mlp_forward", ("mlp_forward_kernel",)),
           ("K4 nrc_mlp_backward", ("mlp_grad_kernel<false>",)),
           ("K5 nrc_mlp_train_grad", ("mlp_grad_kernel<true>",)),
-          ("K6 reduce + Adam/EMA", ("reduce_partials",)),
-          ("K6 reduce + Adam/EMA", ("adam_ema_kernel",)),
-          ("K6 reduce + Adam/EMA", ("advance_step",)))
+          ("K4/K5 reduce_partials", ("reduce_partials",)),
+          ("K6 nrc_mlp_train4", ("mlp_train4_kernel",)))
 # the files whose functions name a call site
 OWN_CODE = ("nrc_tpu_torch/", "chip_smoke.py")
 

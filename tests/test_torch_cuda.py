@@ -22,6 +22,10 @@ gradient in full. K4's dX is therefore held row by row: a row far off must be
 explained by one such bit, such rows may be 0.1 % of a batch (none below
 1000 rows), and none may lie among the last 16 rows of a ragged batch.
 
+K6 is one persistent kernel a call: it launches nothing of K5's, and its
+grid barriers and its reduction in CTA order leave the same bits from run to
+run, replayed from a CUDA graph or not.
+
 The row gathers K7-K9 move bits: equal to the plain version bit for bit,
 NaN patterns included. The walk kernels W1/W2 compute the plain walk's
 arithmetic in its order (built with ``-fmad=false``): the closest t is equal
@@ -281,12 +285,13 @@ def test_k6_matches_plain(cuda):
         states = []
         for fn in (MC.fused_train4, MC.fused_train4_plain):
             st, x4, t4 = _grad_inputs(cuda, 2048)
-            n5 = MC.TRAIN_GRAD_KERNEL.launches
+            n5, n6 = MC.TRAIN_GRAD_KERNEL.launches, MC.TRAIN4_KERNEL.launches
             losses = fn(st.params.tensors(), st.opt.mu.tensors(), st.opt.nu.tensors(),
                         st.ema.tensors(), st.opt.step, x4, t4, lr,
                         torch.tensor(num_records, device=cuda), N.adam_hyper(cfg))
-            # K6 launches K5's gradient kernel once per step, records or not
-            assert MC.TRAIN_GRAD_KERNEL.launches == n5 + (4 if fn is MC.fused_train4 else 0)
+            # one persistent kernel a call, records or not, and nothing of K5's
+            assert MC.TRAIN_GRAD_KERNEL.launches == n5
+            assert MC.TRAIN4_KERNEL.launches == n6 + (1 if fn is MC.fused_train4 else 0)
             states.append((losses, N.state_to_numpy(st)))
         out.append(states)
     (lk, sk), (lp, sp) = out[0]
@@ -300,6 +305,69 @@ def test_k6_matches_plain(cuda):
     fresh = N.state_to_numpy(_grad_inputs(cuda, 8)[0])
     for key in sk:
         assert np.array_equal(sk[key], fresh[key]), key
+
+
+def _train4_state(st):
+    return [t.clone() for m in (st.params, st.opt.mu, st.opt.nu, st.ema) for t in m.tensors()] + [st.opt.step.clone()]
+
+
+@pytest.mark.parametrize("b", [16384, 40000])
+def test_k6_is_one_kernel_launch_a_call(cuda, b):
+    """At the frame's batch (one 128-row tile a CTA) and at a batch larger
+    than 128 rows x the SMs (a CTA adds several tiles to its partial row in
+    tile order): one launch of K6 and none of K5, the plain version's
+    results to the card's limits, two runs bit-equal, and a replay of the
+    call captured in a CUDA graph bit-equal to an eager call."""
+    cfg = NetworkConfig()
+    lr = torch.tensor(cfg.learning_rate, device=cuda)
+    records = torch.tensor(b, device=cuda)
+    runs = []
+    for kind in ("eager", "eager", "replayed", "plain"):
+        st, x4, t4 = _grad_inputs(cuda, b)
+        args = (st.params.tensors(), st.opt.mu.tensors(), st.opt.nu.tensors(), st.ema.tensors(), st.opt.step,
+                x4, t4, lr, records, N.adam_hyper(cfg))
+        n5, n6 = MC.TRAIN_GRAD_KERNEL.launches, MC.TRAIN4_KERNEL.launches
+        if kind == "plain":
+            losses = MC.fused_train4_plain(*args)
+        elif kind == "eager":
+            losses = MC.fused_train4(*args)
+            torch.cuda.synchronize()
+            assert (MC.TRAIN4_KERNEL.launches, MC.TRAIN_GRAD_KERNEL.launches) == (n6 + 1, n5)
+        else:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                losses = MC.fused_train4(*args)
+            graph.replay()
+        torch.cuda.synchronize()
+        runs.append((losses.clone(), _train4_state(st)))
+    (la, sa), (lb, sb), (lg, sg), (lp, sp) = runs
+    assert torch.equal(la, lb) and torch.equal(la, lg)
+    assert all(torch.equal(a, c) for a, c in zip(sa, sb)) and all(torch.equal(a, c) for a, c in zip(sa, sg))
+    assert int(sa[-1]) == int(sp[-1]) == 4
+    torch.testing.assert_close(la, lp, rtol=LIM["loss"], atol=0)
+    BM.check_train_state(sa[:-1], sp[:-1])
+
+
+@pytest.mark.parametrize("b", [1000, 129])
+def test_k6_on_small_batches_is_k5_and_the_plain_update(cuda, b):
+    """8 and 2 CTAs of one 128-row tile each: K6 sums a step's gradient in
+    K5's order, so it is held to the card's limits against K5's kernel and the
+    plain ``adam_ema`` composed step by step (``bench_mlp.train4_from_k5``),
+    in one launch. Against the plain K6 a 1000-row batch can read above the
+    state limits set at 16,384 rows, and the composition reads the same
+    (PERF.md §7): that gap is K5's, through four Adam steps."""
+    cfg = NetworkConfig()
+    lr = torch.tensor(cfg.learning_rate, device=cuda)
+    st, x4, t4 = _grad_inputs(cuda, b)
+    ref_losses, ref = BM.train4_from_k5(st.params.tensors(), st.opt.mu.tensors(), st.opt.nu.tensors(),
+                                        st.ema.tensors(), st.opt.step, x4, t4, lr, N.adam_hyper(cfg))
+    n6 = MC.TRAIN4_KERNEL.launches
+    losses = MC.fused_train4(st.params.tensors(), st.opt.mu.tensors(), st.opt.nu.tensors(), st.ema.tensors(),
+                             st.opt.step, x4, t4, lr, torch.tensor(b, device=cuda), N.adam_hyper(cfg))
+    torch.cuda.synchronize()
+    assert MC.TRAIN4_KERNEL.launches == n6 + 1 and int(st.opt.step) == 4
+    torch.testing.assert_close(losses, ref_losses, rtol=LIM["loss"], atol=0)
+    BM.check_train_state(_train4_state(st)[:-1], ref)
 
 
 def test_train_step_goes_through_k4(cuda):
@@ -340,7 +408,7 @@ def test_renderer_goes_through_the_kernels(cuda, train):
     after = [k.launches for k in kernels]
     assert all(a > b for a, b in zip(after[:3], before[:3]))
     assert after[3] - before[3] == (3 if train else 0)
-    assert after[4] - before[4] == 4 * (after[3] - before[3])  # K5 inside K6
+    assert after[4] == before[4]  # K6 is one kernel: nothing of K5's
     img = r.image_hdr()
     assert np.isfinite(img).all() and img.std() > 0
     if train:
@@ -369,6 +437,28 @@ def test_gathers_match_plain_bit_for_bit(cuda, variant, rows, width, n):
     ref = GC.gather_rows_plain(table, idx)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
     assert torch.equal(out32.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape,n", [((131072, 160), 2048), ((131072, 160), 102400), ((8192, 160), 2048),
+                                     ((8192, 160), 102400), ("tri_shade", 102400), ("mat_row", 102400),
+                                     ("tris.packed", 102400)])
+def test_k8_bit_for_bit_at_the_bench_shapes(cuda, shape, n):
+    """K8 on the walk's table, the TPU resident kernel's own and the path's
+    tables of the 320x320 Cornell box (``tools/bench_gather.py``), filled
+    with every kind of bit pattern."""
+    from nrc_tpu_torch.tools import bench_gather as BG
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    rows, width = BG.path_tables(cuda)[shape].shape if isinstance(shape, str) else shape
+    bits = torch.randint(-2**31, 2**31 - 1, (rows, width), generator=gen, device=cuda, dtype=torch.int64)
+    table = bits.to(torch.int32).view(torch.float32)
+    idx = torch.randint(0, rows, (n,), generator=gen, device=cuda)
+    idx[:2] = torch.tensor([rows - 1, 0], device=cuda)
+    before = GC.RESIDENT_KERNEL.launches
+    out = GC.gather_rows_cuda(GC.RESIDENT_KERNEL, table, idx)
+    torch.cuda.synchronize()
+    assert GC.RESIDENT_KERNEL.launches == before + 1
+    assert torch.equal(out.view(torch.int32), table[idx].view(torch.int32))
 
 
 def test_gather_wrapper_dispatch_and_refusals(cuda):
@@ -502,8 +592,8 @@ def test_replayed_frames_equal_eager_frames(cuda):
 
 def test_replay_counts_the_launches_it_recorded(cuda):
     eager, replayed = _graph_pair(cuda)
-    kernels = (IC.CLOSEST_KERNEL, IC.ANYHIT_KERNEL, MC.FORWARD_KERNEL, MC.TRAIN_GRAD_KERNEL, MC.TRAIN4_KERNEL,
-               GC.PATH_KERNEL)
+    kernels = (IC.CLOSEST_KERNEL, IC.ANYHIT_KERNEL, MC.FORWARD_KERNEL, MC.TRAIN4_KERNEL, GC.PATH_KERNEL,
+               MC.TRAIN_GRAD_KERNEL)
     for r in (eager, replayed):
         r.render_frame()
     counts = []
@@ -512,8 +602,8 @@ def test_replay_counts_the_launches_it_recorded(cuda):
         r.render(3)
         counts.append([k.launches - b for k, b in zip(kernels, before)])
     assert replayed.replays == 3
-    assert counts[0] == counts[1] and all(c > 0 for c in counts[1]), counts
-    assert counts[1][3] == 4 * counts[1][4]  # K5 four times in each K6
+    assert counts[0] == counts[1] and all(c > 0 for c in counts[1][:5]), counts
+    assert counts[1][3] == 3 and counts[1][5] == 0  # K6 once a frame, K5 never
 
 
 def test_benchmark_traced_rays_under_replay(cuda):

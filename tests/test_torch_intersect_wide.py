@@ -188,6 +188,23 @@ def test_gather_rows_plain_matches_jax_and_keeps_nan_patterns():
     assert torch.equal(out32.view(torch.int32), out.view(torch.int32))
 
 
+@pytest.mark.parametrize("rows,n", [(5, 1000), (1224, 1000), (131072, 2048)])
+def test_the_gather_bound_reads_each_distinct_row_once(rows, n):
+    """``bench_gather.bound_ms`` (the gathers' bound in ``chip_smoke.py`` and
+    the frame-weighted one): the distinct rows the indices name read once,
+    every gathered row written once, every int64 index read once. A 5-row
+    table is read once however many rows are gathered from it."""
+    from nrc_tpu_torch.tools import bench_gather as BG
+
+    rng = np.random.default_rng(rows)
+    idx = torch.from_numpy(rng.integers(0, rows, n))
+    unique = len(set(idx.tolist()))
+    assert BG.unique_rows(idx) == unique <= min(rows, n)
+    cols = 26
+    assert BG.bound_ms(BG.unique_rows(idx), n, cols) == pytest.approx(
+        1e3 * ((unique + n) * cols * 4 + n * 8) / 3.35e12)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     p0, p1, p2 = soup(200)
     bvh = IW.upload_wide_bvh(build_wide_bvh(p0, p1, p2), "cpu")

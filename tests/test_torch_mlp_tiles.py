@@ -9,7 +9,9 @@ in that order in float32, and are held against the plain versions
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` put on the kernels
 (``tools/bench_mlp.py::CARD_LIMITS``): another order of summation alone stays
 inside them. Seeded faults (a layer's ReLU mask dropped, the last EMA update
-skipped, one Adam step skipped) read above them. The plain versions
+skipped, one Adam step skipped; for K6's persistent kernel a step on stale
+weights and one CTA's rows dropped from a step's sum) read above them. The
+plain versions
 themselves are held against the JAX package in ``tests/test_torch_mlp.py``
 and ``tests/test_torch_train.py``.
 
@@ -219,12 +221,28 @@ def test_k4_check_holds_every_row_of_a_ragged_end(b):
             BM.check_backward((late[0], *ref[1:]), ref, w, x, g)
 
 
-def _train4_with_fault(st, x4, t4, lr, hyper, skip_adam_step=None, skip_last_ema=False):
+def _train4_with_fault(st, x4, t4, lr, hyper, skip_adam_step=None, skip_last_ema=False, stale_step=None,
+                       drop_cta=None):
     """Four steps of K6's arithmetic from the plain K5 and ``adam_ema``, with
-    one step's Adam update or the last step's EMA update left out."""
+    one step's Adam update or the last step's EMA update left out; or, the
+    faults of a persistent kernel: step ``stale_step`` takes its gradient on
+    the weights of the step before (a missing grid barrier between an update
+    and the next step's staging), or step ``drop_cta[0]`` leaves the 128 rows
+    of CTA ``drop_cta[1]`` out of the sum (a race in the reduction). Returns
+    (losses [4], w, mu, nu, ema)."""
     w, mu, nu, ema = ([t.detach() for t in m.tensors()] for m in (st.params, st.opt.mu, st.opt.nu, st.ema))
+    before, losses = list(w), []
     for k in range(4):
-        _, *grads = MC.fused_train_grad_plain(*w, x4[k], t4[k])
+        wk = before if k == stale_step else w
+        loss, *grads = MC.fused_train_grad_plain(*wk, x4[k], t4[k])
+        if drop_cta is not None and drop_cta[0] == k:
+            rows = slice(MC.GRAD_ROWS * drop_cta[1], MC.GRAD_ROWS * (drop_cta[1] + 1))
+            sub_loss, *sub = MC.fused_train_grad_plain(*wk, x4[k][rows], t4[k][rows])
+            share = MC.GRAD_ROWS / x4.shape[1]  # the sub-batch's own mean, back to the batch's
+            loss = loss - share * sub_loss
+            grads = [g - share * h for g, h in zip(grads, sub)]
+        losses.append(loss)
+        before = list(w)
         if k == skip_adam_step:
             continue
         t = torch.tensor(float(k + 1))
@@ -233,7 +251,7 @@ def _train4_with_fault(st, x4, t4, lr, hyper, skip_adam_step=None, skip_last_ema
             w[i], mu[i], nu[i] = p, m, v
             if not (skip_last_ema and k == 3):
                 ema[i] = e
-    return w, mu, nu, ema
+    return torch.stack(losses), w, mu, nu, ema
 
 
 def _state_gap(got, ref):
@@ -243,28 +261,95 @@ def _state_gap(got, ref):
 
 
 @pytest.mark.parametrize("fault", [dict(), dict(skip_last_ema=True), dict(skip_adam_step=0),
-                                   dict(skip_adam_step=3)], ids=str)
+                                   dict(skip_adam_step=3), dict(stale_step=2), dict(drop_cta=(1, 5)),
+                                   dict(drop_cta=(3, 15))], ids=str)
 def test_k6_faults_read_above_the_limits(fault):
     """Without a fault the hand-rolled loop is the plain K6 (inside the
     limits, by far); a skipped last EMA update or a skipped Adam step reads
-    above both limits on K6's state."""
+    above both limits on K6's state. The persistent kernel's own faults read
+    10x above a limit on the state or on the losses: stale weights in a step
+    (a missing grid barrier) above all three; one CTA's rows dropped from a
+    step's sum (a race in the reduction) above the loss limit by 100x, and in
+    the last step only 1.5x the state's mean limit: there the losses are the
+    check that catches it (``chip_smoke.py`` and ``tests/test_torch_cuda.py``
+    hold both)."""
     cfg = NetworkConfig()
     lr, hyper = torch.tensor(cfg.learning_rate), N.adam_hyper(cfg)
     st, x4, t4 = _inputs(3, 2048)
-    got = _train4_with_fault(st, x4, t4, lr, hyper, **fault)
+    losses, *got = _train4_with_fault(st, x4, t4, lr, hyper, **fault)
     ref_st = _inputs(3, 2048)[0]
     ref = [m.tensors() for m in (ref_st.params, ref_st.opt.mu, ref_st.opt.nu, ref_st.ema)]
     with torch.no_grad():
-        MC.fused_train4_plain(*ref, ref_st.opt.step, x4, t4, lr, torch.tensor(2048), hyper)
+        ref_losses = MC.fused_train4_plain(*ref, ref_st.opt.step, x4, t4, lr, torch.tensor(2048), hyper)
     got, ref = [t for m in got for t in m], [t for m in ref for t in m]
     mean, far = _state_gap(got, ref)
-    if fault:
+    loss_rel = ((losses - ref_losses).abs() / ref_losses.abs()).max().item()
+    if not fault:
+        assert mean <= LIM["k6_mean"] / 10 and far == 0.0 and loss_rel <= LIM["loss"] / 10, (mean, far, loss_rel)
+        BM.check_train_state(got, ref)
+    elif "skip_adam_step" in fault or "skip_last_ema" in fault:
         assert mean > 10 * LIM["k6_mean"] and far > 10 * LIM["k6_far"], (mean, far)
         with pytest.raises(AssertionError, match="K6's state disagrees"):
             BM.check_train_state(got, ref)
     else:
-        assert mean <= LIM["k6_mean"] / 10 and far == 0.0, (mean, far)
-        BM.check_train_state(got, ref)
+        assert loss_rel > 10 * LIM["loss"], loss_rel
+        if "stale_step" in fault or fault["drop_cta"][0] < 3:
+            assert far > 10 * LIM["k6_far"], far
+            with pytest.raises(AssertionError, match="K6's state disagrees"):
+                BM.check_train_state(got, ref)
+
+
+@pytest.mark.parametrize("b", [129, 1000])
+def test_k6_composed_from_k5_is_the_plain_k6_on_the_cpu(b):
+    """``bench_mlp.train4_from_k5``, the reference the card holds K6 to on
+    small batches, is the plain K6 bit for bit where K5 is its plain version,
+    and leaves its arguments as they were."""
+    cfg = NetworkConfig()
+    lr, hyper = torch.tensor(cfg.learning_rate), N.adam_hyper(cfg)
+    st, x4, t4 = _inputs(4, b)
+    groups = [m.tensors() for m in (st.params, st.opt.mu, st.opt.nu, st.ema)]
+    before = [t.clone() for g in groups for t in g]
+    losses, got = BM.train4_from_k5(*groups, st.opt.step, x4, t4, lr, hyper)
+    assert all(torch.equal(a, c) for a, c in zip(before, [t for g in groups for t in g]))
+    ref_losses = MC.fused_train4_plain(*groups, st.opt.step, x4, t4, lr, torch.tensor(b), hyper)
+    assert torch.equal(losses, ref_losses)
+    assert all(torch.equal(a, c) for a, c in zip(got, [t for g in groups for t in g]))
+
+
+@pytest.mark.parametrize("b,sms,grid", [(16384, 132, 128), (2000, 8, 8), (129, 132, 2), (1, 132, 1)])
+def test_k6_is_one_launch_on_a_grid_of_one_cta_an_sm(b, sms, grid, monkeypatch):
+    """K6's persistent kernel runs one CTA an SM and no more CTAs than
+    128-row tiles (a CTA with several tiles adds them in tile order); its
+    scratch is one partial row of P + 1 floats a CTA; the wrapper makes one
+    launch of it a call and none of K5's. A stand-in for the built library
+    takes the launch, so this runs without a card."""
+
+    class Props:
+        multi_processor_count = sms
+
+    class StandIn:
+        launches = 0
+        calls = []
+
+        def launch(self, *args):
+            self.calls.append(args)
+            self.launches += 1
+
+    kernel = StandIn()
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: Props)
+    monkeypatch.setattr(MC, "current_stream", lambda dev: None)
+    monkeypatch.setattr(MC, "TRAIN4_KERNEL", kernel)
+    n_hidden = NetworkConfig().n_hidden_layers - 1
+    assert MC.train4_grid(b, sms) == grid
+    assert MC.train4_scratch(b, n_hidden, "cpu").shape == (grid, MC.num_params(n_hidden) + 1)
+    st = N.init_network(torch.Generator().manual_seed(0), NetworkConfig())
+    n5 = MC.TRAIN_GRAD_KERNEL.launches
+    losses = MC.fused_train4_cuda(st.params.tensors(), st.opt.mu.tensors(), st.opt.nu.tensors(), st.ema.tensors(),
+                                  st.opt.step, torch.zeros((4, b, MC.LANE)), torch.zeros((4, b, 3)),
+                                  torch.tensor(1e-3), torch.tensor(b), N.adam_hyper(NetworkConfig()))
+    assert kernel.launches == 1 and MC.TRAIN_GRAD_KERNEL.launches == n5 and losses.shape == (4,)
+    args = kernel.calls[0]
+    assert args[2:5] == (4, b, n_hidden) and args[30] == grid and len(args) == 34
 
 
 def test_the_limits_lie_between_noise_and_faults():
