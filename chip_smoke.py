@@ -17,7 +17,8 @@ Phases, each of which raises on failure (non-zero exit):
    opcodes, K6 must be one kernel launch per call and two runs of it must leave the same bits, and at
    1000 and 129 rows it must equal K5 + the plain update composed step by step. The row
    gathers K7-K9 bit for bit on the walk's [131072, 160] table, on the TPU resident kernel's own
-   [8192, 160] and on the path's other tables, and timed on them beside ``index_select``; the walk
+   [8192, 160] and on the path's other tables, and timed on them beside ``index_select``; K7
+   bit for bit on ``bench_gather``'s edge grid (widths, index counts, table sizes); the walk
    kernels W1/W2 on the 132 K-triangle ``cornell_objects`` scene against the
    plain walk, and W1 against the brute-force K1;
 4. train_step: four ``train_step``s on the card, K3 forward + K4 backward
@@ -38,7 +39,8 @@ Phases, each of which raises on failure (non-zero exit):
    included, and timed on it: the sum over the frame's launches is the
    frame-weighted time, beside the bound of its live rays; and the row
    gathers of one eager frame recorded, held bit for bit and timed: K7's
-   frame-weighted time beside ``index_select``'s and its byte bound;
+   frame-weighted time beside ``index_select``'s and its byte bound, in
+   all and by table width, with whether K7 is under ``index_select`` there;
 6c. graph replay against eager frames: two renderers from the same start,
    one replaying graphs and one eager, through FULL + train frames with a
    forced tile-size change, ``restart_accumulation``, ``reset_cache`` and
@@ -48,7 +50,9 @@ Phases, each of which raises on failure (non-zero exit):
 7. large scene: FULL + train at 320x320 on ``cornell_objects`` (the wide
    BVH path), replayed: frames until the tile size settles, then 8 timed
    frames and 4 more counted; W1, W2 and the path's gather must run, K1 and
-   K2 must not;
+   K2 must not; then every W1 and W2 launch of one eager frame recorded,
+   held against the plain walk and timed: their frame-weighted times beside
+   the frame bound (the all-live bound over each launch's live rays);
 8. convergence: the JAX package's online-training oracle
    (``tests/test_frame.py:92-139``) on the port's Cornell box at 64x64 with
    8x8 tiles: the loss falls over 40 frames, and after a restart 48 FULL +
@@ -119,6 +123,25 @@ def _bound(nbytes, ops, ops_per_s):
     type, whichever is larger."""
     by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / ops_per_s
     return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def _plain_walk(o, d, bvh, tmin, tmax, any_hit):
+    """The plain walk -> (t, prim, rows fetched, distinct rows fetched)."""
+    import torch
+
+    from nrc_tpu_torch.ops import intersect_wide as IW
+
+    seen = torch.zeros(bvh.rows.shape[0], dtype=torch.bool, device=o.device)
+    t, prim, fetched = IW.wide_traverse_plain(o, d, bvh, tmin, tmax, any_hit, rows_seen=seen)
+    return t, prim, fetched, int(seen.sum())
+
+
+def _walk_bound(fetched, distinct, row_bytes, n_rays):
+    """A walk launch's bound: each distinct table row it fetches read once
+    (the walk's table stays in the L2 for a launch), 32 bytes of ray read
+    and 8 of result written a ray; or about 45 float32 operations per
+    triangle or child box of every row it fetches."""
+    return _bound(distinct * row_bytes + n_rays * (32 + 8), fetched * 16 * 45, F32_OPS_PER_S)
 
 
 def _counted(kernels, names, fn):
@@ -559,6 +582,12 @@ def main() -> int:
                 mismatched += bad
     print(f"K7-K9: bit for bit equal to the plain version on {[tuple(t.shape) for t in tables.values()]} "
           f"at N = 2048 and {n}")
+    # K7's edge grid: every width, index count and table size where its work
+    # split changes shape, int64 and int32 indices
+    edge_launches = bench_gather.check_edges(GC.GATHER_KERNEL, dev, gen)
+    print(f"K7: bit for bit equal to the plain version on the edge grid ({edge_launches} launches: widths "
+          f"{bench_gather.EDGE_WIDTHS}, N {bench_gather.EDGE_NS}, table rows {bench_gather.EDGE_ROWS}, int64 and "
+          f"int32 indices)")
     # the timing tool is the path that runs all three variants: counts read around it
     gather_names = ("gather_rows", "gather_rows_resident", "gather_rows_block")
     bench, bench_counts = _counted(kernels, gather_names,
@@ -600,10 +629,10 @@ def main() -> int:
         tk, pk = WC.wide_traverse_cuda(o, dd, bvh, tn, tf, False)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tp, pp, fetched = IW.wide_traverse_plain(o, dd, bvh, tn, tf, False)
+        tp, pp, fetched, distinct = _plain_walk(o, dd, bvh, tn, tf, False)
         torch.cuda.synchronize()
         w_plain_ms.append(1e3 * (time.perf_counter() - t0))
-        w_fetched.append(fetched)
+        w_fetched.append((fetched, distinct))
         same = pk == pp
         w_err = max(w_err, (tk - tp)[same].abs().max().item())
         ties = bool((tk == tp)[~same].all()) and bool(((pk >= 0) & (pp >= 0))[~same].all())
@@ -612,7 +641,7 @@ def main() -> int:
         k1_agree = ((p1 == pk) & (rel <= 1e-4)).float().mean().item()
         print(f"W1 vs plain walk: winners equal on {same.float().mean().item():.6f} of rays (need >= 0.9999, the "
               f"others ties in t: {ties}), max |dt| where equal {w_err:.3g} (need 0), hit share "
-              f"{(pk >= 0).float().mean().item():.4f}, {fetched} rows fetched; vs K1: winners equal on "
+              f"{(pk >= 0).float().mean().item():.4f}, {fetched} rows fetched ({distinct} distinct); vs K1: winners equal on "
               f"{(p1 == pk).float().mean().item():.6f}, and with t within 1e-4 of max(|t|, 1) on {k1_agree:.6f} "
               f"(need >= 0.999; largest {rel[p1 == pk].max().item():.3g})")
         _check(w_err == 0.0 and same.float().mean().item() >= 0.9999 and ties,
@@ -623,15 +652,15 @@ def main() -> int:
         _, pk = WC.wide_traverse_cuda(o, dd, bvh, tn, tf, True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, pp, fetched = IW.wide_traverse_plain(o, dd, bvh, tn, tf, True)
+        _, pp, fetched, distinct = _plain_walk(o, dd, bvh, tn, tf, True)
         torch.cuda.synchronize()
         a_plain_ms.append(1e3 * (time.perf_counter() - t0))
-        a_fetched.append(fetched)
+        a_fetched.append((fetched, distinct))
         agree = ((pk >= 0) == (pp >= 0)).float().mean().item()
         occ_err = max(occ_err, 1.0 - agree)
         occ1 = IC.occluded_cuda(o, dd, big_planes, tn, tf)
         print(f"W2 vs plain walk: occlusion equal on {agree:.6f} of rays (need >= 0.9999), occluded share "
-              f"{(pk >= 0).float().mean().item():.4f}, {fetched} rows fetched; vs K2: "
+              f"{(pk >= 0).float().mean().item():.4f}, {fetched} rows fetched ({distinct} distinct); vs K2: "
               f"{((pk >= 0) == occ1).float().mean().item():.6f} (need >= 0.99)")
         _check(agree >= 0.9999, "W2 disagrees with the plain walk")
         # A shadow ray starts on a surface and clears it by scene_epsilon; whether
@@ -639,21 +668,19 @@ def main() -> int:
         # is decided by the last bits of t, where the plane form and
         # Moller-Trumbore differ (under 1 % of the rays).
         _check(((pk >= 0) == occ1).float().mean().item() >= 0.99, "W2 disagrees with K2")
-    # Bound: the rows the plain walk fetched for these rays (the table's 10 MB
-    # stay in the L2, so this bound is loose), the rays read and the results
-    # written once; about 45 float32 operations per triangle or child box of
-    # a fetched row, which stays far below the bytes.
+    # Bound (_walk_bound): each distinct row the plain walk fetched for these
+    # rays read once (the 9.4 MB table stays in the L2), the rays read and
+    # the results written once; or about 45 float32 operations per triangle
+    # or child box of every row fetched, whichever is larger.
     o, dd, tn, tf = big_sets["closest"][1]
     report["wbvh_closest"] = dict(
         max_abs_err=w_err, ms=_time_ms(lambda: WC.wide_traverse_cuda(o, dd, bvh, tn, tf, False)),
-        plain_ms=w_plain_ms[1],
-        **_bound(w_fetched[1] * row_bytes + n * (32 + 8), w_fetched[1] * 16 * 45, F32_OPS_PER_S), library_ms=None,
+        plain_ms=w_plain_ms[1], **_walk_bound(*w_fetched[1], row_bytes, n), library_ms=None,
     )
     o, dd, tn, tf = big_sets["any"][0]
     report["wbvh_any"] = dict(
         max_abs_err=occ_err, ms=_time_ms(lambda: WC.wide_traverse_cuda(o, dd, bvh, tn, tf, True)),
-        plain_ms=a_plain_ms[0],
-        **_bound(a_fetched[0] * row_bytes + n * (32 + 8), a_fetched[0] * 16 * 45, F32_OPS_PER_S), library_ms=None,
+        plain_ms=a_plain_ms[0], **_walk_bound(*a_fetched[0], row_bytes, n), library_ms=None,
     )
     k1_big_ms = _time_ms(lambda: IC.closest_cuda(*big_sets["closest"][1][:2], big_planes, *big_sets["closest"][1][2:]), iters=3, warmup=1)
     print(f"on {big_scene.num_triangles} triangles, {n} rays from the hit points: W1 {report['wbvh_closest']['ms']:.3f} ms "
@@ -773,18 +800,9 @@ def main() -> int:
     del recorded
     # the row gathers of one eager frame: each held bit for bit, then K7's
     # frame-weighted time beside index_select's and the byte bound (each
-    # gathered row read once and written once, plus its index)
-    gathered = bench_gather.record_frame_gathers(rt)
-    for table, idx in gathered:
-        _check(torch.equal(GC.gather_rows(table, idx).view(torch.int32), table[idx].view(torch.int32)),
-               f"a gather of the frame on {tuple(table.shape)} disagrees with the plain version")
-    fw = bench_gather.frame_weighted(gathered, GC.PATH_KERNEL)
-    print(f"K7 over one FULL + train frame: {fw['launches']} launches, {fw['rows']} rows, frame-weighted "
-          f"{fw['ms']:.4f} ms, index_select {fw['index_select_ms']:.4f} ms, bound {fw['bound_ms']:.4f} ms "
-          f"({100 * fw['bound_ms'] / fw['ms']:.1f} % of it); by width: "
-          + "; ".join(f"{w} columns: {v['launches']} launches, {v['rows']} rows, {v['ms']:.4f} ms, index_select "
-                      f"{v['index_select_ms']:.4f}, bound {v['bound_ms']:.4f}" for w, v in sorted(fw["by_width"].items())))
-    del gathered
+    # distinct row a launch names read once, each gathered row written once,
+    # each index read once)
+    bench_gather.frame_report(rt)
 
     # ---- 6c. graph replay against eager frames, bit for bit -----------------------
     _replay_matches_eager(scene, _with_tiles(system, (4, 4)), dev, 12, "Cornell box")
@@ -812,6 +830,42 @@ def main() -> int:
           f"last frame, loss {big['loss']:.4f}, image mean {rb.image.mean().item():.4f}, launches {counts}")
     print(f"cornell_objects loss curve (per frame): {[round(v, 4) for v in rb.loss_history]}")
     _print_eager_and_replayed(PF, rb, "cornell_objects FULL + train")
+
+    # ---- 7b. W1/W2 over one cornell_objects frame: frame-weighted time and bound ----
+    # Every W1 and W2 launch of one eager FULL + train frame recorded, held
+    # against the plain walk as the all-live sets are, and timed; each
+    # launch's bound is the all-live one (_walk_bound) over its live rays.
+    # The frame bound is the sum.
+    walks = {"K1": "W1", "K2": "W2"}
+    wframe = {w: dict(launches=0, lanes=0, live=0, fetched=0, distinct=0, ms=0.0, bound=0.0)
+              for w in walks.values()}
+    for kind, rays in BI.record_frame_launches(rb):
+        o, dd, tn, tf = rays
+        anyhit = kind == "K2"
+        tk, pk = WC.wide_traverse_cuda(o, dd, bvh, tn, tf, anyhit)
+        tp, pp, fetched, distinct = _plain_walk(o, dd, bvh, tn, tf, anyhit)
+        if anyhit:
+            _check(((pk >= 0) == (pp >= 0)).float().mean().item() >= 0.9999, "a frame's W2 launch disagrees "
+                   "with the plain walk")
+        else:
+            same = pk == pp
+            _check(same.float().mean().item() >= 0.9999 and bool((tk == tp).all()),
+                   "a frame's W1 launch disagrees with the plain walk")
+        n_live = int((tf > tn).sum())
+        tot = wframe[walks[kind]]
+        tot["launches"] += 1
+        tot["lanes"] += o.shape[0]
+        tot["live"] += n_live
+        tot["fetched"] += fetched
+        tot["distinct"] += distinct
+        tot["ms"] += BI.device_ms(lambda: WC.wide_traverse_cuda(o, dd, bvh, tn, tf, anyhit))
+        tot["bound"] += _walk_bound(fetched, distinct, row_bytes, n_live)["bound_ms"]
+    for w, tot in wframe.items():
+        _check(tot["launches"] > 0, f"the recorded cornell_objects frame launched no {w}")
+        print(f"{w} over one cornell_objects FULL + train frame: {tot['launches']} launches, {tot['lanes']} lanes, "
+              f"{tot['live']} live, {tot['fetched']} rows fetched by the plain walk, {tot['distinct']} distinct in "
+              f"their launches; frame-weighted "
+              f"{tot['ms']:.4f} ms, bound {tot['bound']:.4f} ms ({100 * tot['bound'] / tot['ms']:.1f} % of it)")
     del rb
     _replay_matches_eager(big_scene, _with_tiles(big_system, (4, 4)), dev, 8, "cornell_objects")
 

@@ -17,11 +17,30 @@
 // no arithmetic at all. At N = 102,400 random indices into [131072, 160]
 // (about 71,000 distinct rows) that is 112 MB, 33 us at the card's 3.35 TB/s.
 // The design answers with wide, coalesced accesses and enough of them in
-// flight:
-// - warp variant (K7): one warp copies a row with 16-byte loads and stores,
-//   lanes on neighbouring addresses, and owns kRowsPerWarp rows at a time,
-//   whose loads are all issued before the first store, so four rows' reads
-//   are in flight per warp.
+// flight. K7, the one the port's path launches, takes one of two shapes,
+// chosen in its entry point by the table's shape alone:
+// - narrow rows (fewer than kNarrowWords words, or not a multiple of 4: the
+//   path's tris.packed [T, 9] and tri_shade [T, 26]): output-major chunks.
+//   Thread g of the grid owns the 16-byte chunks g, g + stride, ... of the
+//   flat output: it reads the chunk's four words from the table through the
+//   read-only path (the path's tables, 44 and 127 KB, stay in the L1 and
+//   L2), reading a row's index only for the rows its chunk touches, and
+//   stores the chunk as one uint4, so a warp writes 512 contiguous bytes in
+//   whole sectors. It steps its (row, column) from chunk to chunk by
+//   constants the host computes, with no division. The ragged end, the last
+//   (N P) % 4 words, is stored word by word. The grid is one block per 256
+//   chunks, at most one wave of resident blocks (SM count x blocks an SM,
+//   asked once per device). A warp per row would leave 23 of 32 lanes idle
+//   on a 9-word row and write 36-byte rows in partial sectors.
+// - wide rows (a multiple of 4 words, at least kNarrowWords: the walk's
+//   [R, 160] and the path's mat_row [5, 128]): one warp copies a row with
+//   16-byte loads and stores, lanes on neighbouring addresses, and owns
+//   kRowsPerWarp rows at a time, whose loads all start before the
+//   first store, so four rows' reads are in flight per warp. Measured on an
+//   H100 (PERF.md §6): eight rows a warp, streaming stores, a grid of one
+//   wave, a tiny table staged in shared memory per block, and the chunk
+//   kernel with one 16-byte read a chunk (12 % slower on mat_row, 5 % on
+//   [8192, 160], 2 % faster on [131072, 160]) were each slower here.
 // - resident variant (K8): the TPU kernel's fast memory of that size is, on
 //   this card, the 50 MB L2, not a block's 227 KB of shared memory (a block
 //   that staged the table's leading rows there would read 30 MB at the
@@ -40,18 +59,18 @@
 //   (cp.async.bulk.wait_group.read). Bulk copies need rows of a multiple of
 //   16 bytes on 16-byte aligned bases (the path's tri_shade and tris.packed
 //   rows are 104 and 36 bytes); such a table, or one whose rows do not fit
-//   two slots a thread, is served by K8's word loop: the warp variant's loop
-//   with the same L2 policies on its loads and stores.
+//   two slots a thread, is served by K8's word loop: a warp per row, four
+//   rows a warp, with the same L2 policies on its loads and stores.
 // - block variant (K9): one thread block of 64 threads per gathered row,
 //   loading its own index: the TPU variant's grid, whose cost is one block
 //   launch per 640 bytes.
 //
 // Rows are copied as 32-bit words or as raw bytes (uint4 where P % 4 == 0 and
-// both bases are 16-byte aligned, else word by word; the bulk copies move
+// the bases are 16-byte aligned, else word by word; the bulk copies move
 // bytes). No floating-point instruction touches them: the walk's rows hold
 // child metas and primitive ids as bit-cast integers, many of which are NaN
 // patterns. An index outside [0, R) is clamped, so a bad index cannot read
-// outside the table.
+// outside the table. Offsets into the table and the output are 64-bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,6 +82,9 @@ namespace {
 
 constexpr int kWarpThreads = 256;       // 8 warps per block
 constexpr int kRowsPerWarp = 4;         // rows in flight per warp
+constexpr int kNarrowWords = 32;        // K7: rows under this many words are narrow
+constexpr int kChunkThreads = 256;      // K7's chunk kernel: threads a block
+constexpr int kChunkWords = 4;          // a chunk of out: 16 bytes, one uint4 store
 constexpr int kBlockThreads = 64;       // block variant: one row per block
 constexpr int kBulkThreads = 128;       // resident variant: row lanes a block, a ring each
 constexpr int kBulkMaxSlots = 8;        // row slots a lane at most
@@ -136,8 +158,9 @@ __device__ __forceinline__ void resident_policies(int keep_table, uint64_t* keep
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, %1;" : "=l"(*stream) : "f"(1.f));
 }
 
-// K7 (kResident false), and K8's word loop for rows the bulk copies cannot
-// move (kResident true: the loads and stores carry K8's L2 policies)
+// K7 on wide rows (kResident false), and K8's word loop for rows the bulk
+// copies cannot move (kResident true: the loads and stores carry K8's L2
+// policies)
 template <typename Word, bool kResident>
 __global__ void __launch_bounds__(kWarpThreads) gather_warp_kernel(
     const Word* __restrict__ table, const long long* __restrict__ idx, Word* __restrict__ out,
@@ -163,6 +186,50 @@ __global__ void __launch_bounds__(kWarpThreads) gather_warp_kernel(
       for (int k = 0; k < kRowsPerWarp; ++k)
         if (base + k < n) store_word<kResident>(out + (base + k) * row_words + w, v[k], stream);
     }
+  }
+}
+
+// K7 on narrow rows: output-major chunks (see the note at the top)
+__global__ void __launch_bounds__(kChunkThreads) gather_chunk_kernel(
+    const uint32_t* __restrict__ table, const long long* __restrict__ idx, uint32_t* __restrict__ out,
+    int n, int row_words, int num_rows, long long step_rows, int step_cols) {
+  const int p = row_words;
+  // chunk c covers out's words [4c, 4c + 4); this thread takes chunks first,
+  // first + stride, ...: its first word's (row, col), then a step of
+  // 4 stride words = step_rows rows and step_cols columns
+  const long long first = static_cast<long long>(blockIdx.x) * kChunkThreads + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kChunkThreads;
+  const long long chunks = static_cast<long long>(n) * p / kChunkWords;
+  long long row = kChunkWords * first / p;
+  int col = static_cast<int>(kChunkWords * first - row * p);
+  for (long long c = first; c < chunks; c += stride) {
+    uint32_t w[kChunkWords];
+    long long r = row;
+    int k = col;
+    const uint32_t* src = table + clamp_row(__ldg(idx + r), num_rows) * p;
+#pragma unroll
+    for (int j = 0; j < kChunkWords; ++j) {
+      w[j] = __ldg(src + k);
+      // the next row's index only when a word of this chunk lies there
+      if (++k == p && j + 1 < kChunkWords) {
+        k = 0;
+        src = table + clamp_row(__ldg(idx + ++r), num_rows) * p;
+      }
+    }
+    *reinterpret_cast<uint4*>(out + kChunkWords * c) = make_uint4(w[0], w[1], w[2], w[3]);
+    row += step_rows;
+    col += step_cols;
+    if (col >= p) {
+      col -= p;
+      ++row;
+    }
+  }
+  // the ragged end: the last (n p) % 4 words, one a thread of block 0
+  const long long tail = static_cast<long long>(n) * p - kChunkWords * chunks;
+  if (blockIdx.x == 0 && threadIdx.x < tail) {
+    const long long w = kChunkWords * chunks + threadIdx.x;
+    const long long r = w / p;
+    out[w] = table[clamp_row(__ldg(idx + r), num_rows) * p + (w - r * p)];
   }
 }
 
@@ -265,13 +332,14 @@ bool vector_ok(const void* table, const void* out, int row_words) {
 
 // Per device: the SM count, the L2's size, and the bulk kernel's limit of
 // dynamic shared memory raised to kBulkSmemBytes, once; and per (device,
-// shared memory a block) the blocks of the bulk kernel an SM holds, once
-// (smem 0: not asked). A launch then makes no query and no attribute call
-// (both cost the host time).
-cudaError_t resident_setup(int smem, int* sms, int* l2_bytes, int* per_sm) {
+// kernel, dynamic shared memory a block) the blocks of that kernel an SM
+// holds, once (kernel null: not asked). A launch then makes no query and no
+// attribute call (both cost the host time).
+cudaError_t launch_setup(const void* kernel, int threads, int smem, int* sms, int* l2_bytes,
+                         int* per_sm) {
   static std::mutex lock;
   static int known_device = -1, known_sms = 0, known_l2 = 0;
-  static std::map<int, int> known_per_sm;  // smem -> blocks an SM, on known_device
+  static std::map<std::pair<const void*, int>, int> known_per_sm;  // on known_device
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -293,14 +361,14 @@ cudaError_t resident_setup(int smem, int* sms, int* l2_bytes, int* per_sm) {
   }
   *sms = known_sms;
   *l2_bytes = known_l2;
-  if (smem == 0) return cudaSuccess;
-  auto it = known_per_sm.find(smem);
+  if (kernel == nullptr) return cudaSuccess;
+  auto it = known_per_sm.find({kernel, smem});
   if (it == known_per_sm.end()) {
     int blocks = 0;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gather_bulk_kernel,
-                                                             kBulkThreads, smem)) != cudaSuccess)
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem)) !=
+        cudaSuccess)
       return err;
-    it = known_per_sm.emplace(smem, blocks > 0 ? blocks : 1).first;
+    it = known_per_sm.emplace(std::make_pair(kernel, smem), blocks > 0 ? blocks : 1).first;
   }
   *per_sm = it->second;
   return cudaSuccess;
@@ -313,19 +381,33 @@ int warp_blocks(int n) {
 
 }  // namespace
 
+// K7: a warp per row for wide rows, output-major chunks for narrow ones (see
+// the note at the top); out must be 16-byte aligned.
 extern "C" int nrc_gather_rows(const void* table, const void* idx, void* out, int n,
                                int row_words, int num_rows, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* ix = static_cast<const long long*>(idx);
-  if (vector_ok(table, out, row_words)) {
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (vector_ok(table, out, row_words) && row_words >= kNarrowWords) {
     gather_warp_kernel<uint4, false><<<warp_blocks(n), kWarpThreads, 0, s>>>(
         static_cast<const uint4*>(table), ix, static_cast<uint4*>(out), n, row_words / 4, num_rows,
         0);
-  } else {
-    gather_warp_kernel<uint32_t, false><<<warp_blocks(n), kWarpThreads, 0, s>>>(
-        static_cast<const uint32_t*>(table), ix, static_cast<uint32_t*>(out), n, row_words,
-        num_rows, 0);
+    return static_cast<int>(cudaGetLastError());
   }
+  // a block per kChunkThreads chunks, at most one wave of resident blocks;
+  // one block at least (fewer than 4 words: the ragged end alone)
+  int sms = 1, l2 = 0, per_sm = 1;
+  const cudaError_t err = launch_setup(reinterpret_cast<const void*>(gather_chunk_kernel),
+                                       kChunkThreads, 0, &sms, &l2, &per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long units = (static_cast<long long>(n) * row_words / kChunkWords + kChunkThreads - 1) /
+                          kChunkThreads;
+  const long long wave = static_cast<long long>(sms) * per_sm;
+  const int blocks = static_cast<int>(units < 1 ? 1 : (units < wave ? units : wave));
+  const long long step = static_cast<long long>(kChunkWords) * blocks * kChunkThreads;
+  gather_chunk_kernel<<<blocks, kChunkThreads, 0, s>>>(
+      static_cast<const uint32_t*>(table), ix, static_cast<uint32_t*>(out), n, row_words, num_rows,
+      step / row_words, static_cast<int>(step % row_words));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -341,7 +423,8 @@ extern "C" int nrc_gather_rows_resident(const void* table, const void* idx, void
   const bool bulk = vec && slots >= 2;
   const int smem = bulk ? bulk_ring_offset(slots) + kBulkThreads * slots * row_bytes : 0;
   int sms = 1, l2 = 0, per_sm = 1;
-  cudaError_t err = resident_setup(smem, &sms, &l2, &per_sm);
+  cudaError_t err = launch_setup(bulk ? reinterpret_cast<const void*>(gather_bulk_kernel) : nullptr,
+                                 kBulkThreads, smem, &sms, &l2, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int keep = static_cast<long long>(num_rows) * row_bytes <= l2 / 2;
   if (bulk) {

@@ -17,8 +17,14 @@ Device rule: on a CUDA tensor ``gather_rows`` launches ``csrc/gather_rows.cu``
 or raises; on a CPU tensor it runs ``gather_rows_plain``. The three entry
 points:
 
-- ``GATHER_KERNEL`` (K7, ``nrc_gather_rows``): table in device memory, one
-  warp per row, four rows' loads in flight per warp;
+- ``GATHER_KERNEL`` (K7, ``nrc_gather_rows``): one launch a call, in one of
+  two shapes fixed by the table's shape. Narrow rows (under 32 words or not
+  a multiple of 4, as ``tris.packed`` and ``tri_shade``): output-major
+  chunks, each thread storing 16-byte chunks of the flat output made of
+  words read from the table, on a grid of at most one wave of resident
+  blocks. Wide rows (a multiple of 4 words, at least 32, as ``mat_row`` and
+  the walk's 160): a warp per row, 16-byte words, four rows' loads in flight
+  per warp;
 - ``RESIDENT_KERNEL`` (K8, ``nrc_gather_rows_resident``): the table kept in
   the L2 for the launch (rows read evict-last when the table fits half the
   L2, the output written evict-first), rows moved by bulk asynchronous
@@ -29,8 +35,10 @@ points:
 - ``BLOCK_KERNEL`` (K9, ``nrc_gather_rows_block``): one thread block per
   gathered row.
 
-``PATH_KERNEL`` is the one ``gather_rows`` launches: the variant that
-measured fastest at N = 102,400 on the H100 (PERF.md has the three times).
+``PATH_KERNEL`` is the one ``gather_rows`` launches: K7, the variant that
+measured fastest on the path's tables and the walk's on the H100 (PERF.md
+has the times of all three beside ``index_select``). K8 beats K7 on no
+table, so there is no rule by table size between them.
 """
 
 from __future__ import annotations

@@ -184,12 +184,15 @@ def _slab_children(row, bvh: WideBVH, best_t, org, inv_d, tmin, tmax):
     return sort8_by_key(key, torch.where(ok, meta, NONE))
 
 
-def wide_traverse_plain(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool):
+def wide_traverse_plain(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool, rows_seen=None):
     """The plain lockstep walk -> (t [N] f32, prim [N] i64, rows fetched).
 
     ``t`` is RT_MAX and ``prim`` -1 on a miss; with ``any_hit`` a ray stops
     at its first hit. The third value counts the rows that live rays
-    fetched over all steps (the walk's memory traffic in rows)."""
+    fetched over all steps (the walk's work in rows). ``rows_seen``, a bool
+    tensor with one entry per table row, if given, is set where a live ray
+    fetched that row: its sum is the distinct rows the walk read, which is
+    its memory traffic when the table stays in the cache."""
     n, dev = org.shape[0], org.device
     b, ls, w_nodes, depth_max = bvh.branch, bvh.leaf_size, bvh.num_nodes, bvh.depth
     ar = torch.arange(n, device=dev)
@@ -208,7 +211,10 @@ def wide_traverse_plain(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool)
 
     while not bool(done.all()):
         live = ~done
-        fetched += int((live & (pending >= 0)).sum())
+        fetching = live & (pending >= 0)
+        fetched += int(fetching.sum())
+        if rows_seen is not None:
+            rows_seen[pending[fetching]] = True
         # ---- the one row fetch per ray and step ---------------------------
         row = gather_rows(bvh.rows, torch.clamp(pending, min=0))        # [N, P]
 

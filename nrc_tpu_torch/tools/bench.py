@@ -16,7 +16,10 @@ synchronise), device ms/frame (CUDA events around the rep's replays on the
 stream) and the rep's own traced rays (closest-hit segments of live lanes
 + shadow rays with a valid light sample, summed by the frames on the
 device, ``Renderer.traced_rays``). The value is the median rep's traced
-rays over that rep's own host time. ``potential_mrays_per_s`` counts, as
+rays over that rep's own host time. Beside each rep, ``nvidia-smi`` samples
+the card every 100 ms: the SM and memory clocks (least, median, largest),
+the median power draw and the active clock event reasons, so that two runs
+can be compared in the same state of the card. ``potential_mrays_per_s`` counts, as
 ``bench.py`` does, (pixels + tiles) x (max_depth + 1) x 2 rays a frame. The
 spread is the reps' smallest and largest values. The last line is one JSON
 object with the keys of ``bench.py``'s line (``metric``, ``value``,
@@ -44,13 +47,49 @@ TILE = (4, 4)
 WARMUP = 3
 FRAMES = 32
 REPS = 5
+CLOCK_FIELDS = ("clocks.sm", "clocks.mem", "power.draw", "clocks_throttle_reasons.active")
+
+
+def clock_sampler() -> subprocess.Popen:
+    """``nvidia-smi`` sampling ``CLOCK_FIELDS`` of card 0 every 100 ms until
+    ``read_clocks`` stops it."""
+    return subprocess.Popen(
+        ["nvidia-smi", f"--query-gpu={','.join(CLOCK_FIELDS)}", "--format=csv,noheader,nounits", "-i", "0",
+         "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+    )
+
+
+def read_clocks(proc: subprocess.Popen) -> dict:
+    """Stop the sampler; the clocks' [least, median, largest] in MHz, the
+    median power in W and the clock event reasons seen (empty: no sample)."""
+    proc.terminate()
+    out, _ = proc.communicate(timeout=60)
+    samples = []
+    for line in out.splitlines():
+        parts = [v.strip() for v in line.split(",")]
+        try:
+            samples.append((float(parts[0]), float(parts[1]), float(parts[2]), parts[3]))
+        except (ValueError, IndexError):
+            continue
+    if not samples:
+        return {}
+
+    def spread(k):
+        v = sorted(s[k] for s in samples)
+        return [v[0], statistics.median(v), v[-1]]
+
+    return {"sm_mhz": spread(0), "mem_mhz": spread(1), "power_w": spread(2)[1],
+            "clock_event_reasons": sorted({s[3] for s in samples}), "samples": len(samples)}
 
 
 def run_rep(r: Renderer, frames: int) -> dict:
-    """``frames`` frames; host and device ms/frame and the traced rays."""
+    """``frames`` frames; host and device ms/frame, the traced rays and the
+    card's clocks over the rep."""
     r.traced_rays.zero_()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize(r.device)
+    sampler = clock_sampler()
     t0 = time.perf_counter()
     start.record()
     for _ in range(frames):
@@ -64,6 +103,7 @@ def run_rep(r: Renderer, frames: int) -> dict:
         "device_ms_per_frame": start.elapsed_time(end) / frames,
         "traced_rays": traced,
         "mrays_per_s": traced / host_s / 1e6,
+        "clocks": read_clocks(sampler),
     }
 
 
@@ -113,7 +153,8 @@ def main() -> int:
     print(result["device"])
     for i, row in enumerate(result["reps"]):
         print(f"rep {i}: {row['host_ms_per_frame']:.3f} host ms/frame, {row['device_ms_per_frame']:.3f} device "
-              f"ms/frame, {row['traced_rays']} traced rays, {row['mrays_per_s']:.3f} Mrays/s", file=sys.stderr)
+              f"ms/frame, {row['traced_rays']} traced rays, {row['mrays_per_s']:.3f} Mrays/s; clocks "
+              f"{row['clocks']}", file=sys.stderr)
     print(json.dumps(result))
     return 0
 

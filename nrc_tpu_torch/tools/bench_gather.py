@@ -27,7 +27,11 @@ head the output; the last line is one JSON object with them and every row.
 
 ``record_frame_gathers`` and ``frame_weighted`` read the gathers of one
 frame (every launch's table and indices) and sum their times and bounds:
-``chip_smoke.py`` reports K7's frame-weighted time and bound from them.
+``chip_smoke.py`` reports K7's frame-weighted time and bound from them
+through ``frame_report``. The ``EDGE_*`` grid (table widths, index counts, table rows) is where K7's work
+split changes shape: ``chip_smoke.py`` and ``tests/test_torch_cuda.py``
+hold K7 to the plain version on it, ``tests/test_torch_gather_split.py``
+models its split on it.
 """
 
 from __future__ import annotations
@@ -48,6 +52,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 TABLES = ((131072, 160), (8192, 160))  # the TPU bench's --rows and --vmem-rows, 160 columns
 NS = (2048, 102400)
 PATH_N = 102400  # the rays of a 320x320 frame
+# K7's edge grid: widths around its chunk of 4 words and its narrow limit of
+# 32, the path's 9, 26 and 128 and the walk's 160; index counts around a
+# chunk and a warp's rows, a ragged 4097, the training and render
+# wavefronts; a 1-row table, a tiny one and the Cornell box's triangle count
+EDGE_WIDTHS = (1, 2, 3, 4, 5, 8, 9, 26, 31, 32, 33, 128, 160)
+EDGE_NS = (1, 3, 4, 5, 127, 128, 129, 4097, 25600, 102400)
+EDGE_ROWS = (1, 5, 1224)
 
 
 def time_ms(fn, index_sets) -> float:
@@ -178,6 +189,53 @@ def frame_weighted(recorded, kernel) -> dict:
         w["index_select_ms"] += lib
         w["bound_ms"] += b
     return out
+
+
+def check_edges(kernel, dev, gen) -> int:
+    """``kernel`` bit for bit against the plain version on the ``EDGE_*``
+    grid, with int64 and int32 indices, on tables of random bit patterns
+    (NaNs, infinities, denormals) and indices that include the last row;
+    raises at the first disagreement, returns the launches made."""
+    launches = 0
+    for rows, cols in ((r, c) for r in EDGE_ROWS for c in EDGE_WIDTHS):
+        bits = torch.randint(-2**31, 2**31 - 1, (rows, cols), generator=gen, device=dev, dtype=torch.int64)
+        table = bits.to(torch.int32).view(torch.float32)
+        for n in EDGE_NS:
+            idx = torch.randint(0, rows, (n,), generator=gen, device=dev)
+            idx[0] = rows - 1
+            ref = GC.gather_rows_plain(table, idx).view(torch.int32)
+            for ix in (idx, idx.to(torch.int32)):
+                got = GC.gather_rows_cuda(kernel, table, ix).view(torch.int32)
+                launches += 1
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"{kernel.symbol} on [{rows}, {cols}] at N = {n} ({ix.dtype}): "
+                                         f"{int((got != ref).sum())} words differ from the plain version")
+    return launches
+
+
+def describe_frame(fw: dict) -> str:
+    """``frame_weighted``'s sums on one line, and by width whether K7 is
+    under ``index_select`` there."""
+    return (f"K7 over one FULL + train frame: {fw['launches']} launches, {fw['rows']} rows, frame-weighted "
+            f"{fw['ms']:.4f} ms, index_select {fw['index_select_ms']:.4f} ms, bound {fw['bound_ms']:.4f} ms "
+            f"({100 * fw['bound_ms'] / fw['ms']:.1f} % of it); by width:\n"
+            + "\n".join(f"  {w} columns: {v['launches']} launches, {v['rows']} rows, K7 {v['ms']:.4f} ms, index_select "
+                        f"{v['index_select_ms']:.4f}, bound {v['bound_ms']:.4f} ({100 * v['bound_ms'] / v['ms']:.1f} %); "
+                        f"K7 {'under' if v['ms'] < v['index_select_ms'] else 'NOT under'} index_select"
+                        for w, v in sorted(fw["by_width"].items())))
+
+
+def frame_report(renderer: Renderer) -> dict:
+    """The path's gathers over one more frame of ``renderer``: each held bit
+    for bit against the plain version, then ``frame_weighted`` for the path's
+    kernel, printed by ``describe_frame``."""
+    gathered = record_frame_gathers(renderer)
+    for table, idx in gathered:
+        if not torch.equal(GC.gather_rows(table, idx).view(torch.int32), table[idx].view(torch.int32)):
+            raise AssertionError(f"a gather of the frame on {tuple(table.shape)} disagrees with the plain version")
+    fw = frame_weighted(gathered, GC.PATH_KERNEL)
+    print(describe_frame(fw))
+    return fw
 
 
 def main() -> int:

@@ -418,11 +418,15 @@ def test_renderer_goes_through_the_kernels(cuda, train):
 
 @pytest.mark.parametrize("variant", sorted(GC.VARIANTS))
 @pytest.mark.parametrize("rows,width,n", [(5000, 160, 3001), (300, 160, 64), (1224, 26, 1000),
-                                          (5, 93, 777), (40000, 9, 4097)])
+                                          (5, 93, 777), (40000, 9, 4097), (5, 1, 777), (5, 9, 4097),
+                                          (5, 31, 129), (5, 33, 1000), (5, 128, 25600), (1, 26, 131),
+                                          (1, 160, 3)])
 def test_gathers_match_plain_bit_for_bit(cuda, variant, rows, width, n):
     """Widths with and without 16-byte rows, a table smaller than the
     resident variant's stage and one larger, int32 and int64 indices; the
-    table holds every kind of bit pattern (NaNs, infinities, denormals)."""
+    table holds every kind of bit pattern (NaNs, infinities, denormals).
+    K7's shapes: 1, 9, 31 and 33 columns (output-major chunks), 128 on a
+    5-row table and 160 (a warp per row), and 1-row tables."""
     gen = torch.Generator(device=cuda).manual_seed(rows + n)
     bits = torch.randint(-2**31, 2**31 - 1, (rows, width), generator=gen, device=cuda, dtype=torch.int64)
     table = bits.to(torch.int32).view(torch.float32)
@@ -459,6 +463,18 @@ def test_k8_bit_for_bit_at_the_bench_shapes(cuda, shape, n):
     torch.cuda.synchronize()
     assert GC.RESIDENT_KERNEL.launches == before + 1
     assert torch.equal(out.view(torch.int32), table[idx].view(torch.int32))
+
+
+def test_k7_bit_for_bit_on_the_edge_grid(cuda):
+    """K7 on every table width, index count and table size of
+    ``bench_gather``'s edge grid, where its work split changes shape (the
+    split itself is modelled on the CPU, ``tests/test_torch_gather_split.py``)."""
+    from nrc_tpu_torch.tools import bench_gather as BG
+
+    before = GC.GATHER_KERNEL.launches
+    launches = BG.check_edges(GC.GATHER_KERNEL, cuda, torch.Generator(device=cuda).manual_seed(8))
+    assert launches == 2 * len(BG.EDGE_ROWS) * len(BG.EDGE_WIDTHS) * len(BG.EDGE_NS)
+    assert GC.GATHER_KERNEL.launches == before + launches
 
 
 def test_gather_wrapper_dispatch_and_refusals(cuda):

@@ -308,6 +308,30 @@ def test_new_state_is_copied_into_the_tensors_the_frame_reads():
     assert r.image is image and not bool(image.any())
 
 
+@pytest.mark.parametrize("lines,expected", [
+    (["1980, 2619, 178.10, 0x0000000000000000", "1755, 2619, 190.50, 0x0000000000000004",
+      "1980, 2619, 176.00, 0x0000000000000000"],
+     {"sm_mhz": [1755.0, 1980.0, 1980.0], "mem_mhz": [2619.0, 2619.0, 2619.0], "power_w": 178.1,
+      "clock_event_reasons": ["0x0000000000000000", "0x0000000000000004"], "samples": 3}),
+    (['Field "clocks_throttle_reasons.active" is not a valid field to query.'], {}),
+    ([], {}),
+])
+def test_bench_reads_the_card_clocks_sampled_beside_a_rep(lines, expected):
+    """The port bench's clock samples (``nvidia-smi``'s csv lines, one per
+    100 ms) -> each clock's least, median and largest value, the median
+    power and the event reasons seen; a sampler that printed no sample (a
+    field this nvidia-smi does not know) gives an empty record, not an error."""
+    import subprocess
+    import sys
+
+    from nrc_tpu_torch.tools.bench import read_clocks
+
+    printer = subprocess.Popen([sys.executable, "-c", "import sys; print(sys.argv[1], end='')", "\n".join(lines)],
+                               stdout=subprocess.PIPE, text=True)
+    printer.wait(timeout=60)
+    assert read_clocks(printer) == expected
+
+
 def test_profile_names_each_sync_and_copy_by_call_site():
     """``profile_frame.call_sites`` on a trace of known shape: each runtime
     call goes under the innermost function of the port around it and the

@@ -156,6 +156,31 @@ def test_rows_fetched_and_order_independence(case):
     assert prim.dtype == torch.int64 and t.dtype == torch.float32
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_rows_seen_are_the_distinct_rows_fetched(case, monkeypatch, any_hit):
+    """``rows_seen`` (the walk kernels' byte bound when the table stays in
+    the cache) marks exactly the rows the walk gathers: every gathered row
+    but the clamped index 0 of a ray with nothing pending, which is the
+    root every live ray fetches first. The walk's result does not change."""
+    c = case
+    org, d, tmin, tmax = c["rays"]
+    gathered = []
+
+    def recording_gather(table, idx):
+        gathered.append(idx.clone())
+        return GC.gather_rows(table, idx)
+
+    t_ref, p_ref, fetched_ref = IW.wide_traverse_plain(org, d, c["bvh"], tmin, tmax, any_hit)
+    monkeypatch.setattr(IW, "gather_rows", recording_gather)
+    seen = torch.zeros(c["bvh"].rows.shape[0], dtype=torch.bool)
+    t, prim, fetched = IW.wide_traverse_plain(org, d, c["bvh"], tmin, tmax, any_hit, rows_seen=seen)
+    assert torch.equal(t, t_ref) and torch.equal(prim, p_ref) and fetched == fetched_ref
+    expected = torch.zeros_like(seen)
+    expected[torch.cat(gathered)] = True
+    assert torch.equal(seen, expected)
+    assert 1 <= int(seen.sum()) <= min(fetched, seen.numel())
+
+
 @pytest.mark.parametrize("width", [8, 16])
 def test_sort8_by_key_matches_jax(width):
     rng = np.random.default_rng(3)
