@@ -6,8 +6,9 @@ CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or on ``PATH``) and no network.
 
 Phases, each of which raises on failure (non-zero exit):
 1. device: the card's name and power limit as ``nvidia-smi`` reports them;
-2. build: compile every kernel (K1-K9, W1, W2) from ``csrc/``, one ``nvcc``
-   per source file, all started together, and the native host library;
+2. build: compile every kernel (K1-K9, W1, W2, H1, H2) from ``csrc/``, one
+   ``nvcc`` per source file, all started together, and the native host
+   library; the ``nvcc`` release is printed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the 320x320 frames give it (B = 16384 training rows,
    [4, 16384] for K6), with times (CUDA events), the least time the card
@@ -20,9 +21,18 @@ Phases, each of which raises on failure (non-zero exit):
    [8192, 160] and on the path's other tables, and timed on them beside ``index_select``; K7
    bit for bit on ``bench_gather``'s edge grid (widths, index counts, table sizes); the walk
    kernels W1/W2 on the 132 K-triangle ``cornell_objects`` scene against the
-   plain walk, and W1 against the brute-force K1;
+   plain walk, and W1 against the brute-force K1; the hash grid's lookup H1
+   bit for bit and its adjoint H2 under ``tools/bench_hash.py::CARD_LIMITS``
+   (with its seeded faults above them and two runs' spread printed) at the
+   shipped grid (H1 at B = 128,000, the frame's inference, and at 16,384, a
+   step's; H2 at 16,384) and at an edge grid (2^10 rows, base resolution 4:
+   dense and hashed levels; B not a multiple of 32; positions outside
+   [0, 1]), timed beside their bounds, H2 on the dense and on the hashed
+   levels alone, and the table's Adam + EMA;
 4. train_step: four ``train_step``s on the card, K3 forward + K4 backward
-   through autograd;
+   through autograd; four hash ``train_step``s (H1, K3, K4 with dX, H2, the
+   table's Adam + EMA) against the same steps on the CPU, under
+   ``bench_hash.HASH_LIMITS``;
 5. serving slice: ``Renderer`` on the 1224-triangle Cornell box at 320x320,
    FULL then NO_CACHE, ``train=False``, frequency encoding 64x5 from a seeded
    init, 8 timed frames each, each frame one CUDA graph replay;
@@ -47,6 +57,17 @@ Phases, each of which raises on failure (non-zero exit):
    ``set_hyper_params``; after every frame the image, weights, moments,
    EMA, step and stats must be equal bit for bit. On the Cornell box (12
    frames) and on ``cornell_objects`` (8 frames);
+6d. the hash encoding: FULL + train at 320x320 through ``set_encoding``,
+   replayed, until the tile size settles, then 8 timed frames and 4 counted:
+   H1 five launches a replayed frame (inference and four steps), H2 and K4
+   four, K6 none; eagerly and replayed under the profiler; then renderers
+   from one start (eager, replayed, eager again, and replayed with one
+   ``train_step`` dropped from its captured frame, a planted fault): two
+   frequency frames bit for bit, ``set_encoding(HASH)``, one hash frame,
+   every state set to the eager one's, then one replayed hash frame against
+   the eager one: image, records and step bit for bit, loss and state within
+   ``bench_hash.HASH_LIMITS`` (H2's atomics reorder the table's gradient),
+   the planted fault above them; the drift over six more frames printed;
 7. large scene: FULL + train at 320x320 on ``cornell_objects`` (the wide
    BVH path), replayed: frames until the tile size settles, then 8 timed
    frames and 4 more counted; W1, W2 and the path's gather must run, K1 and
@@ -55,12 +76,19 @@ Phases, each of which raises on failure (non-zero exit):
    the frame bound (the all-live bound over each launch's live rays);
 8. convergence: the JAX package's online-training oracle
    (``tests/test_frame.py:92-139``) on the port's Cornell box at 64x64 with
-   8x8 tiles: the loss falls over 40 frames, and after a restart 48 FULL +
-   train frames come within 18 dB (tonemapped PSNR) of 48-spp NO_CACHE;
+   8x8 tiles, for both encodings: the loss falls over 40 frames, and after a
+   restart 48 FULL + train frames come within 18 dB (tonemapped PSNR) of
+   48-spp NO_CACHE;
 9. reference: 32x32 frames (8x8 tiles) on the card against the same frames
    on the CPU, where the port runs the plain versions the CPU tests check
    against JAX; after the training frame, the weights, moments and EMA too.
-   Once by brute force and once with the wide BVH attached.
+   Once by brute force and once with the wide BVH attached; then one hash
+   FULL + train frame, held by ``HASH_LIMITS``;
+10. quality gate: FULL + train at 128x128, 4x4 tiles, 128 frames, for both
+   encodings, and NO_CACHE at 64 spp (the noise floor), tonemapped PSNR and
+   SSIM against the committed 4096-spp ground truth
+   ``tests/data/torch_cornell_box_gt_128.npz``, held to
+   ``tools/quality_gate.py::LIMITS``.
 
 Every path that runs a kernel is driven with the launch counts set to 0 just
 before it and read just after; each kernel must have been launched there. A
@@ -202,7 +230,9 @@ def _print_eager_and_replayed(PF, r, label):
               f"({row['ms_per_frame_min']:.3f}-{row['ms_per_frame_max']:.3f}), device busy "
               f"{row['device_busy_ms_per_frame']:.3f} ms/frame, idle {100 * row['device_idle_share']:.1f} %, "
               f"{row['kernel_launches_per_frame']:.0f} kernels and {row['host_syncs_and_copies_per_frame']:.1f} "
-              f"syncs and copies per frame")
+              f"syncs and copies per frame; by group {row['device_ms_per_frame_by_group']}"
+              + (f"; the hash table's Adam + EMA {row['hash_table_update_device_ms_per_frame']:.4f} ms/frame"
+                 if row["hash_table_update_device_ms_per_frame"] else ""))
     print(f"{label} graphs: " + ", ".join(f"tile {k[2][0]}x{k[2][1]} {g.nbytes} bytes" for k, g in r.graphs.items()))
 
 
@@ -255,6 +285,266 @@ def _replay_matches_eager(scene, system, dev, frames, label):
     _check(replayed.replays >= frames // 2, f"{label}: only {replayed.replays} of {frames} frames were replays")
 
 
+def _held(reading, limit, above=False):
+    return reading >= limit if above else reading <= limit
+
+
+def _hash_kernels(report, gen, dev):
+    """H1 and H2 against their plain versions at the full and the edge grid,
+    the seeded faults and two runs' spread; their times beside their bounds."""
+    from nrc_tpu_torch.tools import bench_hash as BH
+
+    full = None
+    for label, spec, n1, n2 in (("full", BH.full_spec(), BH.INFER_ROWS, BH.STEP_ROWS),
+                                ("edge", BH.edge_spec(), 1001, 999)):
+        res = BH.check(spec, n1, n2, gen, dev, label)
+        full = full or res
+        h1 = [res["h1"]] + ([BH.check_lookup(spec, n2, gen, dev)] if label == "full" else [])
+        _check(all(c["differing"] == 0 for c in h1), f"H1 {label}: words differ from the plain version: {h1}")
+        print(f"H1 {label} grid ({spec.levels} levels, 2^{spec.log2_size} rows, {spec.features} features, "
+              f"dense levels {sum(spec.dense)}; positions in [-0.1, 1.1]^3): "
+              + "; ".join(f"B = {c['n']}: {c['differing']} of {c['words']} words differ from the plain version, "
+                          f"largest |diff| {c['max_abs']:.3g}" for c in h1))
+        print(f"H2 {label} grid, B = {n2}, g read through a [B, 128] row stride: {res['h2']} (limits "
+              f"{BH.CARD_LIMITS}), largest |diff| {res['h2_max_abs']:.3g}; two runs on the same inputs "
+              f"{res['h2_run_to_run']} apart (bit-equal: {res['h2_bits_equal_run_to_run']}); seeded faults "
+              f"{res['faults']}")
+    t = BH.times(BH.full_spec(), BH.INFER_ROWS, BH.STEP_ROWS, gen, dev)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # H1's row: the frame's inference launch (B = INFER_ROWS)
+    report["hash_grid_lookup"] = dict(max_abs_err=full["h1"]["max_abs"], **{k: t["H1"][k] for k in keys})
+    report["hash_grid_adjoint"] = dict(max_abs_err=full["h2_max_abs"], **{k: t["H2"][k] for k in keys})
+    print(f"H1 at B = {t['H1']['n']}: {t['H1']['ms']:.4f} ms (plain {t['H1']['plain_ms']:.4f}), bound "
+          f"{t['H1']['bound_ms']:.4f} ms by {t['H1']['bound_by']}; H1 at B = {t['H1_steps']['n']}: "
+          f"{t['H1_steps']['ms']:.4f} ms (plain {t['H1_steps']['plain_ms']:.4f}), bound "
+          f"{t['H1_steps']['bound_ms']:.4f} ms; H2 at B = {t['H2']['n']}: {t['H2']['ms']:.4f} ms "
+          f"(plain {t['H2']['plain_ms']:.4f}), bound {t['H2']['bound_ms']:.4f} ms by {t['H2']['bound_by']}, on the "
+          f"grid cut to its levels {t['H2']['by_level_ms']}; index_add_ of the 8 x L x B precomputed weighted rows "
+          f"(not the same function: no indices or weights computed) {t['H2']['index_add_ms_precomputed_rows']:.4f} "
+          f"ms; the table's Adam + EMA (plain PyTorch) {t['table_update_ms']:.4f} ms a step, four a frame")
+
+
+def _hash_train_steps(kernels, gen, dev, hash_cfg):
+    """Four hash train_steps on the card (H1 -> K3 -> K4 with dX -> H2 ->
+    Adam + EMA) against the same steps on the CPU."""
+    import torch
+
+    from nrc_tpu_torch.models import network as N
+    from nrc_tpu_torch.tools import bench_hash as BH
+
+    b = 16384
+    q4 = torch.rand((4, b, 15), generator=gen, device=dev)
+    q4[..., :3] = (q4[..., :3] - 0.5) * 0.1  # positions as the frames scale them
+    t4 = torch.rand((4, b, 3), generator=gen, device=dev) * 2.0
+
+    def steps(device):
+        st = N.init_network(torch.Generator().manual_seed(4), hash_cfg, device)
+        lr = torch.tensor(hash_cfg.learning_rate, device=device)
+        losses = []
+        for k in range(4):
+            st, loss = N.train_step(st, q4[k].to(device), t4[k].to(device), hash_cfg, learning_rate=lr)
+            losses.append(loss)
+        return st, torch.stack(losses)
+
+    (st, lk), counts = _counted(kernels, kernels, lambda: steps(dev))
+    torch.cuda.synchronize()
+    sc, lc = steps(torch.device("cpu"))
+    lim = BH.HASH_LIMITS
+    loss_rel = ((lk.cpu() - lc).abs() / lc.abs()).max().item()
+    gap = BH.state_gap(st, sc)
+    print(f"hash train_step x4 (B = {b}) on the card: losses {lk.tolist()}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }; against the CPU: losses {loss_rel:.3g} relative (limit "
+          f"{lim['steps_loss']}), state {gap} (limits mean {lim['steps_mean']}, share beyond {BH.FAR_AT:g} "
+          f"{lim['steps_far']})")
+    _check(counts["hash_grid_lookup"] == 4 and counts["hash_grid_adjoint"] == 4 and counts["fused_backward"] == 4,
+           f"the hash train_steps did not go through H1, H2 and K4 four times each: {counts}")
+    _check(bool(torch.isfinite(lk).all()) and int(st.opt.step) == 4, "hash train_step failed")
+    _check(_held(loss_rel, lim["steps_loss"]) and _held(gap["mean"], lim["steps_mean"])
+           and _held(gap["far"], lim["steps_far"]), "the hash train_steps on the card disagree with the CPU")
+
+
+def _hash_frame(scene, system, kernels, dev, PF, BI):
+    """Hash FULL + train at 320x320 through set_encoding, replayed: H1 five
+    times a frame, H2 and K4 four times, K6 never. Returns the launches per
+    replayed frame."""
+    import torch
+
+    from nrc_tpu_torch.config import InputEncoding, RenderMode
+    from nrc_tpu_torch.render.renderer import Renderer
+
+    rh = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
+    rh.set_encoding(InputEncoding.HASH)
+    sizes = BI.settle_tiles(rh)
+    trained, counts = _counted(kernels, kernels, lambda: rh.benchmark(8))
+    rh.flush_stats()
+    _check(bool(torch.isfinite(rh.image).all()) and rh.image.std().item() > 0.0, "hash FULL + train image bad")
+    _check(math.isfinite(trained["loss"]), "hash FULL + train loss not finite")
+    per_frame = _replayed_launches(rh, kernels)
+    print(f"hash FULL + train 320x320 (set_encoding: lr {float(rh.learning_rate):g}, EMA {rh.net_cfg.ema_decay}, "
+          f"eps {rh.net_cfg.adam_eps:g}): tile sizes {sizes}, {trained['ms_per_frame']:.3f} ms/frame, "
+          f"{trained['mrays_per_s']:.2f} traced Mrays/s, {int(rh.last_stats.num_train_records)} records in the last "
+          f"frame, loss {trained['loss']:.4f}, image mean {rh.image.mean().item():.4f}; launches per replayed frame "
+          f"{ {k: v for k, v in per_frame.items() if v} }")
+    print(f"hash FULL + train loss curve (per frame): {[round(v, 4) for v in rh.loss_history]}")
+    _check(per_frame["hash_grid_lookup"] == 5 and per_frame["hash_grid_adjoint"] == 4
+           and per_frame["fused_backward"] == 4 and per_frame["fused_train4"] == 0,
+           f"a replayed hash FULL + train frame launches H1 {per_frame['hash_grid_lookup']}, H2 "
+           f"{per_frame['hash_grid_adjoint']}, K4 {per_frame['fused_backward']} and K6 {per_frame['fused_train4']} "
+           f"times (5, 4, 4 and 0 expected)")
+    _print_eager_and_replayed(PF, rh, "hash FULL + train")
+    return per_frame
+
+
+def _hash_replay_vs_eager(scene, system, dev, frames, label):
+    """Renderers from the same start: one eager, one replaying graphs, a
+    second eager one (the spread of two eager runs, printed) and a replaying
+    one whose captured frame drops one train_step (a planted fault). Two
+    frequency frames bit for bit; set_encoding(HASH) and one hash frame,
+    where the replaying renderers capture; every state set to the eager
+    one's; one more hash frame, a replay, held by ``bench_hash.frame_gap``:
+    image, records, traced rays and step bit for bit, the loss and the state
+    within ``HASH_LIMITS`` (H2's atomics reorder the table's gradient); the
+    planted fault must read above the state limits. Then the drift over
+    ``frames`` - 4 more hash frames, printed and not held: H2's reordering,
+    amplified by Adam's eps of 1e-15, grows from frame to frame."""
+    import torch
+
+    from nrc_tpu_torch.config import InputEncoding, RenderMode
+    from nrc_tpu_torch.render.renderer import Renderer
+    from nrc_tpu_torch.tools import bench_hash as BH
+
+    eager, replayed, eager2, faulty = (
+        Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device=dev, capture=c)
+        for c in (False, True, False, True))
+    every = (eager, replayed, eager2, faulty)
+    for f in range(2):
+        for r in every:
+            r.render_frame()
+        torch.cuda.synchronize()
+        _check(all(torch.equal(r.image, eager.image) for r in every),
+               f"{label} frame {f}: replayed and eager frequency frames differ")
+    for r in every:
+        r.set_encoding(InputEncoding.HASH)
+    with BH.dropped_train_step():
+        faulty.render_frame()  # its graph is captured here, with the fault
+    for r in (eager, replayed, eager2):
+        r.render_frame()
+    torch.cuda.synchronize()
+    _check(all(torch.equal(r.image, eager.image) for r in every),
+           f"{label}: the first hash frames' images differ (the same state went in)")
+    for r in (replayed, eager2, faulty):
+        r.net_state = eager.net_state  # copied into the tensors the graphs read
+    replays = (replayed.replays, faulty.replays)
+    for r in every:
+        r.render_frame()
+    torch.cuda.synchronize()
+    _check((replayed.replays, faulty.replays) == (replays[0] + 1, replays[1] + 1),
+           f"{label}: the compared hash frame was not a graph replay")
+    gaps = {name: BH.frame_gap(r, eager) for name, r in
+            (("replayed", replayed), ("eager again", eager2), ("replayed, one train_step dropped", faulty))}
+    lim = {k: v for k, v in BH.HASH_LIMITS.items() if k.startswith("replay_")}
+    print(f"{label}: 2 frequency frames replayed and eager bit for bit; set_encoding(HASH), one hash frame, every "
+          f"state set to the eager one's, then one hash FULL + train frame, a replay, against the eager frame: "
+          f"{gaps} (limits {lim}, share beyond {BH.FAR_AT:g})")
+    _check(BH.replay_within_limits(gaps["replayed"]), f"{label}: a replayed hash frame disagrees with an eager one")
+    _check(BH.replay_state_above_limits(gaps["replayed, one train_step dropped"]),
+           f"{label}: a replayed frame with one train_step dropped reads within the limits")
+    del faulty, every
+    worst = {}
+    for f in range(frames - 4):
+        for r in (eager, replayed, eager2):
+            r.render_frame()
+        torch.cuda.synchronize()
+        for name, r in (("replayed", replayed), ("eager again", eager2)):
+            close, mean_gap = _image_agreement(r.image, eager.image)
+            gap = BH.state_gap(r.net_state, eager.net_state)
+            row = worst.setdefault(name, dict(close=1.0, mean_gap=0.0, mean=0.0, far=0.0, largest=0.0))
+            row["close"] = min(row["close"], close)
+            for k, v in (("mean_gap", mean_gap), ("mean", gap["mean"]), ("far", gap["far"]),
+                         ("largest", gap["largest"])):
+                row[k] = max(row[k], v)
+    for r in (eager, replayed, eager2):
+        r.flush_stats()
+    print(f"{label}: drift over {frames - 4} more hash frames (a reading, not held), worst against the eager "
+          f"renderer: {worst}; {replayed.replays} replays; loss {replayed.loss_history[-1]:.4f}")
+    _check(replayed.replays >= frames - 3, f"{label}: too few replays ({replayed.replays})")
+
+
+def _convergence(dev, net_cfg, label):
+    """The JAX package's online-training oracle (tests/test_frame.py:92-139)
+    on the port's Cornell box at 64x64, 8x8 tiles."""
+    import torch
+
+    from nrc_tpu_torch.config import RenderMode
+    from nrc_tpu_torch.render.renderer import Renderer
+    from nrc_tpu_torch.scene.scene_builder import cornell_box
+    from nrc_tpu_torch.utils.tonemap import tonemap
+
+    small, small_sys = cornell_box((64, 64))
+    small_sys.tile_size = (8, 8)
+    rc = Renderer(small, small_sys, net_cfg=net_cfg, render_mode=RenderMode.FULL, adaptive_tiles=False, device=dev)
+    rc.render(40)
+    rc.flush_stats()
+    losses = list(rc.loss_history)
+    early, late = sum(losses[:2]) / 2, sum(losses[-10:]) / 10
+    rc.restart_accumulation()
+    rc.render(48)
+    gt = Renderer(small, small_sys, render_mode=RenderMode.NO_CACHE, train=False, device=dev)
+    gt.render(48)
+    a = tonemap(torch.from_numpy(rc.image_hdr().copy()), small_sys.tonemapper)
+    g = tonemap(torch.from_numpy(gt.image_hdr().copy()), small_sys.tonemapper)
+    psnr = 10.0 * torch.log10(1.0 / ((a - g) ** 2).mean()).item()
+    print(f"convergence 64x64, {label}: loss {early:.4f} (first 2) -> {late:.4f} (last 10 of 40), limit "
+          f"{0.9 * early:.4f}; FULL + train vs 48-spp NO_CACHE: {psnr:.2f} dB tonemapped (limit 18)")
+    print(f"convergence loss curve, {label}: {[round(v, 4) for v in losses]}")
+    _check(late < 0.9 * early, f"{label}: the loss did not fall")
+    _check(psnr > 18.0, f"{label}: FULL + train is too far from the NO_CACHE oracle")
+
+
+def _hash_card_vs_cpu(dev, hash_cfg):
+    """One 32x32 hash FULL + train frame (8x8 tiles) on the card against the
+    same frame on the CPU: the image, the records, the loss and the state."""
+    from nrc_tpu_torch.config import RenderMode
+    from nrc_tpu_torch.render.renderer import Renderer
+    from nrc_tpu_torch.scene.scene_builder import cornell_box
+    from nrc_tpu_torch.tools import bench_hash as BH
+
+    small, small_sys = cornell_box((32, 32))
+    small_sys.tile_size = (8, 8)
+    rg, rcpu = (Renderer(small, small_sys, net_cfg=hash_cfg, render_mode=RenderMode.FULL, device=d)
+                for d in (dev, "cpu"))
+    sg, sc = rg.render(1), rcpu.render(1)
+    close, mean_gap = _image_agreement(rg.image.cpu(), rcpu.image)
+    n_rec = (int(sg.num_train_records), int(sc.num_train_records))
+    loss_gap = abs(float(sg.loss) / float(sc.loss) - 1.0)
+    gap = BH.state_gap(rg.net_state, rcpu.net_state)
+    lim = BH.HASH_LIMITS
+    print(f"32x32 hash FULL + train card vs CPU: {close:.4f} of pixels within 1e-3 (limit {lim['frame_close']}), "
+          f"means {mean_gap:.2e} apart ({lim['frame_mean_gap']}); records {n_rec[0]} vs {n_rec[1]} (must be equal), "
+          f"loss {loss_gap:.2e} relative ({lim['frame_loss']}); state after the frame {gap} (limits mean "
+          f"{lim['frame_mean']}, share beyond {BH.FAR_AT:g} {lim['frame_far']})")
+    _check(n_rec[0] == n_rec[1] > 0 and _held(close, lim["frame_close"], above=True)
+           and _held(mean_gap, lim["frame_mean_gap"]) and _held(loss_gap, lim["frame_loss"])
+           and _held(gap["mean"], lim["frame_mean"]) and _held(gap["far"], lim["frame_far"]),
+           "hash FULL + train: the card disagrees with the CPU path")
+
+
+def _quality_gate(dev):
+    """FULL + train against the 4096-spp ground truth, both encodings, and
+    the NO_CACHE 64-spp noise floor; limits from tools/quality_gate.py."""
+    from nrc_tpu_torch.tools import quality_gate as QG
+
+    t0 = time.perf_counter()
+    rows = QG.run(dev)
+    for name, row in rows.items():
+        print(f"quality gate {name} ({QG.RES}x{QG.RES}, "
+              f"{QG.FLOOR_SPP if name.startswith('no_cache') else QG.FRAMES} frames) vs the {QG.GT_SPP}-spp ground "
+              f"truth: PSNR {row['psnr']:.3f} dB (limit {row['min_psnr']}), SSIM {row['ssim']:.4f} "
+              f"(limit {row['min_ssim']})")
+    print(f"quality gate: {time.perf_counter() - t0:.1f} s")
+    QG.check(rows)
+
+
 def main() -> int:
     import torch
 
@@ -262,10 +552,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     # the port must be importable from here (run from the checkout's root)
-    from nrc_tpu_torch.config import NetworkConfig, RenderMode
+    from nrc_tpu_torch.config import InputEncoding, NetworkConfig, RenderMode
     from nrc_tpu_torch.models import network as N
     from nrc_tpu_torch.native import get_lib
+    from nrc_tpu_torch.ops import cuda_build as CB
     from nrc_tpu_torch.ops import gather_cuda as GC
+    from nrc_tpu_torch.ops import hash_cuda as HC
     from nrc_tpu_torch.ops import intersect_cuda as IC
     from nrc_tpu_torch.ops import intersect_wide as IW
     from nrc_tpu_torch.ops import intersect_wide_cuda as WC
@@ -279,13 +571,13 @@ def main() -> int:
     from nrc_tpu_torch.tools import bench_intersect as BI
     from nrc_tpu_torch.tools import bench_mlp as BM
     from nrc_tpu_torch.tools import profile_frame as PF
-    from nrc_tpu_torch.utils.tonemap import tonemap
 
     # plain references in full float32 (PyTorch's defaults, stated here)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     net_cfg = NetworkConfig()
+    hash_cfg = NetworkConfig(encoding=InputEncoding.HASH)
 
     # ---- 1. device ---------------------------------------------------------
     smi = subprocess.run(
@@ -310,6 +602,13 @@ def main() -> int:
                          "nrc_tpu/ops/intersect_wide.py:518 (intersect_wbvh; no Pallas kernel stood there)"),
         "wbvh_any": (WC.ANYHIT_KERNEL,
                      "nrc_tpu/ops/intersect_wide.py:528 (occluded_wbvh; no Pallas kernel stood there)"),
+        "hash_grid_lookup": (HC.LOOKUP_KERNEL,
+                             "nrc_tpu/ops/encodings.py:320 (hash_grid_lookup: XLA gathers; no Pallas kernel stood "
+                             "there)"),
+        "hash_grid_adjoint": (HC.ADJOINT_KERNEL,
+                              "nrc_tpu/ops/encodings.py:320 (the adjoint of hash_grid_lookup: XLA's scatter-add, "
+                              "or the one-hot products of _grid_gather_bwd at :283 on a TPU; no Pallas kernel "
+                              "stood there)"),
     }
     path_gather = next(name for name, (k, _) in kernels.items() if k is GC.PATH_KERNEL)
     first_of_source = {}
@@ -326,6 +625,9 @@ def main() -> int:
         _check(get_lib() is not None, "the native host library did not build")
         return f"build native/nrc_native.c in {time.perf_counter() - t0:.1f} s"
 
+    nvcc = subprocess.run([CB._nvcc(), "--version"], capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()
+    print(f"nvcc: {nvcc[-2].strip()} ({nvcc[-1].strip()})")
     t_build = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(first_of_source) + 1) as pool:
         native = pool.submit(build_native, None)
@@ -688,6 +990,9 @@ def main() -> int:
           f"{report['wbvh_any']['ms']:.3f} ms (plain walk {a_plain_ms[0]:.0f} ms)")
     del big_planes
 
+    # ---- 3d. the hash-grid kernels H1/H2 against their plain versions ------------
+    _hash_kernels(report, gen, dev)
+
     # ---- 4. train_step: K3 forward + K4 backward through autograd -------------
     def train_steps():
         st = N.init_network(torch.Generator().manual_seed(4), net_cfg, dev)
@@ -703,7 +1008,10 @@ def main() -> int:
     _check(bool(torch.isfinite(step_losses).all()) and int(st.opt.step) == 4, "train_step failed")
     _check(path_counts["fused_forward"] > 0 and path_counts["fused_backward"] == 4,
            "train_step did not go through K3 and K4")
-    launches = {"fused_backward": path_counts["fused_backward"]}
+    launches = {}
+
+    # ---- 4b. four hash train_steps: H1 -> K3 -> K4 (dX) -> H2 -> Adam + EMA ------
+    _hash_train_steps(kernels, gen, dev, hash_cfg)
 
     # ---- 5. serving slice --------------------------------------------------------
     r.render_frame()
@@ -745,7 +1053,8 @@ def main() -> int:
            f"a replayed FULL + train frame launches K6 {per_frame['fused_train4']} times and K5 "
            f"{per_frame['fused_train_grad']} times (1 and 0 expected)")
     for name, count in per_frame.items():
-        launches.setdefault(name, count)
+        if name != "fused_backward":
+            launches.setdefault(name, count)
     _print_eager_and_replayed(PF, rt, "FULL + train")
 
     # ---- 6b. the sparse ray sets of that frame: every K1 and K2 launch recorded ----
@@ -806,6 +1115,11 @@ def main() -> int:
 
     # ---- 6c. graph replay against eager frames, bit for bit -----------------------
     _replay_matches_eager(scene, _with_tiles(system, (4, 4)), dev, 12, "Cornell box")
+
+    # ---- 6d. the hash encoding: FULL + train replayed, then against eager frames ----
+    hash_frame = _hash_frame(scene, system, kernels, dev, PF, BI)
+    launches.update({name: hash_frame[name] for name in ("hash_grid_lookup", "hash_grid_adjoint", "fused_backward")})
+    _hash_replay_vs_eager(scene, _with_tiles(system, (4, 4)), dev, 10, "Cornell box, hash")
 
     # ---- 7. the large scene: FULL + train through the wide BVH -------------------
     sizes = BI.settle_tiles(rb)
@@ -869,26 +1183,9 @@ def main() -> int:
     del rb
     _replay_matches_eager(big_scene, _with_tiles(big_system, (4, 4)), dev, 8, "cornell_objects")
 
-    # ---- 8. convergence: the JAX package's Cornell oracle ----------------------
-    small, small_sys = cornell_box((64, 64))
-    small_sys.tile_size = (8, 8)
-    rc = Renderer(small, small_sys, render_mode=RenderMode.FULL, adaptive_tiles=False, device=dev)
-    rc.render(40)
-    rc.flush_stats()
-    losses = list(rc.loss_history)
-    early, late = sum(losses[:2]) / 2, sum(losses[-10:]) / 10
-    rc.restart_accumulation()
-    rc.render(48)
-    gt = Renderer(small, small_sys, render_mode=RenderMode.NO_CACHE, train=False, device=dev)
-    gt.render(48)
-    a = tonemap(torch.from_numpy(rc.image_hdr().copy()), small_sys.tonemapper)
-    g = tonemap(torch.from_numpy(gt.image_hdr().copy()), small_sys.tonemapper)
-    psnr = 10.0 * torch.log10(1.0 / ((a - g) ** 2).mean()).item()
-    print(f"convergence 64x64: loss {early:.4f} (first 2) -> {late:.4f} (last 10 of 40), limit "
-          f"{0.9 * early:.4f}; FULL + train vs 48-spp NO_CACHE: {psnr:.2f} dB tonemapped (limit 18)")
-    print(f"convergence loss curve: {[round(v, 4) for v in losses]}")
-    _check(late < 0.9 * early, "the loss did not fall")
-    _check(psnr > 18.0, "FULL + train is too far from the NO_CACHE oracle")
+    # ---- 8. convergence: the JAX package's Cornell oracle, both encodings ------
+    _convergence(dev, net_cfg, "frequency")
+    _convergence(dev, hash_cfg, "hash")
 
     # ---- 9. reference: the card against the CPU path on a small frame ------------
     # 8x8 tiles: 16 training rays, so the training frame has records to fit.
@@ -929,11 +1226,15 @@ def main() -> int:
                   f"(limit 1e-7)")
             _check(n_rec[0] == n_rec[1] > 0 and loss_gap <= 1e-5 and dmax <= 1e-5 and dmean <= 1e-7,
                    "FULL + train: the card's training disagrees with the CPU path")
+    _hash_card_vs_cpu(dev, hash_cfg)
+
+    # ---- 10. the quality gate: FULL + train against the 4096-spp ground truth ---
+    _quality_gate(dev)
 
     print(smi)
     # launches: per replayed FULL + train frame (W1/W2: per replayed cornell_objects
-    # frame; K4: over train_step's four steps); check_launches: a kernel that no
-    # path launches, its launches in its own check
+    # frame; H1, H2 and K4: per replayed hash FULL + train frame); check_launches: a
+    # kernel that no path launches, its launches in its own check
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=f"nrc_tpu_torch/csrc/{k.source}", replaces=replaces,
              launches=launches[name], **report[name],

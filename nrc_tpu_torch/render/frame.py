@@ -16,8 +16,9 @@ tensors on the frame's device (``Renderer``) or as Python ints (direct
 calls). On the card a frame reads nothing back to the host and copies
 nothing to it: the bounce loop runs every bounce (``integrator._all_done``),
 the record count, the loss and the training skip on a frame without records
-stay on the device (K6 reads the count), and the accumulation weight is
-computed there. So ``Renderer`` can capture it as one CUDA graph. On the
+stay on the device (K6 reads the count; the hash encoding's four
+``train_step``s are followed by a select of the old state where the count is
+0, ``network.train_frame``), and the accumulation weight is computed there. So ``Renderer`` can capture it as one CUDA graph. On the
 CPU the bounce loop still stops when no ray is alive, a read per bounce.
 The only reads of a frame's results are ``Renderer``'s non-blocking copies
 of the loss and the record count, outside the graph.

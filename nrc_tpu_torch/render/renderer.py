@@ -21,7 +21,8 @@ writes fixed tensors, so the renderer keeps its state in place: the image,
 the camera, the two frame counters (0-d int64 tensors, advanced by the
 frame's last operation; ``iteration`` and ``total_subframe`` read a host
 mirror), the learning rate, the network state (a new state is copied in)
-and the traced-ray sum (``traced_rays``). A new scene drops the graphs. A capture that fails
+and the traced-ray sum (``traced_rays``). A new scene drops the graphs, and
+so does ``set_encoding``, whose state has other shapes and is bound anew. A capture that fails
 raises; nothing falls back to eager frames. ``capture=False`` runs the same
 frames eagerly on the card, to compare with.
 
@@ -42,6 +43,7 @@ import torch
 
 from ..config import (
     FrameConfig,
+    InputEncoding,
     NetworkConfig,
     NRCHyperParams,
     RenderMode,
@@ -195,13 +197,38 @@ class Renderer:
         self.iteration = 0
         self._image.zero_()
 
-    def reset_cache(self) -> None:
+    def reset_cache(self, seed: int = 0) -> None:
         """Re-create the network (GUI 'reset cache' -> ``Device.cpp:2415-2421``)
-        with random weights from seed 0, as the JAX renderer's default, drawn
-        on the CPU."""
+        with random weights from ``seed`` (0, as the JAX renderer's default),
+        drawn on the CPU and copied into the state the graphs read."""
         self.net_state = N.init_network(
-            torch.Generator().manual_seed(0), self.net_cfg, self.device
+            torch.Generator().manual_seed(seed), self.net_cfg, self.device
         )
+
+    def set_encoding(self, encoding, seed: int = 0) -> None:
+        """Live input-encoding switch (the reference GUI combo re-creates the
+        tcnn model with the per-encoding learning rate and resets the cache,
+        ``Application.cpp:671-689`` -> ``Device.cpp:2409-2421``;
+        ``nrc_tpu/render/renderer.py:176-202``). ``ema_decay`` and
+        ``adam_eps`` are reset so that ``NetworkConfig.__post_init__``
+        resolves them for the new encoding (0.99 / 1e-15 for hash, 0.95 /
+        1e-8 for frequency). The new state has other shapes, so it is bound,
+        not copied, and every captured graph, which reads the old state's
+        tensors, is dropped."""
+        if isinstance(encoding, str):
+            encoding = InputEncoding[encoding.upper()]
+        if encoding == self.net_cfg.encoding:
+            return
+        self.net_cfg = dataclasses.replace(
+            self.net_cfg, encoding=encoding, ema_decay=None, adam_eps=1e-8
+        )
+        self.hyper = dataclasses.replace(self.hyper, learning_rate=self.net_cfg.learning_rate)
+        self.learning_rate.fill_(self.hyper.learning_rate)
+        self.graphs.clear()
+        self._net_state = N.init_network(
+            torch.Generator().manual_seed(seed), self.net_cfg, self.device
+        )
+        self.restart_accumulation()
 
     def set_render_mode(self, mode: RenderMode) -> None:
         self.cfg = dataclasses.replace(self.cfg, render_mode=mode)

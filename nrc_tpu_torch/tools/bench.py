@@ -2,12 +2,13 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 -m nrc_tpu_torch.tools.bench
+    python3 -m nrc_tpu_torch.tools.bench [--encoding frequency|hash]
 
 The configuration of the JAX package's ``bench.py:82-89``: the Cornell box
 (``cornell_box``, 1224 triangles) at 320x320, FULL render mode with online
 training, 4x4 training tiles held fixed (``adaptive_tiles=False``),
-frequency encoding 64x5 from a seeded init. Three warm-up frames (the first
+64x5 network from a seeded init, the frequency encoding by default (the
+first row's definition) or the hash encoding (``Renderer.set_encoding``). Three warm-up frames (the first
 captures the frame's CUDA graph), then 5 reps of 32 frames, each frame one
 graph replay, the accumulation and the training carried from rep to rep.
 
@@ -29,6 +30,7 @@ the card's name and power limit.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import statistics
@@ -38,7 +40,7 @@ import time
 
 import torch
 
-from ..config import RenderMode
+from ..config import InputEncoding, RenderMode
 from ..render.renderer import Renderer
 from ..scene.scene_builder import cornell_box
 
@@ -107,13 +109,14 @@ def run_rep(r: Renderer, frames: int) -> dict:
     }
 
 
-def run(frames: int = FRAMES, reps: int = REPS) -> dict:
+def run(frames: int = FRAMES, reps: int = REPS, encoding: InputEncoding = InputEncoding.FREQUENCY) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("bench: no CUDA device is available")
     dev = torch.device("cuda", 0)
     scene, system = cornell_box((RES, RES))
     system = dataclasses.replace(system, tile_size=TILE)
     r = Renderer(scene, system, render_mode=RenderMode.FULL, train=True, adaptive_tiles=False, device=dev)
+    r.set_encoding(encoding)
     for _ in range(WARMUP):
         r.render_frame()
     replays = r.replays
@@ -144,12 +147,16 @@ def run(frames: int = FRAMES, reps: int = REPS) -> dict:
                                      max(row["host_ms_per_frame"] for row in rows)],
         "reps": rows,
         "loss_last": r.loss_history[-1],
+        "encoding": encoding.name.lower(),
         "device": smi,
     }
 
 
-def main() -> int:
-    result = run()
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="traced Mrays/s of a Cornell FULL + train frame on one card")
+    ap.add_argument("--encoding", choices=("frequency", "hash"), default="frequency")
+    args = ap.parse_args(argv)
+    result = run(encoding=InputEncoding[args.encoding.upper()])
     print(result["device"])
     for i, row in enumerate(result["reps"]):
         print(f"rep {i}: {row['host_ms_per_frame']:.3f} host ms/frame, {row['device_ms_per_frame']:.3f} device "

@@ -4,11 +4,14 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 -m nrc_tpu_torch.tools.profile_frame
 
-Four configurations at 320x320 (frequency encoding 64x5, seeded init). On
-the 1224-triangle Cornell box: FULL and NO_CACHE with ``train=False`` (the
-serving side), then FULL + train, the main path, after the adaptive tile
-size has settled. On the 132 K-triangle ``cornell_objects`` scene, which
-goes through the wide BVH: FULL + train, likewise settled.
+Five configurations at 320x320 (64x5 network, seeded init). On the
+1224-triangle Cornell box with the frequency encoding: FULL and NO_CACHE
+with ``train=False`` (the serving side), then FULL + train, the main path,
+after the adaptive tile size has settled. The same FULL + train with the
+hash encoding (``set_encoding``), whose frame runs four ``train_step``s
+(H1, K3, K4, H2 and the table's Adam + EMA each) where the frequency frame
+runs K6. On the 132 K-triangle ``cornell_objects`` scene, which goes
+through the wide BVH: FULL + train, likewise settled.
 
 Each configuration runs twice from the same renderer: eagerly
 (``Renderer.capture = False``; every kernel issued from Python) and
@@ -22,9 +25,14 @@ host), kernel launches and host syncs and copies (``cudaMemcpyAsync``
 and every ``*Synchronize``) per frame, and device time by kernel group: K1
 (closest hit), K2 (shadow rays), W1/W2 (the wide-BVH walks that take their
 place on the large scene), the row gathers, K3 (cache MLP), K4/K5 (the
-gradients and their reduction, off the frame), K6 (the four training steps,
-one persistent kernel), and everything else, which is PyTorch's own elementwise, gather, sort and
-reduction kernels (the six largest are listed by name). CUPTI records the
+gradients and their reduction; K4 is on the hash frame), K6 (the four
+training steps, one persistent kernel), H1/H2 (the hash grid's lookup and
+adjoint), and everything else, which is PyTorch's own elementwise, gather, sort and
+reduction kernels (the six largest are listed by name). Of the eager frames
+it also sums the device time of the kernels launched inside a profiler
+range (``range_device_ms``): the hash table's Adam + EMA
+(``network.TABLE_UPDATE_RANGE``), plain PyTorch kernels a replay cannot
+tell from the others, since a graph's kernels carry no launch of their own. CUPTI records the
 kernels a graph launches, so the groups read the same in both columns.
 
 Every sync and copy is named by its call site: two more frames are traced
@@ -48,7 +56,8 @@ import time
 
 import torch
 
-from ..config import RenderMode
+from ..config import InputEncoding, RenderMode
+from ..models.network import TABLE_UPDATE_RANGE
 from ..render.renderer import Renderer
 from ..scene.scene_builder import cornell_box, cornell_objects
 
@@ -69,7 +78,9 @@ GROUPS = (("K1 nrc_planes_closest", ("planes_kernel<false>",)),
           ("K4 nrc_mlp_backward", ("mlp_grad_kernel<false>",)),
           ("K5 nrc_mlp_train_grad", ("mlp_grad_kernel<true>",)),
           ("K4/K5 reduce_partials", ("reduce_partials",)),
-          ("K6 nrc_mlp_train4", ("mlp_train4_kernel",)))
+          ("K6 nrc_mlp_train4", ("mlp_train4_kernel",)),
+          ("H1 nrc_hash_lookup", ("hash_lookup_kernel",)),
+          ("H2 nrc_hash_adjoint", ("hash_adjoint_kernel",)))
 # the files whose functions name a call site
 OWN_CODE = ("nrc_tpu_torch/", "chip_smoke.py")
 
@@ -159,6 +170,20 @@ def call_sites(events, frames: int) -> dict:
     return {k: v / frames for k, v in sites.most_common()}
 
 
+def range_device_ms(events, name: str, frames: int) -> float:
+    """Device ms a frame of the kernels launched inside the profiler ranges
+    called ``name``: a launch (a runtime call) inside a range's span on the
+    range's thread names its kernel by the correlation id."""
+    spans = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] == name]
+    inside = {e.get("args", {}).get("correlation") for e in events
+              if e.get("cat") == "cuda_runtime" and "Launch" in e["name"]
+              and any(tid == e.get("tid") and t0 <= e["ts"] <= t1 for tid, t0, t1 in spans)}
+    us = sum(e["dur"] for e in events
+             if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in inside)
+    return us / frames / 1e3
+
+
 def profile_mode(r: Renderer, frames: int, timed: int, stacks: bool = True) -> dict:
     """Time ``timed`` frames one by one, then trace ``frames``; with
     ``stacks`` also name the syncs and copies of ``STACK_FRAMES`` more."""
@@ -199,6 +224,7 @@ def profile_mode(r: Renderer, frames: int, timed: int, stacks: bool = True) -> d
         "host_syncs_and_copies_per_frame": syncs / frames,
         "device_ms_per_frame_by_group": {k: v / frames / 1e3 for k, v in by_group.most_common()},
         "top_pytorch_kernels_ms_per_frame": {k: v / frames / 1e3 for k, v in glue.most_common(6)},
+        "hash_table_update_device_ms_per_frame": range_device_ms(events, TABLE_UPDATE_RANGE, frames),
     }
     if stacks:
         stack_events, _ = _traced_events(r, STACK_FRAMES, with_stack=True)
@@ -228,6 +254,10 @@ def main() -> int:
     r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
     r.render(8)  # the tile size follows the record count two frames late
     results.append(profile_both(r, "FULL + train"))
+    r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
+    r.set_encoding(InputEncoding.HASH)
+    r.render(8)
+    results.append(profile_both(r, "hash FULL + train"))
     big, big_system = cornell_objects((RES, RES))
     r = Renderer(big, big_system, render_mode=RenderMode.FULL, device=dev)
     r.render(8)

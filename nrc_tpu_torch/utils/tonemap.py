@@ -2,8 +2,8 @@
 
 Port of ``nrc_tpu/utils/tonemap.py::tonemap`` (the reference implements the
 same formula as a GLSL shader, ``nrc/src/Rasterizer.cpp:548-577``, and as a
-CPU loop for screenshots, ``nrc/src/Application.cpp:2596-2645``). The
-time-view ramp of that module is not ported yet.
+CPU loop for screenshots, ``nrc/src/Application.cpp:2596-2645``), and its
+``tonemap_to_u8``. The time-view ramp of that module is not ported yet.
 """
 
 from __future__ import annotations
@@ -37,3 +37,9 @@ def tonemap(hdr: torch.Tensor, cfg: TonemapperConfig) -> torch.Tensor:
     ldr = torch.clamp(ldr, min=0.0)
 
     return torch.clamp(torch.pow(ldr, inv_gamma), 0.0, 1.0)
+
+
+def tonemap_to_u8(hdr: torch.Tensor, cfg: TonemapperConfig) -> torch.Tensor:
+    """HDR [..., 3] -> uint8 [..., 3], the tone curve scaled by 255 and
+    truncated, as ``nrc_tpu/utils/tonemap.py:42`` casts."""
+    return (tonemap(hdr, cfg) * 255.0).to(torch.uint8)

@@ -26,6 +26,12 @@ K6 is one persistent kernel a call: it launches nothing of K5's, and its
 grid barriers and its reduction in CTA order leave the same bits from run to
 run, replayed from a CUDA graph or not.
 
+The hash grid's lookup H1 computes its plain version's operations in their
+order (``_rn`` intrinsics, ``-fmad=false``): equal bit for bit. Its adjoint
+H2 adds with atomics: held to ``tools/bench_hash.py::CARD_LIMITS``, with the
+seeded faults above them. A hash frame runs H1 five times (inference and
+four steps), H2 and K4 four times, K6 never.
+
 The row gathers K7-K9 move bits: equal to the plain version bit for bit,
 NaN patterns included. The walk kernels W1/W2 compute the plain walk's
 arithmetic in its order (built with ``-fmad=false``): the closest t is equal
@@ -33,13 +39,17 @@ bit for bit, the winner may differ only between triangles at the same t,
 and occlusion is equal.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from nrc_tpu_torch.config import NetworkConfig, RenderMode
+from nrc_tpu_torch.config import InputEncoding, NetworkConfig, RenderMode
 from nrc_tpu_torch.models import network as N
+from nrc_tpu_torch.ops import encodings as E
 from nrc_tpu_torch.ops import gather_cuda as GC
+from nrc_tpu_torch.ops import hash_cuda as HC
 from nrc_tpu_torch.ops import intersect_cuda as IC
 from nrc_tpu_torch.ops import intersect_wide as IW
 from nrc_tpu_torch.ops import intersect_wide_cuda as WC
@@ -49,6 +59,7 @@ from nrc_tpu_torch.ops.intersect import RT_MAX, TriSoA, make_intersectors
 from nrc_tpu_torch.render.renderer import Renderer
 from nrc_tpu_torch.render.scene_device import upload_scene
 from nrc_tpu_torch.scene.scene_builder import cornell_box
+from nrc_tpu_torch.tools import bench_hash as BH
 from nrc_tpu_torch.tools import bench_mlp as BM
 
 pytestmark = pytest.mark.cuda
@@ -644,3 +655,102 @@ def test_failed_capture_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="capturing the frame"):
         replayed.render_frame()
     assert not replayed.graphs
+
+
+# ---------------------------------------------------------------------------
+# the hash grid: H1, H2
+# ---------------------------------------------------------------------------
+
+HASH_GRIDS = {
+    "full": {},
+    "edge": dict(hash_log2_size=10, hash_base_resolution=4),
+    "f1": dict(hash_n_levels=6, hash_log2_size=12, hash_base_resolution=8, hash_n_features_per_level=1),
+    "f4": dict(hash_n_levels=8, hash_log2_size=12, hash_base_resolution=2, hash_n_features_per_level=4),
+    "f8": dict(hash_n_levels=4, hash_log2_size=9, hash_base_resolution=3, hash_n_features_per_level=8),
+}
+
+
+def _hash_spec(name):
+    return E.grid_spec(NetworkConfig(encoding=InputEncoding.HASH, **HASH_GRIDS[name]))
+
+
+@pytest.mark.parametrize("grid", sorted(HASH_GRIDS))
+@pytest.mark.parametrize("n", [1, 31, 1001])
+def test_h1_h2_match_plain(cuda, grid, n):
+    """H1 bit for bit, H2 within CARD_LIMITS (its g through a [B, 128] row
+    stride), the seeded faults above them; B = 1 and not a multiple of 32."""
+    spec = _hash_spec(grid)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    BH.check(spec, n, n, gen, cuda, grid)
+
+
+def test_h1_h2_at_the_frame_shapes(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    out = BH.check(BH.full_spec(), BH.INFER_ROWS, BH.STEP_ROWS, gen, cuda, "full")
+    assert BH.within_limits(out["h2_run_to_run"])  # two runs' spread, the atomics' order
+    assert out["h1"]["max_abs"] == 0.0
+    assert BH.check_lookup(BH.full_spec(), BH.STEP_ROWS, gen, cuda)["differing"] == 0
+
+
+def test_h2_by_levels_adds_up(cuda):
+    """H2 on the grid cut to the dense levels and to the hashed ones (its
+    time by level) gives the whole grid's rows of those levels."""
+    spec = BH.full_spec()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    pos, _, g = BH.inputs(spec, 5000, gen, cuda)
+    whole = HC.hash_grid_adjoint_cuda(pos, g, spec)
+    n_dense, F = sum(spec.dense), spec.features
+    parts = [HC.hash_grid_adjoint_cuda(pos, g[:, lo * F:hi * F], BH.sliced(spec, lo, hi))
+             for lo, hi in ((0, n_dense), (n_dense, spec.levels))]
+    assert BH.within_limits(BH.adjoint_gap(torch.cat(parts), whole))
+
+
+def test_hash_wrappers_refuse_bad_inputs(cuda):
+    spec = BH.full_spec()
+    pos = torch.rand((64, 3), generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    table = torch.zeros(spec.table_shape, device=cuda)
+    with pytest.raises(ValueError):
+        HC.hash_grid_lookup_cuda(pos, table[:, :100], spec)
+    with pytest.raises(TypeError):
+        HC.hash_grid_lookup_cuda(pos.double(), table, spec)
+    with pytest.raises(ValueError):
+        HC.hash_grid_adjoint_cuda(pos, torch.zeros((64, 31), device=cuda), spec)
+    with pytest.raises(TypeError):
+        HC.hash_grid_adjoint_cuda(pos, torch.zeros((64, 32), device=cuda, dtype=torch.float64), spec)
+    with pytest.raises(ValueError):
+        HC.hash_grid_lookup_cuda(pos, table, spec._replace(features=3))
+
+
+def test_hash_train_step_goes_through_h1_k4_h2(cuda):
+    cfg = NetworkConfig(encoding=InputEncoding.HASH)
+    st = N.init_network(torch.Generator().manual_seed(0), cfg, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.rand((512, 15), generator=gen, device=cuda)
+    q[:, :3] = (q[:, :3] - 0.5) * 0.1
+    t = torch.rand((512, 3), generator=gen, device=cuda)
+    kernels = (HC.LOOKUP_KERNEL, MC.FORWARD_KERNEL, MC.BACKWARD_KERNEL, HC.ADJOINT_KERNEL)
+    before = [k.launches for k in kernels]
+    new, loss = N.train_step(st, q, t, cfg)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1, 1]
+    assert torch.isfinite(loss) and int(new.opt.step) == 1
+    assert not torch.equal(new.grid.table, st.grid.table)
+
+
+def test_hash_frame_replays_count_h1_h2_k4(cuda):
+    """A replayed hash FULL + train frame: H1 5, H2 4, K4 4, K6 0 launches;
+    the state stays in place and nothing falls back to the CPU."""
+    scene, system = cornell_box((64, 64))
+    system = dataclasses.replace(system, tile_size=(8, 8))
+    r = Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device=cuda)
+    r.set_encoding(InputEncoding.HASH)
+    table = r.net_state.grid.table
+    r.render(2)
+    kernels = (HC.LOOKUP_KERNEL, HC.ADJOINT_KERNEL, MC.BACKWARD_KERNEL, MC.TRAIN4_KERNEL)
+    before = [k.launches for k in kernels]
+    r.render(3)
+    assert r.replays >= 3
+    assert [k.launches - b for k, b in zip(kernels, before)] == [15, 12, 12, 0]
+    assert r.net_state.grid.table is table and table.is_cuda
+    r.flush_stats()
+    assert int(r.net_state.opt.step) == 20 and np.isfinite(r.image_hdr()).all()

@@ -369,3 +369,28 @@ def test_profile_names_each_sync_and_copy_by_call_site():
         "chip_smoke.py:main [cudaDeviceSynchronize]": 0.5,
         "no Python stack on its thread": 0.5,
     }
+
+
+def test_profile_sums_the_kernels_launched_inside_a_range():
+    """``profile_frame.range_device_ms`` on a trace of known shape: the
+    kernels whose launches fall inside the named ranges on the range's
+    thread count, once per frame; other launches and threads do not."""
+    from nrc_tpu_torch.tools.profile_frame import range_device_ms
+
+    def rng(ts, dur, tid=1, name="hash table Adam + EMA"):
+        return {"ph": "X", "cat": "user_annotation", "name": name, "ts": ts, "dur": dur, "tid": tid}
+
+    def launch(ts, corr, tid=1):
+        return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts, "dur": 1, "tid": tid,
+                "args": {"correlation": corr}}
+
+    def kernel(corr, dur):
+        return {"ph": "X", "cat": "kernel", "name": "elementwise", "ts": 1000 + corr, "dur": dur, "tid": 7,
+                "args": {"correlation": corr}}
+
+    events = [rng(10, 20), rng(100, 20), rng(200, 50, name="other"),
+              launch(12, 1), launch(25, 2), launch(40, 3), launch(105, 4), launch(110, 5, tid=2),
+              launch(210, 6), kernel(1, 30), kernel(2, 50), kernel(3, 70), kernel(4, 20), kernel(5, 90),
+              kernel(6, 40)]
+    assert range_device_ms(events, "hash table Adam + EMA", frames=2) == (30 + 50 + 20) / 2 / 1e3
+    assert range_device_ms(events, "missing", frames=2) == 0.0

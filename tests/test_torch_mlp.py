@@ -132,7 +132,12 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_hash_encoding_is_not_ported():
+    """What of the hash encoding is not ported: the level-sharded grid
+    (``hash_shard_axis``), which waits for the multi-GPU port. The grid on
+    one device is (``tests/test_torch_hash.py``)."""
     from nrc_tpu_torch.config import InputEncoding
 
+    st = N.init_network(torch.Generator(), NetworkConfig(encoding=InputEncoding.HASH))
+    assert st.grid.table.shape == (16, 2 ** 15, 2)
     with pytest.raises(NotImplementedError):
-        N.init_network(torch.Generator(), NetworkConfig(encoding=InputEncoding.HASH))
+        N.init_network(torch.Generator(), NetworkConfig(encoding=InputEncoding.HASH, hash_shard_axis="data"))
