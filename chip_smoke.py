@@ -72,8 +72,12 @@ Phases, each of which raises on failure (non-zero exit):
    BVH path), replayed: frames until the tile size settles, then 8 timed
    frames and 4 more counted; W1, W2 and the path's gather must run, K1 and
    K2 must not; then every W1 and W2 launch of one eager frame recorded,
-   held against the plain walk and timed: their frame-weighted times beside
-   the frame bound (the all-live bound over each launch's live rays);
+   held against the plain walk and timed by ``bench_walk.measure`` (the
+   measurement ``tools/bench_walk.py`` makes), each launch printed with its live
+   rays and the mean, 99th percentile and largest count of rows a live ray
+   fetches in the plain walk (a launch lasts as long as its longest chains):
+   their frame-weighted times beside the frame bound (the all-live bound
+   over each launch's live rays);
 8. convergence: the JAX package's online-training oracle
    (``tests/test_frame.py:92-139``) on the port's Cornell box at 64x64 with
    8x8 tiles, for both encodings: the loss falls over 40 frames, and after a
@@ -101,6 +105,7 @@ last line is ``{"ok": true, "device": {...}}``.
 import concurrent.futures
 import ctypes
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -570,6 +575,7 @@ def main() -> int:
     from nrc_tpu_torch.tools import bench_gather
     from nrc_tpu_torch.tools import bench_intersect as BI
     from nrc_tpu_torch.tools import bench_mlp as BM
+    from nrc_tpu_torch.tools import bench_walk as BW
     from nrc_tpu_torch.tools import profile_frame as PF
 
     # plain references in full float32 (PyTorch's defaults, stated here)
@@ -973,21 +979,23 @@ def main() -> int:
     # Bound (_walk_bound): each distinct row the plain walk fetched for these
     # rays read once (the 9.4 MB table stays in the L2), the rays read and
     # the results written once; or about 45 float32 operations per triangle
-    # or child box of every row fetched, whichever is larger.
-    o, dd, tn, tf = big_sets["closest"][1]
-    report["wbvh_closest"] = dict(
-        max_abs_err=w_err, ms=_time_ms(lambda: WC.wide_traverse_cuda(o, dd, bvh, tn, tf, False)),
-        plain_ms=w_plain_ms[1], **_walk_bound(*w_fetched[1], row_bytes, n), library_ms=None,
-    )
-    o, dd, tn, tf = big_sets["any"][0]
-    report["wbvh_any"] = dict(
-        max_abs_err=occ_err, ms=_time_ms(lambda: WC.wide_traverse_cuda(o, dd, bvh, tn, tf, True)),
-        plain_ms=a_plain_ms[0], **_walk_bound(*a_fetched[0], row_bytes, n), library_ms=None,
-    )
+    # or child box of every row fetched, whichever is larger. ``ms`` is a
+    # loop of eager launches, as K1's beside it and the earlier readings;
+    # ``device_ms`` the device time by CUDA-graph replay, where a walk that
+    # takes less than its wrapper's host cost shows what the kernel takes.
+    for name, any_hit, (o, dd, tn, tf), err, plain_ms, fetched in (
+            ("wbvh_closest", False, big_sets["closest"][1], w_err, w_plain_ms[1], w_fetched[1]),
+            ("wbvh_any", True, big_sets["any"][0], occ_err, a_plain_ms[0], a_fetched[0])):
+        walk = functools.partial(WC.wide_traverse_cuda, o, dd, bvh, tn, tf, any_hit)
+        report[name] = dict(
+            max_abs_err=err, ms=_time_ms(walk), device_ms=BI.device_ms(walk), plain_ms=plain_ms,
+            **_walk_bound(*fetched, row_bytes, n), library_ms=None,
+        )
     k1_big_ms = _time_ms(lambda: IC.closest_cuda(*big_sets["closest"][1][:2], big_planes, *big_sets["closest"][1][2:]), iters=3, warmup=1)
-    print(f"on {big_scene.num_triangles} triangles, {n} rays from the hit points: W1 {report['wbvh_closest']['ms']:.3f} ms "
-          f"(plain walk {w_plain_ms[1]:.0f} ms, K1 brute force {k1_big_ms:.3f} ms); W2 on shadow rays "
-          f"{report['wbvh_any']['ms']:.3f} ms (plain walk {a_plain_ms[0]:.0f} ms)")
+    w1, w2 = report["wbvh_closest"], report["wbvh_any"]
+    print(f"on {big_scene.num_triangles} triangles, {n} rays from the hit points, eager launches: W1 {w1['ms']:.3f} ms "
+          f"(device time {w1['device_ms']:.4f}; plain walk {w_plain_ms[1]:.0f} ms, K1 brute force {k1_big_ms:.3f} ms); "
+          f"W2 on shadow rays {w2['ms']:.3f} ms (device time {w2['device_ms']:.4f}; plain walk {a_plain_ms[0]:.0f} ms)")
     del big_planes
 
     # ---- 3d. the hash-grid kernels H1/H2 against their plain versions ------------
@@ -1146,34 +1154,29 @@ def main() -> int:
     _print_eager_and_replayed(PF, rb, "cornell_objects FULL + train")
 
     # ---- 7b. W1/W2 over one cornell_objects frame: frame-weighted time and bound ----
-    # Every W1 and W2 launch of one eager FULL + train frame recorded, held
-    # against the plain walk as the all-live sets are, and timed; each
-    # launch's bound is the all-live one (_walk_bound) over its live rays.
-    # The frame bound is the sum.
+    # Every W1 and W2 launch of one eager FULL + train frame recorded and
+    # measured by bench_walk.measure, the measurement bench_walk makes: held
+    # against the plain walk as the all-live sets are (t bit for bit), and
+    # timed by CUDA-graph replay; each launch's bound is the all-live one
+    # (_walk_bound) over its live rays. The frame's time and bound are sums.
     walks = {"K1": "W1", "K2": "W2"}
     wframe = {w: dict(launches=0, lanes=0, live=0, fetched=0, distinct=0, ms=0.0, bound=0.0)
               for w in walks.values()}
-    for kind, rays in BI.record_frame_launches(rb):
-        o, dd, tn, tf = rays
-        anyhit = kind == "K2"
-        tk, pk = WC.wide_traverse_cuda(o, dd, bvh, tn, tf, anyhit)
-        tp, pp, fetched, distinct = _plain_walk(o, dd, bvh, tn, tf, anyhit)
-        if anyhit:
-            _check(((pk >= 0) == (pp >= 0)).float().mean().item() >= 0.9999, "a frame's W2 launch disagrees "
-                   "with the plain walk")
-        else:
-            same = pk == pp
-            _check(same.float().mean().item() >= 0.9999 and bool((tk == tp).all()),
-                   "a frame's W1 launch disagrees with the plain walk")
-        n_live = int((tf > tn).sum())
+    shipped = {"shipped": (WC.CLOSEST_KERNEL, WC.ANYHIT_KERNEL)}
+    for i, (kind, rays) in enumerate(BI.record_frame_launches(rb)):
+        row = BW.measure(walks[kind], rays, bvh, shipped)
+        got = row["builds"]["shipped"]
+        _check(got["ok"], f"a frame's {walks[kind]} launch disagrees with the plain walk: {got}")
         tot = wframe[walks[kind]]
         tot["launches"] += 1
-        tot["lanes"] += o.shape[0]
-        tot["live"] += n_live
-        tot["fetched"] += fetched
-        tot["distinct"] += distinct
-        tot["ms"] += BI.device_ms(lambda: WC.wide_traverse_cuda(o, dd, bvh, tn, tf, anyhit))
-        tot["bound"] += _walk_bound(fetched, distinct, row_bytes, n_live)["bound_ms"]
+        for key in ("lanes", "live", "fetched", "distinct"):
+            tot[key] += row[key]
+        tot["ms"] += got["ms"]
+        tot["bound"] += _walk_bound(row["fetched"], row["distinct"], row_bytes, row["live"])["bound_ms"]
+        # a launch lasts as long as its longest chains of dependent row fetches
+        f = row["fetches"]
+        print(f"{walks[kind]} launch {i}: {row['lanes']} lanes, {row['live']} live rays, rows fetched a live ray by "
+              f"the plain walk: mean {f['mean']:.2f}, p99 {f['p99']:.0f}, max {f['max']}; {got['ms']:.4f} ms")
     for w, tot in wframe.items():
         _check(tot["launches"] > 0, f"the recorded cornell_objects frame launched no {w}")
         print(f"{w} over one cornell_objects FULL + train frame: {tot['launches']} launches, {tot['lanes']} lanes, "

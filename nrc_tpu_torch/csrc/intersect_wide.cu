@@ -1,12 +1,12 @@
-// Wide-BVH traversal, one thread per ray with its own stack.
+// Wide-BVH traversal: live rays compacted in the kernel, a group of B lanes
+// per ray (B = the tree's branch), the group's stack in shared memory.
 //
 // Stands where the JAX package's lockstep walk stands:
 //   nrc_wbvh_closest <- nrc_tpu/ops/intersect_wide.py::intersect_wbvh
 //   nrc_wbvh_any     <- nrc_tpu/ops/intersect_wide.py::occluded_wbvh
 // No TPU kernel stood there: on the TPU the walk is an XLA while loop whose
 // every step fetches one row per ray for all rays together and keeps a dense
-// [N, D, B] stack updated by one-hot selects. On this card a ray is a thread:
-// a data-dependent loop with a private stack, no lockstep and no selects.
+// [N, D, B] stack updated by one-hot selects.
 //
 // The table (ops/bvh_wide.py) holds W node rows, then the leaf rows, P floats
 // each. Node row: component-major child boxes lox*B | loy*B | loz*B | hix*B |
@@ -20,25 +20,44 @@
 // (tmax <= tmin) reports no hit; a child is entered when max(near, tmin) <=
 // min(far, min(tmax, best_t)), inclusive, tested once when its node is
 // visited; empty slots are masked by meta, never by their inverted box;
-// children are visited nearest first, ordered by the same Batcher network;
 // Möller-Trumbore with |det| > 1e-12, u >= 0, v >= 0, u + v <= 1, tmin < t <
 // cap in the plain version's operation order; a leaf's winner (lowest slot
-// on ties) replaces the best only when t < cap. The file is built with
-// -fmad=false and without --use_fast_math: no contraction into FMA, IEEE
-// division. The any-hit entry stops at the first hit.
+// on ties) replaces the best only when t < cap. The closest-hit entry visits
+// the hit children nearest first, ties by slot (the plain walk's network
+// orders equal keys its own way: only the winner between triangles at the
+// same t can differ). The file is built with -fmad=false and without
+// --use_fast_math: no contraction into FMA, IEEE division. The any-hit entry
+// stops at the first hit.
 //
-// What bounds it on an H100: bytes, and before that latency. A ray fetches
-// one 4 P-byte row per step (640 bytes at B = leaf_size = 16), a few dozen
-// steps per ray, each depending on the last; the table of the port's large
-// scene (about 10 MB) stays in the 50 MB L2. The design keeps a whole step in
-// registers: the row is read with 16-byte loads straight into the slab or
-// triangle test, the B (key, meta) pairs are sorted by a fully unrolled
-// network, and only the stack lives in local memory. The stack is flat: the
-// hit children are pushed farthest first, so a pop takes the nearest, which
-// visits rows in the same order as the plain walk's per-level child sets. It
-// holds at most (B - 1) * D + 1 entries for a tree of D levels; the wrapper
-// raises when that exceeds kMaxStack. Sorting rays for coherence, sharing a
-// node fetch across a warp and a persistent ray queue are later work.
+// What bounds it on an H100: the latency of each ray's chain of dependent
+// row fetches, not bytes. The 9.4 MB table of the port's large scene stays
+// in the 50 MB L2 and a launch reads a few thousand distinct rows; a ray
+// fetches one row per step, each step's address comes from the last, and a
+// frame's launches hold a few thousand live rays among 25,600-102,400 lanes,
+// so a launch lasts as long as its longest chains. The design shortens each
+// step of a chain:
+// - a block compacts the live rays of its span of kSpan = 32 lanes with
+//   one ballot of its first warp (csrc/intersect_planes.cu compacts with a
+//   ballot and a prefix); dead lanes write the miss and leave, and the grid
+//   depends on the lane count alone (the frame's CUDA graph stays as it is);
+// - B lanes walk one ray: at a node lane k reads child k's seven words (the
+//   component-major row makes them seven coalesced reads of 4 B bytes) and
+//   slab-tests it, a ballot gives the hit set, and only the hits are ordered,
+//   by rank (count of nearer hits, ties by slot), not by a 16-key network; at
+//   a leaf lane k tests triangles k, k + B, ... and shuffles give the (t,
+//   slot) minimum, the lowest slot winning a tie;
+// - the stack is the group's row of a shared-memory array (kStack entries;
+//   a tree of D levels needs at most (B - 1) * D + 1, which the wrapper
+//   checks): the nearest hit child goes straight to the next step, the
+//   others are pushed farthest first;
+// - a group whose ray is done takes the block's next live ray from a shared
+//   counter, so that no group waits on another's slowest ray;
+// - the any-hit entry pushes its hit children in slot order: any order finds
+//   the same occlusion.
+// Each choice was timed against its alternative on the card (a span of 64
+// or 128 lanes, groups with fixed rays, the any-hit entry nearest first, the
+// two groups of a warp in lockstep, registers capped for full occupancy):
+// each alternative was slower.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,44 +65,12 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxStack = 256;     // ops/intersect_wide_cuda.py::MAX_STACK
-constexpr int kMaxLeaf = 64;       // leaf_size bound, multiple of 4
-constexpr float kRtMax = 3.0e38f;  // nrc_tpu.ops.intersect.RT_MAX
-constexpr int kNone = INT32_MIN;   // empty child slot
-
-#define NRC_CSWAP(i, j)                     \
-  {                                         \
-    const bool swap = key[j] < key[i];      \
-    const float ki = key[i], kj = key[j];   \
-    const int vi = val[i], vj = val[j];     \
-    key[i] = swap ? kj : ki;                \
-    key[j] = swap ? ki : kj;                \
-    val[i] = swap ? vj : vi;                \
-    val[j] = swap ? vi : vj;                \
-  }
-
-// Batcher odd-even mergesort networks (ops/intersect_wide.py::_batcher_network)
-#define NRC_NET8                                                                    \
-  NRC_CSWAP(0, 1) NRC_CSWAP(2, 3) NRC_CSWAP(0, 2) NRC_CSWAP(1, 3) NRC_CSWAP(1, 2)   \
-  NRC_CSWAP(4, 5) NRC_CSWAP(6, 7) NRC_CSWAP(4, 6) NRC_CSWAP(5, 7) NRC_CSWAP(5, 6)   \
-  NRC_CSWAP(0, 4) NRC_CSWAP(2, 6) NRC_CSWAP(2, 4) NRC_CSWAP(1, 5) NRC_CSWAP(3, 7)   \
-  NRC_CSWAP(3, 5) NRC_CSWAP(1, 2) NRC_CSWAP(3, 4) NRC_CSWAP(5, 6)
-
-#define NRC_NET16                                                                          \
-  NRC_CSWAP(0, 1) NRC_CSWAP(2, 3) NRC_CSWAP(0, 2) NRC_CSWAP(1, 3) NRC_CSWAP(1, 2)          \
-  NRC_CSWAP(4, 5) NRC_CSWAP(6, 7) NRC_CSWAP(4, 6) NRC_CSWAP(5, 7) NRC_CSWAP(5, 6)          \
-  NRC_CSWAP(0, 4) NRC_CSWAP(2, 6) NRC_CSWAP(2, 4) NRC_CSWAP(1, 5) NRC_CSWAP(3, 7)          \
-  NRC_CSWAP(3, 5) NRC_CSWAP(1, 2) NRC_CSWAP(3, 4) NRC_CSWAP(5, 6) NRC_CSWAP(8, 9)          \
-  NRC_CSWAP(10, 11) NRC_CSWAP(8, 10) NRC_CSWAP(9, 11) NRC_CSWAP(9, 10) NRC_CSWAP(12, 13)   \
-  NRC_CSWAP(14, 15) NRC_CSWAP(12, 14) NRC_CSWAP(13, 15) NRC_CSWAP(13, 14) NRC_CSWAP(8, 12) \
-  NRC_CSWAP(10, 14) NRC_CSWAP(10, 12) NRC_CSWAP(9, 13) NRC_CSWAP(11, 15) NRC_CSWAP(11, 13) \
-  NRC_CSWAP(9, 10) NRC_CSWAP(11, 12) NRC_CSWAP(13, 14) NRC_CSWAP(0, 8) NRC_CSWAP(4, 12)    \
-  NRC_CSWAP(4, 8) NRC_CSWAP(2, 10) NRC_CSWAP(6, 14) NRC_CSWAP(6, 10) NRC_CSWAP(2, 4)       \
-  NRC_CSWAP(6, 8) NRC_CSWAP(10, 12) NRC_CSWAP(1, 9) NRC_CSWAP(5, 13) NRC_CSWAP(5, 9)       \
-  NRC_CSWAP(3, 11) NRC_CSWAP(7, 15) NRC_CSWAP(7, 11) NRC_CSWAP(3, 5) NRC_CSWAP(7, 9)       \
-  NRC_CSWAP(11, 13) NRC_CSWAP(1, 2) NRC_CSWAP(3, 4) NRC_CSWAP(5, 6) NRC_CSWAP(7, 8)        \
-  NRC_CSWAP(9, 10) NRC_CSWAP(11, 12) NRC_CSWAP(13, 14)
+constexpr int kThreads = 128;        // a block: four warps
+constexpr int kSpan = 32;            // lanes a block compacts: one ballot of warp 0
+constexpr int kStack = 256;          // stack entries a group; ops/intersect_wide_cuda.py::MAX_STACK
+constexpr int kMaxLeaf = 64;         // leaf_size bound, multiple of 4
+constexpr float kRtMax = 3.0e38f;    // nrc_tpu.ops.intersect.RT_MAX
+constexpr int kNone = INT32_MIN;     // empty child slot
 
 __device__ __forceinline__ float inv_component(float d) {
   return fabsf(d) > 1e-20f ? 1.0f / d : 3.0e38f;
@@ -118,121 +105,197 @@ __device__ __forceinline__ float tri_t(const Ray& r, float cap, int pid, float p
   return ok ? t : kRtMax;
 }
 
+// A ray in flight: what the B lanes of its group hold alike.
+struct Walk {
+  Ray r;
+  float ix, iy, iz;
+  float best_t;
+  int best;
+  int sp;     // entries on the group's stack
+  int entry;  // the row of the next step
+};
+
+__device__ __forceinline__ void start_walk(Walk& w, int ray, const float* __restrict__ org,
+                                           const float* __restrict__ dir, const float* __restrict__ tmin,
+                                           const float* __restrict__ tmax) {
+  w.r.ox = org[3 * ray + 0];
+  w.r.oy = org[3 * ray + 1];
+  w.r.oz = org[3 * ray + 2];
+  w.r.dx = dir[3 * ray + 0];
+  w.r.dy = dir[3 * ray + 1];
+  w.r.dz = dir[3 * ray + 2];
+  w.r.tn = tmin[ray];
+  w.r.tf = tmax[ray];
+  w.ix = inv_component(w.r.dx);
+  w.iy = inv_component(w.r.dy);
+  w.iz = inv_component(w.r.dz);
+  w.best_t = kRtMax;
+  w.best = -1;
+  w.sp = 0;
+  w.entry = 0;  // the root's row
+}
+
+// One step of a group's walk, lane k being the caller's slot: a node or a
+// leaf row, then the next entry. Returns false once the ray is done; every
+// lane of the group then holds its (best t, best primitive).
+template <int B, bool kAnyHit>
+__device__ __forceinline__ bool walk_step(Walk& w, const float* __restrict__ rows, int row_words,
+                                          int num_nodes, int leaf_size, int k, unsigned gmask,
+                                          int lane0, int* stack) {
+  const Ray& r = w.r;
+  const float cap = fminf(r.tf, w.best_t);
+  if (w.entry >= 0) {
+    // ---- node: lane k slab-tests child k -----------------------------------
+    const float* row = rows + static_cast<size_t>(w.entry) * row_words + k;
+    const float lox = __ldg(row + 0 * B), loy = __ldg(row + 1 * B), loz = __ldg(row + 2 * B);
+    const float hix = __ldg(row + 3 * B), hiy = __ldg(row + 4 * B), hiz = __ldg(row + 5 * B);
+    const int meta = __float_as_int(__ldg(row + 6 * B));
+    const float t0x = (lox - r.ox) * w.ix, t1x = (hix - r.ox) * w.ix;
+    const float t0y = (loy - r.oy) * w.iy, t1y = (hiy - r.oy) * w.iy;
+    const float t0z = (loz - r.oz) * w.iz, t1z = (hiz - r.oz) * w.iz;
+    const float tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+    const float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+    const bool ok = fmaxf(tnear, r.tn) <= fminf(tfar, cap) && meta != kNone;
+    const unsigned hits = __ballot_sync(gmask, ok) >> lane0;
+    if (hits) {
+      const int h = __popc(hits);
+      // rank among the hits: nearer ones first, ties by slot; the any-hit
+      // entry takes slot order
+      int rank = __popc(hits & ((1u << k) - 1u));
+      if (!kAnyHit && h > 1) {
+        rank = 0;
+        for (unsigned m = hits; m; m &= m - 1u) {
+          const int j = __ffs(m) - 1;
+          const float kj = __shfl_sync(gmask, tnear, j, B);
+          rank += (kj < tnear || (kj == tnear && j < k)) ? 1 : 0;
+        }
+      }
+      // the nearest goes straight to the next step; the others onto the
+      // stack, farthest first, so that a pop takes the nearest left
+      const unsigned first = __ballot_sync(gmask, ok && rank == 0) >> lane0;
+      w.entry = __shfl_sync(gmask, meta, __ffs(first) - 1, B);
+      if (ok && rank > 0) stack[w.sp + h - 1 - rank] = meta;
+      w.sp += h - 1;
+      __syncwarp(gmask);
+      return true;
+    }
+  } else {
+    // ---- leaf: lane k tests triangles k, k + B, ... --------------------------
+    const float* row = rows + static_cast<size_t>(num_nodes + ~w.entry) * row_words;
+    float lt = kRtMax;
+    int lp = -1;
+    int ls = kMaxLeaf;  // above every slot
+    for (int tri = k; tri < leaf_size; tri += B) {
+      const float* c = row + tri;
+      const int pid = __float_as_int(__ldg(c + 9 * leaf_size));
+      const float t = tri_t(r, cap, pid, __ldg(c), __ldg(c + leaf_size), __ldg(c + 2 * leaf_size),
+                            __ldg(c + 3 * leaf_size), __ldg(c + 4 * leaf_size), __ldg(c + 5 * leaf_size),
+                            __ldg(c + 6 * leaf_size), __ldg(c + 7 * leaf_size), __ldg(c + 8 * leaf_size));
+      if (t < lt) {
+        lt = t;
+        lp = pid;
+        ls = tri;
+      }
+    }
+    const unsigned hit_lanes = __ballot_sync(gmask, lt < kRtMax) >> lane0;
+    if (hit_lanes) {
+      if (kAnyHit) {
+        const int src = __ffs(hit_lanes) - 1;
+        w.best_t = __shfl_sync(gmask, lt, src, B);
+        w.best = __shfl_sync(gmask, lp, src, B);
+        return false;
+      }
+      // the (t, slot) minimum over the group: lowest t, lowest slot on ties
+#pragma unroll
+      for (int off = B / 2; off > 0; off >>= 1) {
+        const float ot = __shfl_xor_sync(gmask, lt, off, B);
+        const int os = __shfl_xor_sync(gmask, ls, off, B);
+        const int op = __shfl_xor_sync(gmask, lp, off, B);
+        if (ot < lt || (ot == lt && os < ls)) {
+          lt = ot;
+          ls = os;
+          lp = op;
+        }
+      }
+      if (lt < cap) {
+        w.best_t = lt;
+        w.best = lp;
+      }
+    }
+  }
+  if (w.sp == 0) return false;
+  w.entry = stack[--w.sp];
+  return true;
+}
+
 template <int B, bool kAnyHit>
 __global__ void __launch_bounds__(kThreads) wbvh_kernel(
     const float* __restrict__ org, const float* __restrict__ dir, const float* __restrict__ tmin,
     const float* __restrict__ tmax, const float* __restrict__ rows, int num_rays, int row_words,
     int num_nodes, int leaf_size, float* __restrict__ t_out, int* __restrict__ prim_out) {
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
-  if (ray >= num_rays) return;
-  Ray r;
-  r.ox = org[3 * ray + 0];
-  r.oy = org[3 * ray + 1];
-  r.oz = org[3 * ray + 2];
-  r.dx = dir[3 * ray + 0];
-  r.dy = dir[3 * ray + 1];
-  r.dz = dir[3 * ray + 2];
-  r.tn = tmin[ray];
-  r.tf = tmax[ray];
-  float best_t = kRtMax;
-  int best = -1;
+  constexpr int kGroups = kThreads / B;
+  __shared__ int span_ray[kSpan];           // the span's live rays, in lane order
+  __shared__ int stacks[kGroups * kStack];  // a row of kStack entries a group
+  __shared__ int span_live;
+  __shared__ int next_ray;
+  const int lane = threadIdx.x & 31;
 
-  if (!(r.tf <= r.tn)) {  // a dead ray (tmax <= tmin) reports no hit
-    const float ix = inv_component(r.dx);
-    const float iy = inv_component(r.dy);
-    const float iz = inv_component(r.dz);
-    int stack[kMaxStack];
-    int sp = 0;
-    stack[sp++] = 0;  // the root's row
-    while (sp > 0) {
-      const int entry = stack[--sp];
-      const float cap = fminf(r.tf, best_t);
-      if (entry >= 0) {
-        // ---- node: slab-test the B children, sort by entry distance ------
-        const float4* row = reinterpret_cast<const float4*>(rows + static_cast<size_t>(entry) * row_words);
-        float key[B];
-        int val[B];
-#pragma unroll
-        for (int g = 0; g < B / 4; ++g) {
-          const float4 lx = row[0 * (B / 4) + g], ly = row[1 * (B / 4) + g], lz = row[2 * (B / 4) + g];
-          const float4 hx = row[3 * (B / 4) + g], hy = row[4 * (B / 4) + g], hz = row[5 * (B / 4) + g];
-          const float4 mf = row[6 * (B / 4) + g];
-          const float lox[4] = {lx.x, lx.y, lx.z, lx.w}, loy[4] = {ly.x, ly.y, ly.z, ly.w};
-          const float loz[4] = {lz.x, lz.y, lz.z, lz.w}, hix[4] = {hx.x, hx.y, hx.z, hx.w};
-          const float hiy[4] = {hy.x, hy.y, hy.z, hy.w}, hiz[4] = {hz.x, hz.y, hz.z, hz.w};
-          const int meta[4] = {__float_as_int(mf.x), __float_as_int(mf.y), __float_as_int(mf.z),
-                               __float_as_int(mf.w)};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float t0x = (lox[k] - r.ox) * ix, t1x = (hix[k] - r.ox) * ix;
-            const float t0y = (loy[k] - r.oy) * iy, t1y = (hiy[k] - r.oy) * iy;
-            const float t0z = (loz[k] - r.oz) * iz, t1z = (hiz[k] - r.oz) * iz;
-            const float tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-            const float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-            const bool ok = fmaxf(tnear, r.tn) <= fminf(tfar, cap) && meta[k] != kNone;
-            key[4 * g + k] = ok ? tnear : INFINITY;
-            val[4 * g + k] = ok ? meta[k] : kNone;
-          }
-        }
-        if constexpr (B == 8) {
-          NRC_NET8
-        } else {
-          NRC_NET16
-        }
-        // farthest first, so that the next pop takes the nearest child
-#pragma unroll
-        for (int j = B - 1; j >= 0; --j) {
-          if (val[j] != kNone) stack[sp++] = val[j];
-        }
-      } else {
-        // ---- leaf: test its triangles, lowest slot wins a tie -------------
-        const float* row = rows + static_cast<size_t>(num_nodes + ~entry) * row_words;
-        const float4* row4 = reinterpret_cast<const float4*>(row);
-        const int groups = leaf_size >> 2;
-        float leaf_t = kRtMax;
-        int leaf_prim = -1;
-        for (int g = 0; g < groups; ++g) {
-          float4 c[9];
-#pragma unroll
-          for (int k = 0; k < 9; ++k) c[k] = row4[k * groups + g];
-          const float4 idf = row4[9 * groups + g];
-          const int pid[4] = {__float_as_int(idf.x), __float_as_int(idf.y), __float_as_int(idf.z),
-                              __float_as_int(idf.w)};
-          const float t4[4] = {
-              tri_t(r, cap, pid[0], c[0].x, c[1].x, c[2].x, c[3].x, c[4].x, c[5].x, c[6].x, c[7].x, c[8].x),
-              tri_t(r, cap, pid[1], c[0].y, c[1].y, c[2].y, c[3].y, c[4].y, c[5].y, c[6].y, c[7].y, c[8].y),
-              tri_t(r, cap, pid[2], c[0].z, c[1].z, c[2].z, c[3].z, c[4].z, c[5].z, c[6].z, c[7].z, c[8].z),
-              tri_t(r, cap, pid[3], c[0].w, c[1].w, c[2].w, c[3].w, c[4].w, c[5].w, c[6].w, c[7].w, c[8].w)};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            if (t4[k] < leaf_t) {
-              leaf_t = t4[k];
-              leaf_prim = pid[k];
-            }
-          }
-        }
-        if (leaf_t < cap) {
-          best_t = leaf_t;
-          best = leaf_prim;
-          if (kAnyHit) break;
-        }
+  // ---- 1. warp 0 compacts the span's live rays; dead lanes get the miss -----
+  if (threadIdx.x < kSpan) {
+    const int idx = blockIdx.x * kSpan + threadIdx.x;
+    bool live = false;
+    if (idx < num_rays) {
+      live = !(tmax[idx] <= tmin[idx]);
+      if (!live) {
+        t_out[idx] = kRtMax;
+        prim_out[idx] = -1;
       }
     }
+    const unsigned ballot = __ballot_sync(0xffffffffu, live);
+    if (live) span_ray[__popc(ballot & ((1u << lane) - 1u))] = idx;
+    if (lane == 0) {
+      span_live = __popc(ballot);
+      next_ray = 0;
+    }
   }
-  t_out[ray] = best_t;
-  prim_out[ray] = best;
+  __syncthreads();
+  const int total = span_live;
+  if (total == 0) return;
+
+  // ---- 2. a group of B lanes walks one live ray at a time -------------------
+  const int g = threadIdx.x / B;
+  const int k = threadIdx.x % B;
+  const int lane0 = lane & ~(B - 1);  // the group's first lane in its warp
+  const unsigned gmask = (B == 32 ? 0xffffffffu : (1u << B) - 1u) << lane0;
+  int* stack = stacks + g * kStack;
+  auto take = [&]() {  // the span's next ray for this group
+    int v = 0;
+    if (k == 0) v = atomicAdd(&next_ray, 1);
+    return __shfl_sync(gmask, v, 0, B);
+  };
+  for (int q = take(); q < total; q = take()) {
+    const int ray = span_ray[q];
+    Walk w;
+    start_walk(w, ray, org, dir, tmin, tmax);
+    while (walk_step<B, kAnyHit>(w, rows, row_words, num_nodes, leaf_size, k, gmask, lane0, stack)) {
+    }
+    if (k == 0) {
+      t_out[ray] = w.best_t;
+      prim_out[ray] = w.best;
+    }
+  }
 }
 
 template <bool kAnyHit>
 int launch(const float* org, const float* dir, const float* tmin, const float* tmax,
            const float* rows, int num_rays, int row_words, int num_nodes, int branch,
            int leaf_size, float* t_out, int* prim_out, void* stream) {
-  // the 16-byte row loads need rows of whole float4s; the wrapper checks too
+  // the layout the wrapper checks (ops/intersect_wide_cuda.py::check_walkable)
   if (row_words % 4 || leaf_size % 4 || leaf_size <= 0 || leaf_size > kMaxLeaf ||
       row_words < 7 * branch || row_words < 10 * leaf_size) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (num_rays + kThreads - 1) / kThreads;
+  const int blocks = (num_rays + kSpan - 1) / kSpan;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (branch == 8) {
     wbvh_kernel<8, kAnyHit><<<blocks, kThreads, 0, s>>>(org, dir, tmin, tmax, rows, num_rays,

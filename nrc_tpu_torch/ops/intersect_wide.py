@@ -184,7 +184,8 @@ def _slab_children(row, bvh: WideBVH, best_t, org, inv_d, tmin, tmax):
     return sort8_by_key(key, torch.where(ok, meta, NONE))
 
 
-def wide_traverse_plain(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool, rows_seen=None):
+def wide_traverse_plain(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool, rows_seen=None,
+                        ray_fetches=None):
     """The plain lockstep walk -> (t [N] f32, prim [N] i64, rows fetched).
 
     ``t`` is RT_MAX and ``prim`` -1 on a miss; with ``any_hit`` a ray stops
@@ -192,7 +193,9 @@ def wide_traverse_plain(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool,
     fetched over all steps (the walk's work in rows). ``rows_seen``, a bool
     tensor with one entry per table row, if given, is set where a live ray
     fetched that row: its sum is the distinct rows the walk read, which is
-    its memory traffic when the table stays in the cache."""
+    its memory traffic when the table stays in the cache. ``ray_fetches``,
+    an integer tensor [N], if given, gets each ray's own count of fetched
+    rows added: the length of its chain of dependent fetches."""
     n, dev = org.shape[0], org.device
     b, ls, w_nodes, depth_max = bvh.branch, bvh.leaf_size, bvh.num_nodes, bvh.depth
     ar = torch.arange(n, device=dev)
@@ -213,6 +216,8 @@ def wide_traverse_plain(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool,
         live = ~done
         fetching = live & (pending >= 0)
         fetched += int(fetching.sum())
+        if ray_fetches is not None:
+            ray_fetches += fetching
         if rows_seen is not None:
             rows_seen[pending[fetching]] = True
         # ---- the one row fetch per ray and step ---------------------------

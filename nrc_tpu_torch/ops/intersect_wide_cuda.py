@@ -1,10 +1,12 @@
 """The wide-BVH walk kernels W1/W2: wrappers of ``csrc/intersect_wide.cu``.
 
 ``nrc_wbvh_closest`` (W1) and ``nrc_wbvh_any`` (W2) walk the unified row
-table of ``ops/bvh_wide.py`` with one thread per ray and a private stack.
-They stand where ``nrc_tpu/ops/intersect_wide.py::intersect_wbvh`` and
-``occluded_wbvh`` stand; the JAX package has no hand kernel there (its walk
-is a traced while loop). Their plain version is
+table of ``ops/bvh_wide.py``: a block compacts the live rays of its span of
+lanes, and a group of ``branch`` lanes walks one ray, with the group's
+stack in shared memory (the source's header says why). They stand where
+``nrc_tpu/ops/intersect_wide.py::intersect_wbvh`` and ``occluded_wbvh``
+stand; the JAX package has no hand kernel there (its walk is a traced
+while loop). Their plain version is
 ``ops/intersect_wide.py::wide_traverse_plain``: the closest ``t`` agrees
 with it bit for bit (the same operations in the same order, built with
 ``-fmad=false``), and the winner can differ only where two triangles give
@@ -20,9 +22,9 @@ import torch
 from .cuda_build import CudaKernel, check_cuda_tensor, current_stream, ptr
 from .intersect_wide import TRI_ROW_W, WideBVH
 
-MAX_STACK = 256    # csrc/intersect_wide.cu::kMaxStack
+MAX_STACK = 256    # csrc/intersect_wide.cu::kStack, entries a group
 MAX_LEAF = 64      # csrc/intersect_wide.cu::kMaxLeaf
-BRANCHES = (8, 16)  # the widths the kernel is instantiated for
+BRANCHES = (8, 16)  # the widths the kernel is instantiated for (lanes a group)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +55,13 @@ def check_walkable(bvh: WideBVH) -> None:
 def wide_traverse_cuda(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool):
     """W1 (closest) or W2 (any hit) on the card -> (t [N] f32, prim [N] i64);
     RT_MAX / -1 on a miss. With ``any_hit`` the hit is the first one found."""
+    t, prim = launch_walk(ANYHIT_KERNEL if any_hit else CLOSEST_KERNEL, org, direction, bvh, tmin, tmax)
+    return t, prim.long()
+
+
+def launch_walk(kernel: CudaKernel, org, direction, bvh: WideBVH, tmin, tmax):
+    """One launch of ``kernel``, an entry point with the arguments of
+    ``nrc_wbvh_closest`` -> (t [N] f32, prim [N] i32)."""
     check_walkable(bvh)
     dev = org.device
     org, direction = org.contiguous(), direction.contiguous()
@@ -66,10 +75,9 @@ def wide_traverse_cuda(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool):
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        kernel = ANYHIT_KERNEL if any_hit else CLOSEST_KERNEL
         kernel.launch(
             ptr(org), ptr(direction), ptr(tmin), ptr(tmax), ptr(bvh.rows), n,
             bvh.rows.shape[1], bvh.num_nodes, bvh.branch, bvh.leaf_size,
             ptr(t), ptr(prim), current_stream(dev),
         )
-    return t, prim.long()
+    return t, prim

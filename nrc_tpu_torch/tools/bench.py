@@ -2,7 +2,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 -m nrc_tpu_torch.tools.bench [--encoding frequency|hash]
+    python3 -m nrc_tpu_torch.tools.bench [--encoding frequency|hash] [--scene cornell_box|cornell_objects]
 
 The configuration of the JAX package's ``bench.py:82-89``: the Cornell box
 (``cornell_box``, 1224 triangles) at 320x320, FULL render mode with online
@@ -11,6 +11,9 @@ training, 4x4 training tiles held fixed (``adaptive_tiles=False``),
 first row's definition) or the hash encoding (``Renderer.set_encoding``). Three warm-up frames (the first
 captures the frame's CUDA graph), then 5 reps of 32 frames, each frame one
 graph replay, the accumulation and the training carried from rep to rep.
+``--scene cornell_objects`` runs the same protocol on the 132,272-triangle
+scene, whose rays go through the wide BVH and the walk kernels W1/W2 (the
+BVH is built on the host before the warm-up).
 
 Per rep: host ms/frame (the host clock around the rep, which ends in a
 synchronise), device ms/frame (CUDA events around the rep's replays on the
@@ -42,9 +45,10 @@ import torch
 
 from ..config import InputEncoding, RenderMode
 from ..render.renderer import Renderer
-from ..scene.scene_builder import cornell_box
+from ..scene.scene_builder import cornell_box, cornell_objects
 
 RES = 320
+SCENES = {"cornell_box": cornell_box, "cornell_objects": cornell_objects}
 TILE = (4, 4)
 WARMUP = 3
 FRAMES = 32
@@ -109,11 +113,12 @@ def run_rep(r: Renderer, frames: int) -> dict:
     }
 
 
-def run(frames: int = FRAMES, reps: int = REPS, encoding: InputEncoding = InputEncoding.FREQUENCY) -> dict:
+def run(frames: int = FRAMES, reps: int = REPS, encoding: InputEncoding = InputEncoding.FREQUENCY,
+        scene_name: str = "cornell_box") -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("bench: no CUDA device is available")
     dev = torch.device("cuda", 0)
-    scene, system = cornell_box((RES, RES))
+    scene, system = SCENES[scene_name]((RES, RES))
     system = dataclasses.replace(system, tile_size=TILE)
     r = Renderer(scene, system, render_mode=RenderMode.FULL, train=True, adaptive_tiles=False, device=dev)
     r.set_encoding(encoding)
@@ -148,6 +153,7 @@ def run(frames: int = FRAMES, reps: int = REPS, encoding: InputEncoding = InputE
         "reps": rows,
         "loss_last": r.loss_history[-1],
         "encoding": encoding.name.lower(),
+        "scene": scene_name,
         "device": smi,
     }
 
@@ -155,8 +161,9 @@ def run(frames: int = FRAMES, reps: int = REPS, encoding: InputEncoding = InputE
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="traced Mrays/s of a Cornell FULL + train frame on one card")
     ap.add_argument("--encoding", choices=("frequency", "hash"), default="frequency")
+    ap.add_argument("--scene", choices=tuple(SCENES), default="cornell_box")
     args = ap.parse_args(argv)
-    result = run(encoding=InputEncoding[args.encoding.upper()])
+    result = run(encoding=InputEncoding[args.encoding.upper()], scene_name=args.scene)
     print(result["device"])
     for i, row in enumerate(result["reps"]):
         print(f"rep {i}: {row['host_ms_per_frame']:.3f} host ms/frame, {row['device_ms_per_frame']:.3f} device "

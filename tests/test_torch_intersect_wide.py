@@ -181,6 +181,23 @@ def test_rows_seen_are_the_distinct_rows_fetched(case, monkeypatch, any_hit):
     assert 1 <= int(seen.sum()) <= min(fetched, seen.numel())
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_ray_fetches_add_up_to_the_rows_fetched(case, any_hit):
+    """``ray_fetches`` (each ray's chain of dependent row fetches, printed per
+    launch by ``chip_smoke.py`` 7b and ``tools/bench_walk.py``) adds up to
+    the walk's count of fetched rows: none for a dead ray, at least the root
+    for a live one. The walk's result does not change."""
+    c = case
+    org, d, tmin, tmax = c["rays"]
+    t_ref, p_ref, fetched_ref = IW.wide_traverse_plain(org, d, c["bvh"], tmin, tmax, any_hit)
+    per_ray = torch.zeros(org.shape[0], dtype=torch.int64)
+    t, prim, fetched = IW.wide_traverse_plain(org, d, c["bvh"], tmin, tmax, any_hit, ray_fetches=per_ray)
+    assert torch.equal(t, t_ref) and torch.equal(prim, p_ref) and fetched == fetched_ref
+    assert int(per_ray.sum()) == fetched
+    live = tmax > tmin
+    assert bool((per_ray[~live] == 0).all()) and bool((per_ray[live] >= 1).all())
+
+
 @pytest.mark.parametrize("width", [8, 16])
 def test_sort8_by_key_matches_jax(width):
     rng = np.random.default_rng(3)
@@ -251,6 +268,13 @@ def test_walk_kernel_limits_are_checked_on_the_host():
     assert (bvh.branch - 1) * bvh.depth + 1 <= WC.MAX_STACK
     with pytest.raises(ValueError, match="stack"):
         WC.check_walkable(bvh._replace(depth=18))
+    # a group's stack row holds MAX_STACK entries (csrc/intersect_wide.cu's
+    # kStack); a tree of D levels needs (B - 1) * D + 1 of them
+    for tree in (bvh, IW.upload_wide_bvh(build_wide_bvh(p0, p1, p2, leaf_size=8, branch=8), "cpu")):
+        deepest = (WC.MAX_STACK - 1) // (tree.branch - 1)
+        WC.check_walkable(tree._replace(depth=deepest))
+        with pytest.raises(ValueError, match="stack"):
+            WC.check_walkable(tree._replace(depth=deepest + 1))
     with pytest.raises(ValueError, match="branch"):
         WC.check_walkable(bvh._replace(branch=32))
     with pytest.raises(ValueError, match="leaf_size"):
