@@ -68,6 +68,12 @@ Phases, each of which raises on failure (non-zero exit):
    the eager one: image, records and step bit for bit, loss and state within
    ``bench_hash.HASH_LIMITS`` (H2's atomics reorder the table's gradient),
    the planted fault above them; the drift over six more frames printed;
+   and every H1 and H2 launch of one more eager hash frame recorded
+   (``bench_hash.record_frame``: the inference in pixel order, four
+   shuffled training batches), H1 held bit for bit and H2 within
+   ``CARD_LIMITS`` on each and timed by ``bench_hash.measure``: the
+   frame-weighted times (the kernels line's ``frame_ms``) beside the frame
+   bound (``frame_bound_ms``);
 7. large scene: FULL + train at 320x320 on ``cornell_objects`` (the wide
    BVH path), replayed: frames until the tile size settles, then 8 timed
    frames and 4 more counted; W1, W2 and the path's gather must run, K1 and
@@ -397,7 +403,27 @@ def _hash_frame(scene, system, kernels, dev, PF, BI):
            f"{per_frame['hash_grid_adjoint']}, K4 {per_frame['fused_backward']} and K6 {per_frame['fused_train4']} "
            f"times (5, 4, 4 and 0 expected)")
     _print_eager_and_replayed(PF, rh, "hash FULL + train")
-    return per_frame
+    return per_frame, _hash_frame_launches(rh)
+
+
+def _hash_frame_launches(rh):
+    """Every H1 and H2 launch of one more eager hash frame recorded
+    (``bench_hash.record_frame``), H1 held bit for bit and H2 within
+    ``CARD_LIMITS`` on each, each timed by ``bench_hash.measure`` (the
+    measurement ``bench_hash --frame`` makes): the frame-weighted times beside
+    the frame bound."""
+    from nrc_tpu_torch.tools import bench_hash as BH
+
+    builds = BH.hash_builds()
+    recorded = BH.record_frame(rh)
+    kinds = [kind for kind, _ in recorded]
+    _check(kinds.count("H1") == 5 and kinds.count("H2") == 4,
+           f"an eager hash FULL + train frame launched H1 and H2 {kinds}, not five and four times")
+    rows = BH.measure_launches([(f"launch {i}", kind, a) for i, (kind, a) in enumerate(recorded)], builds)
+    frame = BH.frame_totals(rows, builds)
+    _check(all(row["builds"]["shipped"]["ok"] for row in rows),
+           "H1 or H2 disagrees with its plain version on a recorded hash frame's launch")
+    return frame
 
 
 def _hash_replay_vs_eager(scene, system, dev, frames, label):
@@ -1125,8 +1151,11 @@ def main() -> int:
     _replay_matches_eager(scene, _with_tiles(system, (4, 4)), dev, 12, "Cornell box")
 
     # ---- 6d. the hash encoding: FULL + train replayed, then against eager frames ----
-    hash_frame = _hash_frame(scene, system, kernels, dev, PF, BI)
+    hash_frame, hash_launches = _hash_frame(scene, system, kernels, dev, PF, BI)
     launches.update({name: hash_frame[name] for name in ("hash_grid_lookup", "hash_grid_adjoint", "fused_backward")})
+    for name, kind in (("hash_grid_lookup", "H1"), ("hash_grid_adjoint", "H2")):
+        report[name].update(frame_ms=hash_launches[kind]["ms"]["shipped"],
+                            frame_bound_ms=hash_launches[kind]["bound_ms"])
     _hash_replay_vs_eager(scene, _with_tiles(system, (4, 4)), dev, 10, "Cornell box, hash")
 
     # ---- 7. the large scene: FULL + train through the wide BVH -------------------

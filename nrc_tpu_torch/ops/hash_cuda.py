@@ -9,11 +9,14 @@ l * F + f. The JAX package computes it with XLA gathers and takes the
 adjoint (the table's gradient) by autodiff's scatter-add, or on a TPU by
 one-hot matrix products, a workaround this port leaves out.
 
-- H1 ``hash_grid_lookup_cuda`` (``csrc/hash_grid.cu::nrc_hash_lookup``): one
-  thread per (query, level); equal to ``hash_grid_lookup_plain`` bit for bit.
+- H1 ``hash_grid_lookup_cuda`` (``csrc/hash_grid.cu::nrc_hash_lookup``): a
+  block a tile of 32 queries, a warp a level, an aligned pair of x-corner
+  rows in one read where ``idx1 == idx0 ^ 1``; equal to
+  ``hash_grid_lookup_plain`` bit for bit.
 - H2 ``hash_grid_adjoint_cuda`` (``nrc_hash_adjoint``): the corners
-  recomputed, w * g added into a zeroed table gradient by atomics, so the
-  order of each sum changes from run to run; held to
+  recomputed, w * g added into a zeroed table gradient by atomics (one
+  vector atomic for such a pair; the dense levels pre-summed in shared
+  memory), so the order of each sum changes from run to run; held to
   ``hash_grid_adjoint_plain`` by ``tools/bench_hash.py::CARD_LIMITS``.
 - ``HashGridLookup``: the ``torch.autograd.Function`` over the pair, with
   respect to the table (positions get no gradient, as in the JAX package's
@@ -178,8 +181,10 @@ def hash_grid_adjoint_plain(pos: torch.Tensor, g: torch.Tensor, spec: GridSpec) 
 # kernels on the card
 # ---------------------------------------------------------------------------
 
-def hash_grid_lookup_cuda(pos: torch.Tensor, table: torch.Tensor, spec: GridSpec) -> torch.Tensor:
-    """H1 on the card: [B, 3], [L, S, F] -> [B, L * F] float32."""
+def launch_lookup(kernel: CudaKernel, pos: torch.Tensor, table: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """Check the arguments and launch ``kernel``, an entry point with
+    ``nrc_hash_lookup``'s arguments (the bench launches another tree's build
+    through it): [B, 3], [L, S, F] -> [B, L * F] float32."""
     check_spec(spec)
     dev = pos.device
     pos, table = pos.contiguous(), table.contiguous()
@@ -188,17 +193,23 @@ def hash_grid_lookup_cuda(pos: torch.Tensor, table: torch.Tensor, spec: GridSpec
     check_cuda_tensor("table", table, torch.float32, spec.table_shape, dev)
     out = torch.empty((n, spec.levels * spec.features), dtype=torch.float32, device=dev)
     if n:
-        LOOKUP_KERNEL.launch(
+        kernel.launch(
             ptr(pos), ptr(table), n, spec.levels, spec.log2_size, spec.features,
             _res_array(spec), _dense_mask(spec), ptr(out), current_stream(dev),
         )
     return out
 
 
-def hash_grid_adjoint_cuda(pos: torch.Tensor, g: torch.Tensor, spec: GridSpec) -> torch.Tensor:
-    """H2 on the card: the table's gradient [L, S, F] float32. ``g`` [B, L * F]
-    is read through its row stride (the hash columns of K4's dX need no
-    copy)."""
+def hash_grid_lookup_cuda(pos: torch.Tensor, table: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """H1 on the card: [B, 3], [L, S, F] -> [B, L * F] float32."""
+    return launch_lookup(LOOKUP_KERNEL, pos, table, spec)
+
+
+def launch_adjoint(kernel: CudaKernel, pos: torch.Tensor, g: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """Check the arguments and launch ``kernel``, an entry point with
+    ``nrc_hash_adjoint``'s arguments: the table's gradient [L, S, F]
+    float32. ``g`` [B, L * F] is read through its row stride (the hash
+    columns of K4's dX need no copy)."""
     check_spec(spec)
     dev = pos.device
     pos = pos.contiguous()
@@ -215,11 +226,16 @@ def hash_grid_adjoint_cuda(pos: torch.Tensor, g: torch.Tensor, spec: GridSpec) -
         g = g.contiguous()
     dtable = torch.zeros(spec.table_shape, dtype=torch.float32, device=dev)
     if n:
-        ADJOINT_KERNEL.launch(
+        kernel.launch(
             ptr(pos), ptr(g), g.stride(0), n, spec.levels, spec.log2_size, spec.features,
             _res_array(spec), _dense_mask(spec), ptr(dtable), current_stream(dev),
         )
     return dtable
+
+
+def hash_grid_adjoint_cuda(pos: torch.Tensor, g: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """H2 on the card: the table's gradient [L, S, F] float32."""
+    return launch_adjoint(ADJOINT_KERNEL, pos, g, spec)
 
 
 # ---------------------------------------------------------------------------

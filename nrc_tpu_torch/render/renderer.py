@@ -307,10 +307,12 @@ class Renderer:
         reserved = torch.cuda.memory_reserved(self.device)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.current_stream(self.device)
         try:
             with torch.cuda.graph(graph):
                 graph_stats = self._frame()
         except Exception as e:
+            _release_failed_capture(self.device, stream)
             raise RuntimeError(f"capturing the frame of {self.cfg} failed") from e
         finally:
             # a launch under capture ran nothing: count it at each replay
@@ -429,3 +431,19 @@ class Renderer:
         """[H, W, 3] linear HDR, row 0 at the top (display orientation)."""
         img = self.image.detach().cpu().numpy().reshape(self.cfg.height, self.cfg.width, 3)
         return img[::-1]
+
+
+def _release_failed_capture(device: torch.device, stream: torch.cuda.Stream) -> None:
+    """What a failed ``torch.cuda.graph`` leaves behind, put back. When the
+    capture is invalidated (the frame read the device), ``capture_end``
+    raises before it runs the default generator's capture epilogue and
+    before the graph context puts the caller's stream back: the generator
+    keeps counting its offsets for a capture that no longer exists and
+    refuses every later draw ("Offset increment outside graph capture"),
+    and later work would go to the capture stream. A fresh copy of the
+    generator's state (its seed and offset, not capturing) and the stream
+    the frame was called on undo both."""
+    gen = torch.cuda.default_generators[device.index if device.index is not None else torch.cuda.current_device()]
+    gen.graphsafe_set_state(gen.clone_state())
+    torch.cuda.set_stream(stream)
+

@@ -2,7 +2,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 -m nrc_tpu_torch.tools.bench_hash
+    python3 -m nrc_tpu_torch.tools.bench_hash [--frame [--parent DIR]]
 
 H1 must equal its plain version bit for bit. H2 adds with atomics, so the
 order of each table row's sum changes from run to run; it is held to its
@@ -24,25 +24,46 @@ tiles) and at 16,384 (``STEP_ROWS``: a training step's batch), H2 at
 the bytes the function must move over 3.35 TB/s (positions and output
 gradient read once, the output or the table gradient written once, the
 table read once: at 4.19 MB it stays in the L2) and its float32 operations
-over 67 TFLOP/s. No single PyTorch call
-computes either; beside H2, ``index_add_`` of the 8 * L * B precomputed
-weighted rows is timed as a reading, which is not the same function (its
-indices and weights are given, not computed). The last line is one JSON
-object.
+over 67 TFLOP/s. Neither kernel has scratch in device memory (H2's
+pre-sums and both kernels' tiles stay in shared memory), so there is no
+scratch bound beside it. No single PyTorch call computes either; beside
+H2, ``index_add_`` of the 8 * L * B precomputed weighted rows is timed as a
+reading, which is not the same function (its indices and weights are
+given, not computed). The last line is one JSON object.
+
+``--frame`` times the kernels where a frame runs them, since uniform random
+positions are not a frame's: it renders the 320x320 Cornell box, hash
+FULL + train, until the adaptive tile size has settled, records the inputs
+of one eager frame's five H1 launches (the inference in pixel order, four
+training batches shuffled by ``assemble_training_batches``) and four H2
+launches (positions and g through K4's dX row stride; ``record_frame``),
+and ``measure``s each launch and the all-random sets: every build held to
+the plain version (H1 bit for bit; H2 within ``CARD_LIMITS``, with whether
+two runs and the plain version on the CPU copy agree bit for bit), its
+device time in turns (shipped, parent, parent, shipped; averaged), H2's on
+the grid cut to the dense and to the hashed levels, and how many rows a
+launch's terms land on (``row_load``: H2's contention). The frame-weighted
+time of a build is the sum over the frame's launches. ``--parent DIR``
+builds ``DIR/hash_grid.cu``, another tree's source with the same entry
+points (``git archive <commit> nrc_tpu_torch/csrc | tar -x -C
+build/parent``), and times it beside the shipped build.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import subprocess
+from pathlib import Path
 
 import torch
 
-from ..config import InputEncoding, NetworkConfig
+from ..config import InputEncoding, NetworkConfig, RenderMode
 from ..models import network as N
 from ..ops import encodings as E
 from ..ops import hash_cuda as HC
+from ..ops.cuda_build import CudaKernel
 from ..ops.hash_cuda import GridSpec
 
 HBM_BYTES_PER_S = 3.35e12
@@ -341,9 +362,200 @@ def table_update_ms(spec: GridSpec, device) -> float:
     return BI.device_ms(lambda: MC.adam_ema(p, g, m, v, e, t, lr, hyper))
 
 
-def main() -> int:
+def hash_builds(parent: str | None = None) -> dict:
+    """name -> (H1 entry point, H2 entry point): the shipped build and, with
+    ``parent``, ``parent/hash_grid.cu``, another tree's source with the same
+    entry points."""
+    builds = {"shipped": (HC.LOOKUP_KERNEL, HC.ADJOINT_KERNEL)}
+    if parent:
+        source = str((Path(parent) / "hash_grid.cu").resolve())
+        builds["parent"] = tuple(CudaKernel(source, k.symbol, k.argtypes, extra_flags=k.extra_flags)
+                                 for k in (HC.LOOKUP_KERNEL, HC.ADJOINT_KERNEL))
+    return builds
+
+
+def strided_clone(g: torch.Tensor) -> torch.Tensor:
+    """A copy of ``g`` with the same row stride (H2 reads K4's dX through it)."""
+    base = torch.empty((g.shape[0], g.stride(0)), dtype=g.dtype, device=g.device)
+    base[:, :g.shape[1]] = g
+    return base[:, :g.shape[1]]
+
+
+def record_frame(renderer) -> list:
+    """Render one frame eagerly (a graph replay calls no Python) with H1's
+    and H2's wrappers wrapped; returns [(kind, (pos, table or g, spec))] in
+    launch order, kind "H1" or "H2"."""
+    recorded = []
+    lookup, adjoint = HC.hash_grid_lookup_cuda, HC.hash_grid_adjoint_cuda
+
+    def rec_lookup(pos, table, spec):
+        recorded.append(("H1", (pos.detach().clone().contiguous(), table.detach().clone(), spec)))
+        return lookup(pos, table, spec)
+
+    def rec_adjoint(pos, g, spec):
+        recorded.append(("H2", (pos.detach().clone().contiguous(), strided_clone(g.detach()), spec)))
+        return adjoint(pos, g, spec)
+
+    HC.hash_grid_lookup_cuda, HC.hash_grid_adjoint_cuda = rec_lookup, rec_adjoint
+    capture, renderer.capture = renderer.capture, False
+    try:
+        renderer.render_frame()
+    finally:
+        HC.hash_grid_lookup_cuda, HC.hash_grid_adjoint_cuda = lookup, adjoint
+        renderer.capture = capture
+    return recorded
+
+
+def row_load(pos: torch.Tensor, spec: GridSpec) -> dict:
+    """Over the 8 * L * B (query, level, corner) terms of a launch: the
+    distinct table rows they name and the most terms on one row, on the
+    dense levels and on the hashed ones (the atomics' contention in H2)."""
+    L, S, _ = spec.table_shape
+    ofs = torch.arange(L, device=pos.device) * S
+    rows = torch.cat([(HC.corner_index_weight(pos, k, spec)[0] + ofs).reshape(-1) for k in range(8)])
+    counts = torch.bincount(rows, minlength=L * S).view(L, S)
+    dense = torch.tensor(spec.dense, device=pos.device)
+    out = {}
+    for name, sel in (("dense", dense), ("hashed", ~dense)):
+        c = counts[sel]
+        out[name] = {"rows": int((c > 0).sum()), "max_terms": int(c.max()) if c.numel() else 0}
+    return out
+
+
+def measure(kind: str, args, builds: dict) -> dict:
+    """One launch's reading: per build its agreement with the plain version
+    (H1 bit for bit; H2 within ``CARD_LIMITS``, and whether two runs, and
+    the plain version run on the CPU copy of the inputs, give the same bits)
+    and its device time, builds timed in turns (each build, then the same
+    in reverse) and the two readings averaged; H2's time on the grid cut to
+    the dense and to the hashed levels."""
+    from . import bench_intersect as BI
+
+    pos, x, spec = args
+    n = pos.shape[0]
+    h2 = kind == "H2"
+    if h2:
+        ref = HC.hash_grid_adjoint_plain(pos, x, spec)
+        ref_cpu = HC.hash_grid_adjoint_plain(pos.cpu(), x.cpu(), spec)
+
+        def run(k):
+            return HC.launch_adjoint(k, pos, x, spec)
+    else:
+        ref = HC.hash_grid_lookup_plain(pos, x, spec)
+
+        def run(k):
+            return HC.launch_lookup(k, pos, x, spec)
+    row = dict(kind=kind, n=n, **bound(n, spec), builds={})
+    if h2:
+        row["row_load"] = row_load(pos, spec)
+    for name, kernels in builds.items():
+        got = run(kernels[h2])
+        if h2:
+            gap = adjoint_gap(got, ref)
+            res = dict(ok=within_limits(gap), gap=gap, bits_equal_run_to_run=bool(torch.equal(got, run(kernels[h2]))),
+                       bits_equal_plain_cpu=bool(torch.equal(got.cpu(), ref_cpu)))
+        else:
+            res = dict(ok=bool(torch.equal(got.view(torch.int32), ref.view(torch.int32))))
+        row["builds"][name] = dict(res, ms=0.0)
+    for name in list(builds) + list(reversed(builds)):
+        k = builds[name][h2]
+        row["builds"][name]["ms"] += BI.device_ms(lambda: run(k)) / 2
+    n_dense = sum(spec.dense)
+    if h2 and 0 < n_dense < spec.levels:
+        F = spec.features
+        for name, kernels in builds.items():
+            row["builds"][name]["by_level_ms"] = {
+                part: BI.device_ms(lambda: HC.launch_adjoint(kernels[1], pos, x[:, lo * F:hi * F],
+                                                             sliced(spec, lo, hi)))
+                for part, (lo, hi) in (("dense", (0, n_dense)), ("hashed", (n_dense, spec.levels)))}
+    return row
+
+
+def frame_run(parent: str | None = None) -> dict:
+    """H1's and H2's launches of one settled 320x320 hash FULL + train frame
+    on the Cornell box, and the all-random sets, timed for each build."""
+    from ..render.renderer import Renderer
+    from ..scene.scene_builder import cornell_box
+    from . import bench_intersect as BI
+
+    dev = torch.device("cuda", 0)
+    builds = hash_builds(parent)
+    for name, kernels in builds.items():
+        for k in kernels:
+            for line in k.build().splitlines():
+                if "Used" in line or "spill" in line:
+                    print(f"{name} {k.symbol}: {line.strip()}")
+    scene, system = cornell_box((320, 320))
+    r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
+    r.set_encoding(InputEncoding.HASH)
+    sizes = BI.settle_tiles(r)
+    recorded = record_frame(r)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    spec = full_spec()
+    rnd = []
+    for kind, n in (("H1", INFER_ROWS), ("H1", STEP_ROWS), ("H2", STEP_ROWS)):
+        pos, table, g = inputs(spec, n, gen, dev, 0.0, 1.0)
+        rnd.append((f"random B = {n}", kind, (pos, g if kind == "H2" else table, spec)))
+    rows = measure_launches(rnd + [(f"launch {i}", kind, a) for i, (kind, a) in enumerate(recorded)], builds)
+    frame = frame_totals(rows, builds)
+    zero_ms = BI.device_ms(lambda: torch.zeros(spec.table_shape, device=dev))
+    print(f"torch.zeros of the table gradient ({4 * spec.levels * spec.size * spec.features} bytes): {zero_ms:.4f} ms")
+    agree = all(x["ok"] for row in rows for x in row["builds"].values())
+    return {"tile_sizes": [list(t) for t in sizes], "all_agree": agree, "sets": rows, "frame": frame,
+            "zeros_ms": zero_ms}
+
+
+def measure_launches(cases, builds: dict) -> list:
+    """``measure`` of each (label, kind, args), printed."""
+    rows = []
+    for label, kind, a in cases:
+        row = dict(set=label, **measure(kind, a, builds))
+        rows.append(row)
+        print(f"{label:16s} {kind} B = {row['n']:6d}: bound {row['bound_ms']:.4f} ms; "
+              + (f"rows {row['row_load']}; " if "row_load" in row else "")
+              + "; ".join(f"{b}: {x['ms']:.4f} ms{'' if x['ok'] else ' DISAGREES'}"
+                          + (f" (bit-equal run to run: {x['bits_equal_run_to_run']}, to the plain version on the CPU: "
+                             f"{x['bits_equal_plain_cpu']}; by level {x.get('by_level_ms')})"
+                             if kind == "H2" else "")
+                          for b, x in row["builds"].items()))
+    return rows
+
+
+def frame_totals(rows: list, builds: dict) -> dict:
+    """H1's and H2's sums over a recorded frame's launch readings (the rows
+    labelled "launch ..."), printed."""
+    frame = {}
+    for kind in ("H1", "H2"):
+        mine = [x for x in rows if x["set"].startswith("launch") and x["kind"] == kind]
+        frame[kind] = dict(launches=len(mine), bound_ms=sum(x["bound_ms"] for x in mine),
+                           ms={b: sum(x["builds"][b]["ms"] for x in mine) for b in builds})
+        print(f"{kind} over the frame: {len(mine)} launches (B = {[x['n'] for x in mine]}), bound "
+              f"{frame[kind]['bound_ms']:.4f} ms; frame-weighted "
+              + "; ".join(f"{b}: {v:.4f} ms" for b, v in frame[kind]["ms"].items()))
+    return frame
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="H1 and H2 on one card: checks, limits and times")
+    ap.add_argument("--frame", action="store_true",
+                    help="time the H1 and H2 launches of a recorded hash FULL + train frame")
+    ap.add_argument("--parent", help="with --frame: a directory holding another tree's hash_grid.cu, timed beside")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_hash: no CUDA device is available")
+    if args.frame:
+        result = frame_run(args.parent)
+        result["device"] = _smi()
+        print(result["device"])
+        print(json.dumps(result))
+        return 0 if result["all_agree"] else 1
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     HC.LOOKUP_KERNEL.build()
@@ -354,10 +566,7 @@ def main() -> int:
               "times": times(full_spec(), INFER_ROWS, STEP_ROWS, gen, dev)}
     if result["checks"]["full, H1 at a step's rows"]["differing"]:
         raise AssertionError("H1 at a step's rows differs from the plain version")
-    result["device"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    result["device"] = _smi()
     print(json.dumps(result))
     return 0
 

@@ -657,6 +657,30 @@ def test_failed_capture_raises(cuda, monkeypatch):
     assert not replayed.graphs
 
 
+def test_failed_capture_releases_the_default_generator(cuda, monkeypatch):
+    """After a failed capture, PyTorch's default CUDA generator draws again,
+    on the stream the frame was called on, and a renderer that can be
+    captured captures and replays."""
+    from nrc_tpu_torch.render import integrator
+
+    stream = torch.cuda.current_stream(cuda)
+    with monkeypatch.context() as mp:
+        mp.setattr(integrator, "_all_done", lambda alive: not bool(alive.any()))
+        _, replayed = _graph_pair(cuda)
+        with pytest.raises(RuntimeError, match="capturing the frame"):
+            replayed.render_frame()
+    assert torch.cuda.current_stream(cuda) == stream
+    x = torch.randn(1000, device=cuda)
+    torch.cuda.synchronize(cuda)
+    assert bool(torch.isfinite(x).all()) and 0.5 < x.std().item() < 1.5
+    eager, replayed = _graph_pair(cuda)
+    for _ in range(3):
+        eager.render_frame()
+        replayed.render_frame()
+    torch.cuda.synchronize(cuda)
+    assert replayed.replays >= 1 and torch.equal(eager.image, replayed.image)
+
+
 # ---------------------------------------------------------------------------
 # the hash grid: H1, H2
 # ---------------------------------------------------------------------------

@@ -6,7 +6,11 @@ npz checkpoints read across the packages, against the JAX package on the CPU.
 The JAX side's MLP is the fused kernels' ``fused_apply`` in interpret mode,
 installed with ``set_mlp_impl`` (``make_mlp_impl``): its dX is summed in f32,
 as K4's is, where the XLA chain's autodiff would round it to bf16 before it
-reaches the table. Weights and tables cross over with ``state_from_numpy``.
+reaches the table. That side runs in a child process with synchronous
+dispatch (``run_jax_side``; ``test_torch_jax_child.py`` says why: in the
+test process an eager ``train_step``'s backward pass could deadlock against
+interpret mode's callbacks). Weights and tables cross over with
+``state_from_numpy``.
 Each tolerance is stated next to its test with its reason and the largest
 reading seen.
 
@@ -16,6 +20,7 @@ by about lr = 1e-2 in the first steps; an entry whose tiny gradient differs
 in sign between two sums of the same terms lands up to 2 lr a step apart.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -23,7 +28,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 import nrc_tpu.render.frame as jax_frame
 import nrc_tpu.render.integrator as jax_integrator
@@ -42,9 +46,10 @@ from nrc_tpu_torch.models import network as N
 from nrc_tpu_torch.render.renderer import Renderer
 from nrc_tpu_torch.scene.scene_builder import cornell_box
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_jax_child import flatten_log, run_jax_side, unflatten_log
 from test_torch_scene import jax_cornell_scene
 from test_torch_slice import _LOG, _interpret_plane_intersectors, _recording_port_intersectors
-from test_torch_train_slice import _flipped, _port_assemble_with_jax_batches, _recording_jax_assemble
+from test_torch_train_slice import _BATCHES, _flipped, _port_assemble_with_jax_batches, _recording_jax_assemble
 
 RES = (32, 32)
 TILE = (8, 8)
@@ -61,13 +66,18 @@ def fresh_xla_programs():
     jax.config.update("jax_enable_compilation_cache", prev)
 
 
-@pytest.fixture
+@contextlib.contextmanager
 def fused_jax_mlp():
-    """The JAX network's MLP through the TPU kernels in interpret mode; reset after."""
+    """The JAX network's MLP through the TPU kernels in interpret mode (in
+    the child process); reset after."""
+    from jax.experimental.pallas import tpu as pltpu
+
     JN.set_mlp_impl(JMP.make_mlp_impl())
-    with pltpu.force_tpu_interpret_mode():
-        yield
-    JN.set_mlp_impl(None)
+    try:
+        with pltpu.force_tpu_interpret_mode():
+            yield
+    finally:
+        JN.set_mlp_impl(None)
 
 
 def _cfgs():
@@ -100,18 +110,32 @@ def _gaps(got: dict, ref: dict, keys) -> dict:
 STEP_LIMITS = {"loss_rel": 1e-3, "mlp_mean": 1e-4, "mlp_far": 1e-2, "grid_mean": 1e-4, "grid_far": 1e-2}
 
 
-def test_hash_train_step_matches_jax(fused_jax_mlp):
+def _jax_hash_steps(q4, t4, lr):
+    """Four JAX hash ``train_step``s from ``init_network(PRNGKey(0))``, the
+    MLP through the TPU kernels in interpret mode (in the child process):
+    the losses and the state's checkpoint keys."""
+    jcfg, _ = _cfgs()
+    js = JN.init_network(jax.random.PRNGKey(0), jcfg)
+    losses = []
+    with fused_jax_mlp():
+        for k in range(4):
+            js, jl = JN.train_step(js, jnp.asarray(q4[k]), jnp.asarray(t4[k]), jcfg, learning_rate=jnp.float32(lr))
+            losses.append(np.asarray(jl))
+    return {"losses": np.stack(losses), **{k: np.asarray(v) for k, v in _flatten(js).items()}}
+
+
+def test_hash_train_step_matches_jax(tmp_path):
     jcfg, cfg = _cfgs()
     js0 = JN.init_network(jax.random.PRNGKey(0), jcfg)
-    js, ps = js0, N.state_from_numpy(jax.tree.map(np.asarray, js0))
+    ps = N.state_from_numpy(jax.tree.map(np.asarray, js0))
     q4, t4 = _queries(1, 4, 1024)
     lr = np.float32(jcfg.learning_rate)
+    ref = run_jax_side("test_torch_hash_train:_jax_hash_steps", tmp_path, q4=q4, t4=t4, lr=lr)
+    jls = ref.pop("losses")
     for k in range(4):
-        js, jl = JN.train_step(js, jnp.asarray(q4[k]), jnp.asarray(t4[k]), jcfg, learning_rate=jnp.float32(lr))
         ps, pl = N.train_step(ps, torch.from_numpy(q4[k]), torch.from_numpy(t4[k]), cfg,
                               learning_rate=torch.tensor(lr))
-        assert abs(float(pl) / float(jl) - 1.0) <= STEP_LIMITS["loss_rel"], k
-    ref = {k: np.asarray(v) for k, v in _flatten(js).items()}
+        assert abs(float(pl) / float(jls[k]) - 1.0) <= STEP_LIMITS["loss_rel"], k
     got = N.state_to_numpy(ps)
     assert got.keys() == ref.keys() and int(got["opt.step"]) == 4
     over = {}
@@ -220,43 +244,64 @@ FRAME_LIMITS = {
 }
 
 
-def test_hash_full_train_frame_matches_jax(fused_jax_mlp):
+def _jax_hash_frame():
+    """One 32x32 FULL + train hash frame of the JAX renderer (in the child
+    process): the plane kernels through the HLO interpreter with both kinds
+    of ray logged, the MLP through the TPU kernels in interpret mode, the
+    assembled batches recorded. Returns the image, the frame's stats, the
+    state before (``init.``) and after (``state.``), the rays logged and the
+    batches."""
+    jcfg, _ = _cfgs()
+    _, system = cornell_box(RES)
+    system = dataclasses.replace(system, tile_size=TILE)
+    jax_integrator.make_intersectors = _interpret_plane_intersectors
+    jax_frame.assemble_training_batches = _recording_jax_assemble(jax_frame.assemble_training_batches)
+    with fused_jax_mlp():
+        jr = JRenderer(jax_cornell_scene(RES), system, net_cfg=jcfg, render_mode=RenderMode.FULL,
+                       train=True, adaptive_tiles=False)
+        init = {f"init.{k}": np.asarray(v) for k, v in _flatten(jr.net_state).items()}
+        _LOG["jax"].clear()
+        jstats = jr.render_frame()
+        image = np.asarray(jr.image)
+        jax.effects_barrier()
+    return {"image": image, "num_train_records": np.asarray(jstats.num_train_records),
+            "loss": np.asarray(jstats.loss), **init,
+            **{f"state.{k}": np.asarray(v) for k, v in _flatten(jr.net_state).items()},
+            **flatten_log(_LOG["jax"]), **{f"batch.{i}": np.asarray(b) for i, b in enumerate(_BATCHES["jax"])}}
+
+
+def test_hash_full_train_frame_matches_jax(tmp_path):
     jcfg, cfg = _cfgs()
+    res = run_jax_side("test_torch_hash_train:_jax_hash_frame", tmp_path)
     scene, system = cornell_box(RES)
     system = dataclasses.replace(system, tile_size=TILE)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_integrator, "make_intersectors", _interpret_plane_intersectors)
         mp.setattr(port_integrator, "make_intersectors",
                    _recording_port_intersectors(port_integrator.make_intersectors))
-        mp.setattr(jax_frame, "assemble_training_batches",
-                   _recording_jax_assemble(jax_frame.assemble_training_batches))
         mp.setattr(port_frame, "assemble_training_batches",
                    _port_assemble_with_jax_batches(port_frame.assemble_training_batches))
-        jr = JRenderer(jax_cornell_scene(RES), system, net_cfg=jcfg, render_mode=RenderMode.FULL,
-                       train=True, adaptive_tiles=False)
+        mp.setitem(_BATCHES, "jax", [res[f"batch.{i}"] for i in range(3)])
         pr = Renderer(scene, system, net_cfg=cfg, render_mode=RenderMode.FULL, adaptive_tiles=False,
                       device="cpu")
-        pr.net_state = N.state_from_numpy(jax.tree.map(np.asarray, jr.net_state))
-        _LOG["jax"].clear()
+        pr.net_state = N.state_from_numpy({k[5:]: v for k, v in res.items() if k.startswith("init.")})
+        _LOG["jax"][:] = unflatten_log(res)
         _LOG["port"].clear()
-        jstats = jr.render_frame()
-        ref = np.asarray(jr.image)
-        jax.effects_barrier()
         pstats = pr.render_frame()
+    ref = res["image"]
+    jax_state = {k[6:]: v for k, v in res.items() if k.startswith("state.")}
     out = pr.image.numpy()
     assert np.isfinite(out).all() and out.std() > 0.0
-    assert int(pr.net_state.opt.step) == int(jr.net_state.opt.step) == 4
-    assert int(jstats.num_train_records) > 0
+    assert int(pr.net_state.opt.step) == int(jax_state["opt.step"]) == 4
+    assert int(res["num_train_records"]) > 0
     keep = ~_flipped(_LOG["jax"], _LOG["port"], RES[0] * RES[1])
     got = {
         "flipped_share": 1.0 - keep.mean(),
         "image_kept_abs": np.abs(out - ref)[keep].max(),
         "image_kept_mean_rel": abs(out[keep].mean() / ref[keep].mean() - 1.0),
-        "records_gap": abs(int(pstats.num_train_records) - int(jstats.num_train_records)),
-        "loss_rel": abs(float(pstats.loss) / float(jstats.loss) - 1.0),
+        "records_gap": abs(int(pstats.num_train_records) - int(res["num_train_records"])),
+        "loss_rel": abs(float(pstats.loss) / float(res["loss"]) - 1.0),
     }
     port_state = N.state_to_numpy(pr.net_state)
-    jax_state = {k: np.asarray(v) for k, v in _flatten(jr.net_state).items()}
     gaps = _gaps(port_state, jax_state, [k for k in jax_state if k != "opt.step"])
     got["params_mean"] = max(gaps[f"params.{w}"][0] for w in ("w_in", "w_hidden", "w_out"))
     got["params_far"] = max(gaps[f"params.{w}"][1] for w in ("w_in", "w_hidden", "w_out"))

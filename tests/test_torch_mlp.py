@@ -2,7 +2,8 @@
 inference, against the JAX package.
 
 The JAX fused MLP kernel runs in interpret mode (``force_tpu_interpret_mode``,
-as ``tests/test_mlp_pallas.py`` runs it). Weights come from the JAX
+as ``tests/test_mlp_pallas.py`` runs it), in a child process with
+synchronous dispatch (``test_torch_jax_child.py`` says why). Weights come from the JAX
 ``init_network`` and cross over with ``state_from_numpy``. MLP tolerances
 are atol 1e-2 / rtol 1e-2: activations are re-rounded to bf16 after every
 layer, and a sum taken in another order can land one bf16 ulp (2^-8
@@ -13,7 +14,6 @@ import jax
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from nrc_tpu.config import NetworkConfig as JNetworkConfig
 from nrc_tpu.models import checkpoint as JC
@@ -24,6 +24,7 @@ from nrc_tpu_torch.config import NetworkConfig
 from nrc_tpu_torch.models import network as N
 from nrc_tpu_torch.ops import encodings as E
 from nrc_tpu_torch.ops import mlp_cuda as MC
+from test_torch_jax_child import run_jax_side
 
 MLP_TOL = dict(atol=1e-2, rtol=1e-2)
 
@@ -73,12 +74,20 @@ def test_encode_frequency_matches(domain_scale):
     )
 
 
+def _jax_k3(w_in, w_hidden, w_out, x, output_relu):
+    """The TPU kernel K3 in interpret mode (in the child process)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        return {"out": JMP.fused_forward(w_in, w_hidden, w_out, x, output_relu=bool(output_relu))}
+
+
 @pytest.mark.parametrize("output_relu", [True, False])
-def test_plain_k3_matches_tpu_kernel(jax_state, output_relu):
+def test_plain_k3_matches_tpu_kernel(jax_state, output_relu, tmp_path):
     x = np.random.default_rng(1).normal(size=(1000, MC.LANE)).astype(np.float32)
     p = jax_state.params
-    with pltpu.force_tpu_interpret_mode():
-        ref = JMP.fused_forward(p.w_in, p.w_hidden, p.w_out, x, output_relu=output_relu)
+    ref = run_jax_side("test_torch_mlp:_jax_k3", tmp_path, w_in=np.asarray(p.w_in), w_hidden=np.asarray(p.w_hidden),
+                       w_out=np.asarray(p.w_out), x=x, output_relu=np.bool_(output_relu))["out"]
     w = [torch.from_numpy(np.array(a)) for a in (p.w_in, p.w_hidden, p.w_out)]
     out = MC.fused_forward_plain(*w, torch.from_numpy(x), output_relu)
     assert out.shape == (1000, MC.OUT_PAD) and out.dtype == torch.float32

@@ -4,7 +4,8 @@ tonemapper, against the JAX package on the CPU; and the renderer's training
 state (lagged stats, adaptive tiles, hyper-parameters, cache reset).
 
 The JAX kernels run in interpret mode (``force_tpu_interpret_mode``, as
-``tests/test_mlp_pallas.py`` runs them); inputs are made with numpy from a
+``tests/test_mlp_pallas.py`` runs them), in a child process with synchronous
+dispatch (``test_torch_jax_child.py`` says why); inputs are made with numpy from a
 seed and weights cross over with ``state_from_numpy``. Each tolerance is
 stated next to its test with its reason and the largest reading seen.
 """
@@ -16,7 +17,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from nrc_tpu.config import NetworkConfig as JNetworkConfig
 from nrc_tpu.config import TonemapperConfig as JTonemapperConfig
@@ -41,6 +41,7 @@ from nrc_tpu_torch.scene.scene_builder import cornell_box
 from nrc_tpu_torch.utils import math as M
 from nrc_tpu_torch.utils.tonemap import tonemap
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_jax_child import run_jax_side
 
 # An activation whose f32 sum lands next to a bf16 rounding boundary rounds
 # one bf16 ulp (2^-8 relative) apart when the sum is taken in another order,
@@ -78,6 +79,61 @@ def _queries(rs, *shape):
     return rs.random((*shape, 15), np.float32)
 
 
+def _listed(out: dict) -> list:
+    """A child's results r0, r1, ... in order."""
+    return [out[f"r{i}"] for i in range(len(out))]
+
+
+def _numbered(results) -> dict:
+    return {f"r{i}": a for i, a in enumerate(results)}
+
+
+def _weight_arrays(prefix, w):
+    return {f"{prefix}{i}": a for i, a in enumerate(w)}
+
+
+def _triple(arrays, prefix):
+    return [arrays[f"{prefix}{i}"] for i in range(3)]
+
+
+# the JAX sides of the kernel comparisons, run in the child process
+# (run_jax_side) under TPU interpret mode
+
+def _jax_k4(x, g, **w):
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        return _numbered(JMP.fused_backward(*_triple(w, "w"), x, g))
+
+
+def _jax_fused_apply_vjp(x, g, output_relu, **w):
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        out, vjp = jax.vjp(lambda *a: JMP.fused_apply(*a, bool(output_relu)), *_triple(w, "w"), x)
+        return {"out": out, **_numbered(vjp(jnp.asarray(g)))}  # dw_in, dw_h, dw_out, dx
+
+
+def _jax_k5(x, t, **w):
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        return _numbered(JMP.fused_train_grad(*_triple(w, "w"), x, t))
+
+
+def _jax_k6(x4, t4, lr, step, **w):
+    from jax.experimental.pallas import tpu as pltpu
+
+    # B = 1024 in two grid steps of the TPU kernel, as test_mlp_pallas.py cuts it
+    JMP.HALF = 128
+    JMP.TILE_T4 = JMP.STREAMS * 2 * 128
+    with pltpu.force_tpu_interpret_mode():
+        losses, *states = JMP.fused_train4(*_triple(w, "w"), _triple(w, "mu"), _triple(w, "nu"), _triple(w, "ema"),
+                                           x4, t4, lr, step)
+    return {"losses": losses, **{f"{k}{i}": a for k, triple in zip(("w", "mu", "nu", "ema"), states)
+                                 for i, a in enumerate(triple)}}
+
+
 # ---------------------------------------------------------------------------
 # record-slot helpers
 # ---------------------------------------------------------------------------
@@ -107,13 +163,12 @@ def test_slot_helpers_match_jax(trailing):
 # K4, K5, K6 plain versions against the TPU kernels
 # ---------------------------------------------------------------------------
 
-def test_plain_k4_matches_tpu_kernel(jax_state):
+def test_plain_k4_matches_tpu_kernel(jax_state, tmp_path):
     rs = np.random.default_rng(1)
     x = rs.normal(size=(1000, MC.LANE)).astype(np.float32)
     g = rs.normal(size=(1000, MC.OUT_PAD)).astype(np.float32)
     w = _weights(jax_state.params)
-    with pltpu.force_tpu_interpret_mode():
-        ref = JMP.fused_backward(*w, x, g)
+    ref = _listed(run_jax_side("test_torch_train:_jax_k4", tmp_path, x=x, g=g, **_weight_arrays("w", w)))
     got = MC.fused_backward_plain(*(torch.from_numpy(a) for a in w), torch.from_numpy(x),
                                   torch.from_numpy(g))
     for name, a, b in zip(("dx", "dw_in", "dw_h", "dw_out"), got, ref):
@@ -122,16 +177,17 @@ def test_plain_k4_matches_tpu_kernel(jax_state):
 
 
 @pytest.mark.parametrize("output_relu", [True, False])
-def test_fused_mlp_autograd_matches_fused_apply(jax_state, output_relu):
+def test_fused_mlp_autograd_matches_fused_apply(jax_state, output_relu, tmp_path):
     """``FusedMLP`` (K3 forward, output-ReLU mask, K4 backward) against the
     VJP of JAX's ``fused_apply``."""
     rs = np.random.default_rng(2)
     x = rs.normal(size=(1000, MC.LANE)).astype(np.float32)
     g = rs.normal(size=(1000, MC.OUT_PAD)).astype(np.float32)
     w = _weights(jax_state.params)
-    with pltpu.force_tpu_interpret_mode():
-        out_ref, vjp = jax.vjp(lambda *a: JMP.fused_apply(*a, output_relu), *w, x)
-        ref = vjp(jnp.asarray(g))  # dw_in, dw_h, dw_out, dx
+    res = run_jax_side("test_torch_train:_jax_fused_apply_vjp", tmp_path, x=x, g=g,
+                       output_relu=np.bool_(output_relu), **_weight_arrays("w", w))
+    out_ref = res.pop("out")
+    ref = _listed(res)  # dw_in, dw_h, dw_out, dx
     leaves = [torch.tensor(a, requires_grad=True) for a in (*w, x)]
     out = MC.FusedMLP.apply(*leaves, output_relu)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_ref), atol=1e-2, rtol=1e-2)
@@ -140,13 +196,12 @@ def test_fused_mlp_autograd_matches_fused_apply(jax_state, output_relu):
         assert _rel(a.grad.numpy(), b) <= GRAD_TOL, name
 
 
-def test_plain_k5_matches_tpu_kernel(jax_state):
+def test_plain_k5_matches_tpu_kernel(jax_state, tmp_path):
     rs = np.random.default_rng(3)
     x = np.asarray(JN.encode(_queries(rs, 512), JNetworkConfig(), None))
     t = rs.random((512, 3), np.float32)
     w = _weights(jax_state.params)
-    with pltpu.force_tpu_interpret_mode():
-        ref = JMP.fused_train_grad(*w, x, t)
+    ref = _listed(run_jax_side("test_torch_train:_jax_k5", tmp_path, x=x, t=t, **_weight_arrays("w", w)))
     got = MC.fused_train_grad_plain(*(torch.from_numpy(a) for a in w), torch.from_numpy(x),
                                     torch.from_numpy(t))
     # the loss is one f32 sum over 1536 terms: 1e-7 relative seen
@@ -174,18 +229,18 @@ def _port_train4(state, x4, t4, num_records):
         )
 
 
-def test_plain_k6_matches_tpu_kernel(jax_state, monkeypatch):
-    # B = 1024 in two grid steps of the TPU kernel, as test_mlp_pallas.py cuts it
-    monkeypatch.setattr(JMP, "HALF", 128)
-    monkeypatch.setattr(JMP, "TILE_T4", JMP.STREAMS * 2 * 128)
+def test_plain_k6_matches_tpu_kernel(jax_state, tmp_path):
+    # B = 1024 in two grid steps of the TPU kernel (_jax_k6 cuts it as test_mlp_pallas.py does)
     _, t4, x4 = _train4_inputs(4, 1024)
     s = jax_state
     tri = _weights
-    with pltpu.force_tpu_interpret_mode():
-        losses, w, mu, nu, ema = JMP.fused_train4(
-            *tri(s.params), tri(s.opt.mu), tri(s.opt.nu), tri(s.ema), x4, t4,
-            np.float32(JNetworkConfig().learning_rate), s.opt.step,
-        )
+    res = run_jax_side(
+        "test_torch_train:_jax_k6", tmp_path, x4=x4, t4=t4, lr=np.float32(JNetworkConfig().learning_rate),
+        step=np.asarray(s.opt.step), **_weight_arrays("w", tri(s.params)), **_weight_arrays("mu", tri(s.opt.mu)),
+        **_weight_arrays("nu", tri(s.opt.nu)), **_weight_arrays("ema", tri(s.ema)),
+    )
+    losses = res["losses"]
+    w, mu, nu, ema = (_triple(res, k) for k in ("w", "mu", "nu", "ema"))
     state = N.state_from_numpy(jax.tree.map(np.asarray, s))
     got = _port_train4(state, x4, t4, 900)
     # 4 sequential steps: 7e-7 relative seen on the losses, 5.4e-5 on the state
