@@ -23,7 +23,9 @@ Phases, each of which raises on failure (non-zero exit):
    kernels W1/W2 on the 132 K-triangle ``cornell_objects`` scene against the
    plain walk, and W1 against the brute-force K1; the hash grid's lookup H1
    bit for bit and its adjoint H2 under ``tools/bench_hash.py::CARD_LIMITS``
-   (with its seeded faults above them and two runs' spread printed) at the
+   (with its seeded faults above them), two launches of H2 bit-equal and
+   equal to ``bench_hash.fixed_point_adjoint`` (its arithmetic in plain
+   PyTorch), the table rows zero in one and not in the other printed, at the
    shipped grid (H1 at B = 128,000, the frame's inference, and at 16,384, a
    step's; H2 at 16,384) and at an edge grid (2^10 rows, base resolution 4:
    dense and hashed levels; B not a multiple of 32; positions outside
@@ -66,14 +68,24 @@ Phases, each of which raises on failure (non-zero exit):
    frequency frames bit for bit, ``set_encoding(HASH)``, one hash frame,
    every state set to the eager one's, then one replayed hash frame against
    the eager one: image, records and step bit for bit, loss and state within
-   ``bench_hash.HASH_LIMITS`` (H2's atomics reorder the table's gradient),
-   the planted fault above them; the drift over six more frames printed;
-   and every H1 and H2 launch of one more eager hash frame recorded
+   ``bench_hash.HASH_LIMITS``, the planted fault above them; then four more
+   hash frames after each of which the replayed renderer and a second eager
+   one equal the eager one bit for bit (H2's fixed-point sums); and every H1
+   and H2 launch of one more eager hash frame recorded
    (``bench_hash.record_frame``: the inference in pixel order, four
    shuffled training batches), H1 held bit for bit and H2 within
    ``CARD_LIMITS`` on each and timed by ``bench_hash.measure``: the
    frame-weighted times (the kernels line's ``frame_ms``) beside the frame
    bound (``frame_bound_ms``);
+6e. the glass slice: ``cornell_glass`` (glass, frosted glass and a
+   thin-walled translucent panel) FULL + train at 320x320 with reflectance
+   factoring and shadow-ray Russian roulette (tau 0.5), replayed: K1, K2,
+   K3, K6 and K7 launched, a finite image, the loss curve; replayed against
+   eager frames bit for bit (as 6c, 6 frames); live edits under captured
+   graphs: an albedo edit replays the same graph reading the patched
+   tables, an archetype edit captures another, eager and replayed frames
+   bit for bit after each; a screenshot (PNG, HDR) and a render state
+   written and read back, the state loaded under a captured graph;
 7. large scene: FULL + train at 320x320 on ``cornell_objects`` (the wide
    BVH path), replayed: frames until the tile size settles, then 8 timed
    frames and 4 more counted; W1, W2 and the path's gather must run, K1 and
@@ -92,8 +104,10 @@ Phases, each of which raises on failure (non-zero exit):
 9. reference: 32x32 frames (8x8 tiles) on the card against the same frames
    on the CPU, where the port runs the plain versions the CPU tests check
    against JAX; after the training frame, the weights, moments and EMA too.
-   Once by brute force and once with the wide BVH attached; then one hash
-   FULL + train frame, held by ``HASH_LIMITS``;
+   Once by brute force and once with the wide BVH attached; the
+   ``cornell_glass`` FULL + train (factoring, roulette) and NO_CACHE frames
+   under the same bounds; then one hash FULL + train frame, held by
+   ``HASH_LIMITS``;
 10. quality gate: FULL + train at 128x128, 4x4 tiles, 128 frames, for both
    encodings, and NO_CACHE at 64 spp (the noise floor), tonemapped PSNR and
    SSIM against the committed 4096-spp ground truth
@@ -247,10 +261,11 @@ def _print_eager_and_replayed(PF, r, label):
     print(f"{label} graphs: " + ", ".join(f"tile {k[2][0]}x{k[2][1]} {g.nbytes} bytes" for k, g in r.graphs.items()))
 
 
-def _replay_matches_eager(scene, system, dev, frames, label):
+def _replay_matches_eager(scene, system, dev, frames, label, **renderer_kw):
     """Eager and replayed FULL + train frames from the same start, with a
     tile-size change, a restart, a reset of the cache and new
-    hyper-parameters on the way; equal bit for bit after every frame."""
+    hyper-parameters on the way; equal bit for bit after every frame.
+    ``renderer_kw``: Renderer arguments, and ``nee_rr_tau`` for the cfg."""
     import torch
 
     from nrc_tpu_torch.config import RenderMode
@@ -264,8 +279,11 @@ def _replay_matches_eager(scene, system, dev, frames, label):
         return out + [st.opt.step, r.image.view(torch.int32), s.loss.view(torch.int32), s.num_train_records,
                       s.traced_rays]
 
-    pair = [Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device=dev, capture=c)
-            for c in (False, True)]
+    tau = renderer_kw.pop("nee_rr_tau", 0.0)
+    pair = [Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device=dev, capture=c,
+                     **renderer_kw) for c in (False, True)]
+    for r in pair:
+        r.cfg = dataclasses.replace(r.cfg, nee_rr_tau=tau)
     t0 = system.tile_size
     events = {2: ("tile size", lambda r: setattr(r, "cfg", _with_tiles(r.cfg, (2 * t0[0], 2 * t0[1])))),
               4: ("tile size back", lambda r: setattr(r, "cfg", _with_tiles(r.cfg, t0))),
@@ -317,19 +335,22 @@ def _hash_kernels(report, gen, dev):
               + "; ".join(f"B = {c['n']}: {c['differing']} of {c['words']} words differ from the plain version, "
                           f"largest |diff| {c['max_abs']:.3g}" for c in h1))
         print(f"H2 {label} grid, B = {n2}, g read through a [B, 128] row stride: {res['h2']} (limits "
-              f"{BH.CARD_LIMITS}), largest |diff| {res['h2_max_abs']:.3g}; two runs on the same inputs "
-              f"{res['h2_run_to_run']} apart (bit-equal: {res['h2_bits_equal_run_to_run']}); seeded faults "
-              f"{res['faults']}")
+              f"{BH.CARD_LIMITS}), largest |diff| {res['h2_max_abs']:.3g}, table rows zero in one and not in the "
+              f"other {res['h2_zero_mismatch_rows']}; two runs on the same inputs bit-equal: "
+              f"{res['h2_bits_equal_run_to_run']}, equal to the fixed-point model: "
+              f"{res['h2_bits_equal_fixed_point_model']} (BH.check raises otherwise); seeded faults {res['faults']}")
     t = BH.times(BH.full_spec(), BH.INFER_ROWS, BH.STEP_ROWS, gen, dev)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # H1's row: the frame's inference launch (B = INFER_ROWS)
     report["hash_grid_lookup"] = dict(max_abs_err=full["h1"]["max_abs"], **{k: t["H1"][k] for k in keys})
-    report["hash_grid_adjoint"] = dict(max_abs_err=full["h2_max_abs"], **{k: t["H2"][k] for k in keys})
+    report["hash_grid_adjoint"] = dict(max_abs_err=full["h2_max_abs"], scratch_bound_ms=t["H2"]["scratch_bound_ms"],
+                                       **{k: t["H2"][k] for k in keys})
     print(f"H1 at B = {t['H1']['n']}: {t['H1']['ms']:.4f} ms (plain {t['H1']['plain_ms']:.4f}), bound "
           f"{t['H1']['bound_ms']:.4f} ms by {t['H1']['bound_by']}; H1 at B = {t['H1_steps']['n']}: "
           f"{t['H1_steps']['ms']:.4f} ms (plain {t['H1_steps']['plain_ms']:.4f}), bound "
           f"{t['H1_steps']['bound_ms']:.4f} ms; H2 at B = {t['H2']['n']}: {t['H2']['ms']:.4f} ms "
-          f"(plain {t['H2']['plain_ms']:.4f}), bound {t['H2']['bound_ms']:.4f} ms by {t['H2']['bound_by']}, on the "
+          f"(plain {t['H2']['plain_ms']:.4f}), bound {t['H2']['bound_ms']:.4f} ms by {t['H2']['bound_by']} (its "
+          f"64-bit sums {t['H2']['scratch_bound_ms']:.4f} ms more), on the "
           f"grid cut to its levels {t['H2']['by_level_ms']}; index_add_ of the 8 x L x B precomputed weighted rows "
           f"(not the same function: no indices or weights computed) {t['H2']['index_add_ms_precomputed_rows']:.4f} "
           f"ms; the table's Adam + EMA (plain PyTorch) {t['table_update_ms']:.4f} ms a step, four a frame")
@@ -428,22 +449,26 @@ def _hash_frame_launches(rh):
 
 def _hash_replay_vs_eager(scene, system, dev, frames, label):
     """Renderers from the same start: one eager, one replaying graphs, a
-    second eager one (the spread of two eager runs, printed) and a replaying
-    one whose captured frame drops one train_step (a planted fault). Two
-    frequency frames bit for bit; set_encoding(HASH) and one hash frame,
-    where the replaying renderers capture; every state set to the eager
-    one's; one more hash frame, a replay, held by ``bench_hash.frame_gap``:
-    image, records, traced rays and step bit for bit, the loss and the state
-    within ``HASH_LIMITS`` (H2's atomics reorder the table's gradient); the
-    planted fault must read above the state limits. Then the drift over
-    ``frames`` - 4 more hash frames, printed and not held: H2's reordering,
-    amplified by Adam's eps of 1e-15, grows from frame to frame."""
+    second eager one and a replaying one whose captured frame drops one
+    train_step (a planted fault). Two frequency frames bit for bit;
+    set_encoding(HASH) and one hash frame, where the replaying renderers
+    capture; every state set to the eager one's; one more hash frame, a
+    replay, held by ``bench_hash.frame_gap``: image, records, traced rays
+    and step bit for bit, the loss and the state within ``HASH_LIMITS``;
+    the planted fault must read above the state limits. Then ``frames`` - 4
+    more hash frames (at least 4), after each of which the replayed and the
+    second eager renderer must equal the eager one bit for bit: image,
+    weights, EMA, moments, the hash table and its EMA and moments, step,
+    loss, records and traced rays (H2 sums in fixed point, the same bits on
+    every launch)."""
     import torch
 
     from nrc_tpu_torch.config import InputEncoding, RenderMode
+    from nrc_tpu_torch.models import network as N
     from nrc_tpu_torch.render.renderer import Renderer
     from nrc_tpu_torch.tools import bench_hash as BH
 
+    _check(frames - 4 >= 4, f"{label}: fewer than 4 hash frames held bit for bit")
     eager, replayed, eager2, faulty = (
         Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device=dev, capture=c)
         for c in (False, True, False, True))
@@ -481,24 +506,141 @@ def _hash_replay_vs_eager(scene, system, dev, frames, label):
     _check(BH.replay_state_above_limits(gaps["replayed, one train_step dropped"]),
            f"{label}: a replayed frame with one train_step dropped reads within the limits")
     del faulty, every
-    worst = {}
+
+    def bits(r):
+        st, stats = r.net_state, r.last_stats
+        return ([t.detach().view(torch.int32) for t in N.state_tensors(st)]
+                + [st.opt.step, r.image.view(torch.int32), stats.loss.view(torch.int32), stats.num_train_records,
+                   stats.traced_rays])
+
     for f in range(frames - 4):
         for r in (eager, replayed, eager2):
             r.render_frame()
         torch.cuda.synchronize()
         for name, r in (("replayed", replayed), ("eager again", eager2)):
-            close, mean_gap = _image_agreement(r.image, eager.image)
-            gap = BH.state_gap(r.net_state, eager.net_state)
-            row = worst.setdefault(name, dict(close=1.0, mean_gap=0.0, mean=0.0, far=0.0, largest=0.0))
-            row["close"] = min(row["close"], close)
-            for k, v in (("mean_gap", mean_gap), ("mean", gap["mean"]), ("far", gap["far"]),
-                         ("largest", gap["largest"])):
-                row[k] = max(row[k], v)
+            same = [torch.equal(a, b) for a, b in zip(bits(r), bits(eager))]
+            _check(all(same), f"{label} hash frame {f}: the {name} renderer differs from the eager one ({same})")
     for r in (eager, replayed, eager2):
         r.flush_stats()
-    print(f"{label}: drift over {frames - 4} more hash frames (a reading, not held), worst against the eager "
-          f"renderer: {worst}; {replayed.replays} replays; loss {replayed.loss_history[-1]:.4f}")
+    print(f"{label}: {frames - 4} more hash FULL + train frames, replayed and eager (twice), bit for bit equal "
+          f"after every frame (image, weights, EMA, moments, hash table, its EMA and moments, step, loss, records, "
+          f"traced rays); {replayed.replays} replays; loss {replayed.loss_history[-1]:.4f}")
     _check(replayed.replays >= frames - 3, f"{label}: too few replays ({replayed.replays})")
+
+
+GLASS_TAU = 0.5  # the glass slice's shadow-ray Russian roulette threshold
+
+
+def _glass_slice(kernels, dev, BI, path_gather):
+    """cornell_glass FULL + train at 320x320 with reflectance factoring and
+    shadow-ray Russian roulette, replayed: until the tile size settles, 8
+    timed frames (K1, K2, K3, K6 and K7 launched, a finite image, the loss
+    curve), 4 counted; returns the launches per replayed frame."""
+    import torch
+
+    from nrc_tpu_torch.config import RenderMode
+    from nrc_tpu_torch.render.renderer import Renderer
+    from nrc_tpu_torch.scene.scene_builder import cornell_glass
+
+    glass, glass_sys = cornell_glass((320, 320))
+    rg = Renderer(glass, glass_sys, render_mode=RenderMode.FULL, device=dev, reflectance_factoring=True)
+    rg.cfg = dataclasses.replace(rg.cfg, nee_rr_tau=GLASS_TAU)
+    sizes = BI.settle_tiles(rg)
+    trained, counts = _counted(kernels, kernels, lambda: rg.benchmark(8))
+    rg.flush_stats()
+    for name in ("intersect_planes", "occluded_planes", "fused_forward", "fused_train4", path_gather):
+        _check(counts[name] > 0, f"{name} was not launched by the cornell_glass FULL + train run")
+    _check(bool(torch.isfinite(rg.image).all()) and rg.image.std().item() > 0.0, "cornell_glass image bad")
+    _check(math.isfinite(trained["loss"]) and int(rg.last_stats.num_train_records) > 0, "cornell_glass training bad")
+    per_frame = _replayed_launches(rg, kernels)
+    _check(per_frame["fused_train4"] == 1, f"a replayed cornell_glass frame launched K6 {per_frame['fused_train4']} times")
+    print(f"cornell_glass FULL + train 320x320 ({glass.num_triangles} triangles; archetypes "
+          f"{sorted(rg.cfg.archetype_set)}; reflectance factoring, shadow-ray roulette tau {GLASS_TAU}): tile sizes "
+          f"{sizes}, {trained['ms_per_frame']:.3f} ms/frame, {trained['mrays_per_s']:.2f} traced Mrays/s, "
+          f"{trained['traced_rays_per_frame']:.0f} rays/frame, {int(rg.last_stats.num_train_records)} records in the "
+          f"last frame, loss {trained['loss']:.4f}, image mean {rg.image.mean().item():.4f}; launches per replayed "
+          f"frame { {k: v for k, v in per_frame.items() if v} }")
+    print(f"cornell_glass loss curve (per frame): {[round(v, 4) for v in rg.loss_history]}")
+    return per_frame
+
+
+def _live_edits(dev):
+    """A material edit and a render state under captured graphs: a replaying
+    and an eager renderer (cornell_glass 64x64, 8x8 tiles) from one start;
+    an albedo edit, whose tables the patch copies into the tensors the
+    graph reads (the next frames replay the same graph), then an archetype
+    edit (another archetype set: a new graph); equal bit for bit after
+    every frame. A screenshot (PNG and HDR) and a render state written and
+    read back; the state loaded into a third renderer that has captured a
+    frame, and its next frame, a replay, equal to the replaying one's."""
+    import tempfile
+
+    import torch
+
+    from nrc_tpu_torch.config import RenderMode
+    from nrc_tpu_torch.models import checkpoint as PC
+    from nrc_tpu_torch.models import network as N
+    from nrc_tpu_torch.render.renderer import Renderer
+    from nrc_tpu_torch.scene.materials import Archetype
+    from nrc_tpu_torch.scene.scene_builder import cornell_glass
+    from nrc_tpu_torch.utils import image_io
+    from nrc_tpu_torch.utils.tonemap import tonemap_to_u8
+
+    def make(capture):
+        scene, system = cornell_glass((64, 64))
+        return Renderer(scene, _with_tiles(system, (8, 8)), render_mode=RenderMode.FULL, adaptive_tiles=False,
+                        device=dev, capture=capture)
+
+    def bits(r):
+        st = r.net_state
+        return [t.detach().view(torch.int32) for t in N.state_tensors(st)] + [st.opt.step, r.image.view(torch.int32)]
+
+    def frames(pair, n, what):
+        for f in range(n):
+            for r in pair:
+                r.render_frame()
+            torch.cuda.synchronize()
+            _check(all(torch.equal(a, b) for a, b in zip(*(bits(r) for r in pair))),
+                   f"live edits: {what}, frame {f}: replayed and eager frames differ")
+
+    eager, replayed = make(False), make(True)
+    pair = (eager, replayed)
+    frames(pair, 2, "before the edits")
+    graphs, replays = len(replayed.graphs), replayed.replays
+    tables = replayed.device_scene.mat_row.data_ptr()
+    for r in pair:
+        r.update_material(0, albedo=(0.3, 0.5, 0.7))
+    frames(pair, 2, "albedo edit")
+    _check(replayed.device_scene.mat_row.data_ptr() == tables and len(replayed.graphs) == graphs
+           and replayed.replays == replays + 2, "the albedo edit did not replay the captured graph")
+    for r in pair:
+        r.update_material(0, archetype=Archetype.SPECULAR_REFLECT)
+    frames(pair, 2, "archetype edit")
+    _check(len(replayed.graphs) == graphs + 1, "the archetype edit did not capture a graph of its own")
+    with tempfile.TemporaryDirectory() as tmp:
+        png = image_io.read_png(replayed.screenshot(f"{tmp}/shot"))
+        want = tonemap_to_u8(torch.from_numpy(replayed.image_hdr().copy()), replayed.system.tonemapper).numpy()
+        hdr = image_io.read_hdr(replayed.screenshot(f"{tmp}/shot", tonemap=False))
+        _check((png == want).all() and png.std() > 0
+               and abs(hdr - replayed.image_hdr()).max() <= replayed.image_hdr().max() / 128,
+               "a screenshot read back is not the image")
+        path = PC.save_render_state(f"{tmp}/state", replayed)
+        third = make(True)
+        for r in (third,):
+            r.update_material(0, albedo=(0.3, 0.5, 0.7))
+            r.update_material(0, archetype=Archetype.SPECULAR_REFLECT)
+            r.render_frame()  # captures its graph
+        PC.load_render_state(path, third)
+        _check(PC.is_render_state(path) and all(torch.equal(a, b) for a, b in zip(bits(third), bits(replayed)))
+               and (third.iteration, third.total_subframe) == (replayed.iteration, replayed.total_subframe),
+               "a render state read back differs from the renderer that wrote it")
+    replays = third.replays
+    frames((replayed, third), 1, "after loading a render state")
+    _check(third.replays == replays + 1, "the frame after loading a render state was not a replay")
+    print(f"live edits (cornell_glass 64x64): an albedo edit replayed its captured graph ({replayed.replays} replays, "
+          f"{len(replayed.graphs)} graphs), an archetype edit captured another; eager and replayed bit for bit "
+          f"after every frame; a screenshot (PNG, HDR) and a render state written and read back, the state loaded "
+          f"under a captured graph and its next frame bit for bit")
 
 
 def _convergence(dev, net_cfg, label):
@@ -530,6 +672,35 @@ def _convergence(dev, net_cfg, label):
     print(f"convergence loss curve, {label}: {[round(v, 4) for v in losses]}")
     _check(late < 0.9 * early, f"{label}: the loss did not fall")
     _check(psnr > 18.0, f"{label}: FULL + train is too far from the NO_CACHE oracle")
+
+
+def _small_card_vs_cpu(rg, rcpu, label, train):
+    """One 32x32 frame of a card renderer against the same frame of a CPU
+    one: the image (and after a training frame the records, the loss and
+    the weights, moments and EMA) under the bounds of phase 9."""
+    import torch
+
+    sg, sc = rg.render(1), rcpu.render(1)
+    close, mean_gap = _image_agreement(rg.image.cpu(), rcpu.image)
+    print(f"32x32 {label} card vs CPU: {close:.4f} of pixels within 1e-3, means {mean_gap:.2e} apart")
+    _check(close >= 0.98 and mean_gap < 1e-3, f"{label}: the card disagrees with the CPU path")
+    if not train:
+        return
+    n_rec = (int(sg.num_train_records), int(sc.num_train_records))
+    loss_gap = abs(float(sg.loss) / float(sc.loss) - 1.0)
+
+    def state(rr):
+        st = rr.net_state
+        return [t.detach().cpu() for m in (st.params, st.opt.mu, st.opt.nu, st.ema) for t in m.tensors()]
+
+    diffs = [(a - c).abs() for a, c in zip(state(rg), state(rcpu))]
+    dmax, dmean = max(d.max().item() for d in diffs), max(d.mean().item() for d in diffs)
+    print(f"32x32 {label} card vs CPU: records {n_rec[0]} vs {n_rec[1]} (must be equal), "
+          f"loss {loss_gap:.2e} relative (limit 1e-5); weights, moments and EMA after the "
+          f"frame: largest |diff| {dmax:.3g} (limit 1e-5), largest mean |diff| {dmean:.3g} "
+          f"(limit 1e-7)")
+    _check(n_rec[0] == n_rec[1] > 0 and loss_gap <= 1e-5 and dmax <= 1e-5 and dmean <= 1e-7,
+           f"{label}: the card's training disagrees with the CPU path")
 
 
 def _hash_card_vs_cpu(dev, hash_cfg):
@@ -597,7 +768,7 @@ def main() -> int:
     from nrc_tpu_torch.ops.intersect import RT_MAX
     from nrc_tpu_torch.render.renderer import Renderer
     from nrc_tpu_torch.render.scene_device import upload_scene
-    from nrc_tpu_torch.scene.scene_builder import cornell_box, cornell_objects
+    from nrc_tpu_torch.scene.scene_builder import cornell_box, cornell_glass, cornell_objects
     from nrc_tpu_torch.tools import bench_gather
     from nrc_tpu_torch.tools import bench_intersect as BI
     from nrc_tpu_torch.tools import bench_mlp as BM
@@ -1156,7 +1327,14 @@ def main() -> int:
     for name, kind in (("hash_grid_lookup", "H1"), ("hash_grid_adjoint", "H2")):
         report[name].update(frame_ms=hash_launches[kind]["ms"]["shipped"],
                             frame_bound_ms=hash_launches[kind]["bound_ms"])
-    _hash_replay_vs_eager(scene, _with_tiles(system, (4, 4)), dev, 10, "Cornell box, hash")
+    _hash_replay_vs_eager(scene, _with_tiles(system, (4, 4)), dev, 8, "Cornell box, hash")
+
+    # ---- 6e. the glass slice: transmission lobes, IOR stack, factoring, roulette ----
+    _glass_slice(kernels, dev, BI, path_gather)
+    glass_scene, glass_system = cornell_glass((320, 320))
+    _replay_matches_eager(glass_scene, _with_tiles(glass_system, (4, 4)), dev, 6, "cornell_glass",
+                          reflectance_factoring=True, nee_rr_tau=GLASS_TAU)
+    _live_edits(dev)
 
     # ---- 7. the large scene: FULL + train through the wide BVH -------------------
     sizes = BI.settle_tiles(rb)
@@ -1237,27 +1415,20 @@ def main() -> int:
         if use_bvh:
             rg.device_scene = upload_scene(small, dev, use_bvh=True)
             rcpu.device_scene = upload_scene(small, "cpu", use_bvh=True)
-        sg, sc = rg.render(1), rcpu.render(1)
-        close, mean_gap = _image_agreement(rg.image.cpu(), rcpu.image)
         label = f"{mode.name}{' + train' if train else ''}{', wide BVH' if use_bvh else ''}"
-        print(f"32x32 {label} card vs CPU: {close:.4f} of pixels within 1e-3, means {mean_gap:.2e} apart")
-        _check(close >= 0.98 and mean_gap < 1e-3, f"{label}: the card disagrees with the CPU path")
-        if train:
-            n_rec = (int(sg.num_train_records), int(sc.num_train_records))
-            loss_gap = abs(float(sg.loss) / float(sc.loss) - 1.0)
-
-            def state(rr):
-                st = rr.net_state
-                return [t.detach().cpu() for m in (st.params, st.opt.mu, st.opt.nu, st.ema) for t in m.tensors()]
-
-            diffs = [(a - c).abs() for a, c in zip(state(rg), state(rcpu))]
-            dmax, dmean = max(d.max().item() for d in diffs), max(d.mean().item() for d in diffs)
-            print(f"32x32 {label} card vs CPU: records {n_rec[0]} vs {n_rec[1]} (must be equal), "
-                  f"loss {loss_gap:.2e} relative (limit 1e-5); weights, moments and EMA after the "
-                  f"frame: largest |diff| {dmax:.3g} (limit 1e-5), largest mean |diff| {dmean:.3g} "
-                  f"(limit 1e-7)")
-            _check(n_rec[0] == n_rec[1] > 0 and loss_gap <= 1e-5 and dmax <= 1e-5 and dmean <= 1e-7,
-                   "FULL + train: the card's training disagrees with the CPU path")
+        _small_card_vs_cpu(rg, rcpu, label, train)
+    # the glass slice's frames, by brute force: the transmission lobes, the
+    # IOR stack, reflectance factoring and shadow-ray roulette, under the
+    # same bounds
+    glass_small, glass_small_sys = cornell_glass((32, 32))
+    glass_small_sys.tile_size = (8, 8)
+    for mode, train in ((RenderMode.FULL, True), (RenderMode.NO_CACHE, False)):
+        label = f"cornell_glass {mode.name}{' + train' if train else ''}"
+        rg, rcpu = (Renderer(glass_small, glass_small_sys, render_mode=mode, train=train, device=d,
+                             reflectance_factoring=True) for d in (dev, "cpu"))
+        for rr in (rg, rcpu):
+            rr.cfg = dataclasses.replace(rr.cfg, nee_rr_tau=GLASS_TAU)
+        _small_card_vs_cpu(rg, rcpu, label, train)
     _hash_card_vs_cpu(dev, hash_cfg)
 
     # ---- 10. the quality gate: FULL + train against the 4096-spp ground truth ---

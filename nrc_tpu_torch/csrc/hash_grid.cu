@@ -47,23 +47,43 @@
 // from 0, each term w * row[f] rounded before the add, whatever reads
 // brought the rows.
 //
-// H2: w * g added into a zeroed table gradient. The same tile of 32 queries
-// a block, g's rows staged through shared memory (g is the hash columns of
-// K4's dX, read through its row stride: 32 coalesced rows), a warp a level.
-// Dense levels whose rows fit a block's shared memory (the shipped level 0:
-// 17^3 rows, 39 KB) go to blocks of their own, one for every kDenseQueries
-// queries: each sums its queries' terms into a shared-memory copy of the
-// level's rows (shared atomics) and adds each row it touched into the
-// gradient once. A frame's training batch puts its 131,072 level-0 terms on
-// about 990 rows, up to 967 on one; the pre-sum leaves at most one global
-// atomic a row a block. Those blocks run beside the tiles' blocks, and H2's
-// time is then that of the hashed levels' atomics (about 1.5 M vector
-// atomics a batch, 0.021 ms). The atomics make the order of each row's sum
-// change from run to run: H2 is held to its plain version by limits on the
-// mean and largest difference (tools/bench_hash.py::CARD_LIMITS). A
-// deterministic H2 (a stable radix sort of the (row, term) pairs, then each
-// row summed in the plain version's order) took 0.30 ms a batch against
-// 0.033 (PERF.md §6).
+// H2: w * g summed into the table gradient, the same bits on every launch.
+// Each term is quantised to a signed 64-bit fixed-point number and the
+// numbers are added with integer atomics, whose sum does not depend on the
+// order of the adds; one last pass turns each row's sum into f32. Three
+// kernels in one stream, all on the device (no host read, so a frame's CUDA
+// graph holds them):
+//   1. hash_gmax_kernel: each level's largest |g| over the batch (the f32
+//      bits' atomicMax, exact and order-free);
+//   2. hash_adjoint_kernel: each term w * g (f32, as the plain version
+//      rounds it) times the level's scale 2^s, rounded to the nearest int64
+//      and added. The scale is a power of two chosen a level from that
+//      largest |g| < 2^e: s = 62 - ceil(log2(8 B)) - e, so that a row's sum
+//      of at most 8 B terms (|w| <= 1) stays below 2^62. A term is then
+//      known to 2^-(s+1), about 2^-46 of the level's largest |g| at
+//      B = 16,384; a row's f32 sum in the plain version rounds at 2^-24 of
+//      its own size, so the fixed-point sum is the more exact of the two.
+//      A term below half a quantum adds nothing (a row of such terms stays
+//      0 where the plain version's is not);
+//   3. hash_convert_kernel: dtable = sum * 2^-s, rounded to f32 once.
+// The tiles: 32 queries a block, g's rows staged through shared memory (g
+// is the hash columns of K4's dX, read through its row stride: 32 coalesced
+// rows), a warp a level; an aligned x-corner pair takes 2 F consecutive
+// 64-bit atomics (no vector form of the integer add exists), a single row
+// F. Dense levels whose 64-bit rows fit a block's shared memory go to
+// blocks of their own, one for every kDenseQueries queries: each sums its
+// queries' terms into a shared-memory copy of the level's rows with 64-bit
+// shared atomics (as order-free) and adds each row it touched into the
+// global sums once (the shipped level 0: 17^3 rows, 2 features, 78.6 KB).
+// H2's time goes with the number of its atomic instructions, about 65 G a
+// second whatever their width: a (query, level) now takes 16 64-bit ones,
+// where the f32 design took 6 to 8 vector ones (PERF.md §6). The accumulator
+// (8 bytes a table float, behind a header of kMaxLevels words) is the
+// caller's scratch, zeroed here. The parent's f32 atomics added in an order
+// that changed from run to run, and Adam's eps of 1e-15 turned the residues
+// into full steps; a stable radix sort of the (row, term) pairs, then each
+// row summed in the plain order, took 0.30 ms a batch against 0.033
+// (PERF.md §6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,7 +99,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;          // queries a block (a warp's lanes)
 constexpr int kMaxLevels = 32;     // ops/hash_cuda.py::MAX_LEVELS
 constexpr int kDenseQueries = 128;  // queries a pre-summing block of H2 takes at most
-constexpr int kSharedBytes = 48 * 1024;  // a block's shared memory without opting in
+// H2's dense pre-sum budget a block, opted in above the 48 KB a block has
+// by default: the shipped level 0's 64-bit rows (78.6 KB) fit, and a
+// frame's four launches took 0.266 ms with it against 0.304 without
+// (PERF.md §6); the tiles' blocks get as much, two blocks an SM
+constexpr int kSharedBytes = 80 * 1024;
 constexpr uint32_t kPrimeY = 2654435761u;
 constexpr uint32_t kPrimeZ = 805459861u;
 
@@ -159,26 +183,6 @@ __device__ __forceinline__ void load_floats(const float* __restrict__ p, float (
       r[k + 2] = v.z;
       r[k + 3] = v.w;
     }
-  }
-}
-
-// The vector forms of atomicAdd on global float2/float4 exist for sm_90 from
-// CUDA 12.1 on.
-#if !defined(__CUDACC_VER_MAJOR__) || __CUDACC_VER_MAJOR__ < 12 || \
-    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ < 1)
-#error "hash_grid.cu needs CUDA 12.1 or later (atomicAdd on float2/float4)"
-#endif
-
-template <int N>
-__device__ __forceinline__ void atomic_add_floats(float* p, const float (&r)[N]) {
-  if constexpr (N == 1) {
-    atomicAdd(p, r[0]);
-  } else if constexpr (N == 2) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(r[0], r[1]));
-  } else {
-#pragma unroll
-    for (int k = 0; k < N; k += 4)
-      atomicAdd(reinterpret_cast<float4*>(p + k), make_float4(r[k], r[k + 1], r[k + 2], r[k + 3]));
   }
 }
 
@@ -300,47 +304,91 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// One (query, level) of H2: w * g added into the 8 corners' rows, an
-// aligned x-corner pair with one vector atomic.
+// H2's fixed point. A level's scale 2^s from its largest |g| (f32 bits) and
+// the batch's headroom (ceil(log2(8 B))): the sum of a row's at most 8 B
+// terms stays below 2^62. A level whose g is all zero adds only zeros.
+__device__ __forceinline__ int level_shift(uint32_t gmax_bits, int headroom) {
+  if (gmax_bits == 0u) return 0;
+  int e;
+  frexpf(__uint_as_float(gmax_bits), &e);  // largest |g| < 2^e
+  return 62 - headroom - e;
+}
+
+// a term w * g (already rounded to f32) in units of 2^-s: exact in double
+// (a power of two), then rounded to the nearest integer once
+__device__ __forceinline__ unsigned long long quantise(float t, double scale) {
+  return static_cast<unsigned long long>(__double2ll_rn(__dmul_rn(static_cast<double>(t), scale)));
+}
+
+template <int N>
+__device__ __forceinline__ void atomic_add_fixed(unsigned long long* p, const unsigned long long (&r)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) atomicAdd(p + k, r[k]);
+}
+
+// One (query, level) of H2: w * g quantised and added into the 8 corners'
+// rows, an aligned x-corner pair as 2 F consecutive words.
 template <int F>
-__device__ __forceinline__ void adjoint_level(const float (&p)[3], const float (&gl)[F], int l, float* dtable,
-                                              int log2_size, const Levels& lv) {
+__device__ __forceinline__ void adjoint_level(const float (&p)[3], const float (&gl)[F], int l,
+                                              unsigned long long* acc, int log2_size, const Levels& lv,
+                                              double scale) {
   const uint32_t mask = (1u << log2_size) - 1u;
   const Cell c = cell_of(p, lv.res[l]);
   const bool dense = (lv.dense >> l) & 1u;
-  float* level_rows = dtable + (static_cast<int64_t>(l) << log2_size) * F;
+  unsigned long long* level_rows = acc + (static_cast<int64_t>(l) << log2_size) * F;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const XPair q = x_pair(c, j, dense, lv.verts[l], mask);
-    float u0[F], u1[F];
+    unsigned long long u0[F], u1[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) {
-      u0[f] = __fmul_rn(q.w0, gl[f]);
-      u1[f] = __fmul_rn(q.w1, gl[f]);
+      u0[f] = quantise(__fmul_rn(q.w0, gl[f]), scale);
+      u1[f] = quantise(__fmul_rn(q.w1, gl[f]), scale);
     }
     if (q.idx1 == (q.idx0 ^ 1)) {
-      float two[2 * F];
+      unsigned long long two[2 * F];
       const bool odd = q.idx0 & 1;
 #pragma unroll
       for (int f = 0; f < F; ++f) {
         two[f] = odd ? u1[f] : u0[f];
         two[F + f] = odd ? u0[f] : u1[f];
       }
-      atomic_add_floats<2 * F>(level_rows + static_cast<int64_t>(q.idx0 & ~1) * F, two);
+      atomic_add_fixed<2 * F>(level_rows + static_cast<int64_t>(q.idx0 & ~1) * F, two);
     } else {
-      atomic_add_floats<F>(level_rows + static_cast<int64_t>(q.idx0) * F, u0);
-      atomic_add_floats<F>(level_rows + static_cast<int64_t>(q.idx1) * F, u1);
+      atomic_add_fixed<F>(level_rows + static_cast<int64_t>(q.idx0) * F, u0);
+      atomic_add_fixed<F>(level_rows + static_cast<int64_t>(q.idx1) * F, u1);
     }
   }
 }
 
-// H2 on the levels not pre-summed: dtable[l, idx, f] += w * g[b, l * F + f]
-// for the 8 corners of each (query, level), a block a tile of 32 queries.
-// g's rows are ld floats apart.
+// H2's first kernel: gmax[l] = the largest |g[b, l * F + f]| as f32 bits
+// (non-negative floats order as their bits), a block's maxima in shared
+// memory, then one global atomic a level a block.
+__global__ void __launch_bounds__(kThreads)
+    hash_gmax_kernel(const float* __restrict__ g, int64_t ld, int n, int levels, int features,
+                     uint32_t* gmax) {
+  __shared__ uint32_t block_max[kMaxLevels];
+  if (threadIdx.x < kMaxLevels) block_max[threadIdx.x] = 0u;
+  __syncthreads();
+  const int width = levels * features;
+  const int64_t total = static_cast<int64_t>(n) * width;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < total;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int64_t b = i / width;
+    const int col = static_cast<int>(i - b * width);
+    atomicMax(block_max + col / features, __float_as_uint(fabsf(__ldg(g + b * ld + col))));
+  }
+  __syncthreads();
+  if (threadIdx.x < levels && block_max[threadIdx.x]) atomicMax(gmax + threadIdx.x, block_max[threadIdx.x]);
+}
+
+// H2 on the levels not pre-summed, a block a tile of 32 queries. g's rows
+// are ld floats apart.
 template <int F>
 __device__ __forceinline__ void adjoint_tile(const float* __restrict__ pos, const float* __restrict__ g,
                                              int64_t ld, int n, int levels, int log2_size, const Levels& lv,
-                                             float* dtable, int tile_index, float* gtile) {
+                                             const uint32_t* gmax, int headroom, unsigned long long* acc,
+                                             int tile_index, float* gtile) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b0 = tile_index * kTile;
   const int rows = min(kTile, n - b0);
@@ -357,7 +405,7 @@ __device__ __forceinline__ void adjoint_tile(const float* __restrict__ pos, cons
     if ((lv.presum >> l) & 1u) continue;
     float gl[F];
     load_shared<F>(gtile + lane * stride + l * F, gl);
-    adjoint_level<F>(p, gl, l, dtable, log2_size, lv);
+    adjoint_level<F>(p, gl, l, acc, log2_size, lv, ldexp(1.0, level_shift(gmax[l], headroom)));
   }
 }
 
@@ -365,16 +413,19 @@ __device__ __forceinline__ void adjoint_tile(const float* __restrict__ pos, cons
 template <int F>
 __device__ __forceinline__ void adjoint_presum(const float* __restrict__ pos, const float* __restrict__ g,
                                                int64_t ld, int q0, int q1, int levels, int log2_size,
-                                               const Levels& lv, float* dtable, float* sums, int sum_floats) {
-  for (int i = threadIdx.x; i < sum_floats; i += kThreads) sums[i] = 0.0f;
+                                               const Levels& lv, const uint32_t* gmax, int headroom,
+                                               unsigned long long* acc, unsigned long long* sums,
+                                               int sum_words) {
+  for (int i = threadIdx.x; i < sum_words; i += kThreads) sums[i] = 0ull;
   __syncthreads();
   for (int b = q0 + threadIdx.x; b < q1; b += kThreads) {
     float p[3];
     load_position(pos, b, p);
     for (int l = 0; l < levels; ++l) {
       if (!((lv.presum >> l) & 1u)) continue;
+      const double scale = ldexp(1.0, level_shift(gmax[l], headroom));
       const Cell c = cell_of(p, lv.res[l]);
-      float* level_sums = sums + lv.presum_ofs[l];
+      unsigned long long* level_sums = sums + lv.presum_ofs[l];
       float gl[F];
 #pragma unroll
       for (int f = 0; f < F; ++f) gl[f] = __ldg(g + static_cast<int64_t>(b) * ld + l * F + f);
@@ -383,47 +434,61 @@ __device__ __forceinline__ void adjoint_presum(const float* __restrict__ pos, co
         const XPair q = x_pair(c, j, true, lv.verts[l], 0u);
 #pragma unroll
         for (int f = 0; f < F; ++f) {
-          atomicAdd(level_sums + q.idx0 * F + f, __fmul_rn(q.w0, gl[f]));
-          atomicAdd(level_sums + q.idx1 * F + f, __fmul_rn(q.w1, gl[f]));
+          atomicAdd(level_sums + q.idx0 * F + f, quantise(__fmul_rn(q.w0, gl[f]), scale));
+          atomicAdd(level_sums + q.idx1 * F + f, quantise(__fmul_rn(q.w1, gl[f]), scale));
         }
       }
     }
   }
   __syncthreads();
-  // each row a term touched, added into the gradient once (a row whose
-  // terms summed to zero adds nothing, as its terms would have)
+  // each row a term touched, added into the global sums once
   for (int l = 0; l < levels; ++l) {
     if (!((lv.presum >> l) & 1u)) continue;
     const int nrows = lv.verts[l] * lv.verts[l] * lv.verts[l];
-    const float* level_sums = sums + lv.presum_ofs[l];
-    float* level_rows = dtable + (static_cast<int64_t>(l) << log2_size) * F;
+    const unsigned long long* level_sums = sums + lv.presum_ofs[l];
+    unsigned long long* level_rows = acc + (static_cast<int64_t>(l) << log2_size) * F;
     for (int r = threadIdx.x; r < nrows; r += kThreads) {
-      float v[F];
+      unsigned long long v[F];
       bool any = false;
 #pragma unroll
       for (int f = 0; f < F; ++f) {
         v[f] = level_sums[r * F + f];
-        any |= v[f] != 0.0f;
+        any |= v[f] != 0ull;
       }
-      if (any) atomic_add_floats<F>(level_rows + static_cast<int64_t>(r) * F, v);
+      if (any) atomic_add_fixed<F>(level_rows + static_cast<int64_t>(r) * F, v);
     }
   }
 }
 
-// H2: blocks [0, dense_blocks) pre-sum the dense levels over ranges of the
-// queries, the others take a tile each of the remaining levels.
+// H2's second kernel: blocks [0, dense_blocks) pre-sum the dense levels over
+// ranges of the queries, the others take a tile each of the remaining levels.
 template <int F>
 __global__ void __launch_bounds__(kThreads, 1)
     hash_adjoint_kernel(const float* __restrict__ pos, const float* __restrict__ g, int64_t ld, int n,
-                        int levels, int log2_size, Levels lv, float* dtable, int dense_blocks,
-                        int sum_floats) {
-  extern __shared__ float smem[];
+                        int levels, int log2_size, Levels lv, const uint32_t* gmax, int headroom,
+                        unsigned long long* acc, int dense_blocks, int sum_words) {
+  extern __shared__ unsigned long long smem[];
   if (static_cast<int>(blockIdx.x) < dense_blocks) {
     const int per = (n + dense_blocks - 1) / dense_blocks;
     const int q0 = blockIdx.x * per, q1 = min(n, q0 + per);
-    adjoint_presum<F>(pos, g, ld, q0, q1, levels, log2_size, lv, dtable, smem, sum_floats);
+    adjoint_presum<F>(pos, g, ld, q0, q1, levels, log2_size, lv, gmax, headroom, acc, smem, sum_words);
   } else {
-    adjoint_tile<F>(pos, g, ld, n, levels, log2_size, lv, dtable, blockIdx.x - dense_blocks, smem);
+    adjoint_tile<F>(pos, g, ld, n, levels, log2_size, lv, gmax, headroom, acc, blockIdx.x - dense_blocks,
+                    reinterpret_cast<float*>(smem));
+  }
+}
+
+// H2's third kernel: each table float's fixed-point sum times 2^-s, rounded
+// to f32 once (the int64 to double conversion is exact below 2^53 and
+// rounds once above it; the multiply by a power of two is exact).
+__global__ void __launch_bounds__(kThreads)
+    hash_convert_kernel(const unsigned long long* __restrict__ acc, const uint32_t* __restrict__ gmax,
+                        int headroom, int64_t level_floats, int64_t total, float* __restrict__ dtable) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < total;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int l = static_cast<int>(i / level_floats);
+    const double inv = ldexp(1.0, -level_shift(gmax[l], headroom));
+    dtable[i] = __double2float_rn(__dmul_rn(__ll2double_rn(static_cast<long long>(acc[i])), inv));
   }
 }
 
@@ -445,20 +510,33 @@ int tile_floats(int levels, int features) {
   return kTile * tile_stride(levels, features);
 }
 
-// The dense levels H2 pre-sums: from the coarsest, while their rows fit the
-// shared memory a block has without opting in. Returns the floats they take.
+// The dense levels H2 pre-sums: from the coarsest, while their rows of
+// 64-bit sums fit kSharedBytes. Returns the words they take.
 int choose_presum(int levels, int features, Levels& lv) {
-  int floats = 0;
-  const int budget = kSharedBytes / 4;  // the tiles' blocks use the same memory for g
+  int words = 0;
+  const int budget = kSharedBytes / 8;  // the tiles' blocks use the same memory for g
   for (int l = 0; l < levels; ++l) {
     if (!((lv.dense >> l) & 1u)) continue;
     const int64_t rows = static_cast<int64_t>(lv.verts[l]) * lv.verts[l] * lv.verts[l];
-    if (floats + rows * features > budget) break;
+    if (words + rows * features > budget) break;
     lv.presum |= 1u << l;
-    lv.presum_ofs[l] = floats;
-    floats += static_cast<int>(rows * features);
+    lv.presum_ofs[l] = words;
+    words += static_cast<int>(rows * features);
   }
-  return floats;
+  return words;
+}
+
+// ceil(log2(8 n)): a row's sum has at most 8 n terms
+int headroom_bits(int n) {
+  int bits = 0;
+  while ((int64_t{1} << bits) < int64_t{8} * n) ++bits;
+  return bits;
+}
+
+// a grid-stride kernel's blocks: enough for total items, at most a few waves
+unsigned stride_blocks(int64_t total) {
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(blocks < 1 ? 1 : (blocks > 1024 ? 1024 : blocks));
 }
 
 template <int F>
@@ -472,13 +550,30 @@ cudaError_t launch_lookup(const float* pos, const float* table, int n, int level
 
 template <int F>
 cudaError_t launch_adjoint(const float* pos, const float* g, int64_t ld, int n, int levels, int log2_size,
-                           Levels& lv, float* dtable, cudaStream_t s) {
-  const int sum_floats = choose_presum(levels, F, lv);
+                           Levels& lv, float* dtable, unsigned long long* scratch, cudaStream_t s) {
+  const int64_t total = (static_cast<int64_t>(levels) << log2_size) * F;
+  uint32_t* gmax = reinterpret_cast<uint32_t*>(scratch);
+  unsigned long long* acc = scratch + kMaxLevels;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(unsigned long long) * (kMaxLevels + total), s);
+  if (err != cudaSuccess) return err;
+  const int headroom = headroom_bits(n);
+  hash_gmax_kernel<<<stride_blocks(static_cast<int64_t>(n) * levels * F), kThreads, 0, s>>>(g, ld, n, levels, F,
+                                                                                             gmax);
+  const int sum_words = choose_presum(levels, F, lv);
   const int dense_blocks = lv.presum ? (n + kDenseQueries - 1) / kDenseQueries : 0;
   const int tiles = (n + kTile - 1) / kTile;
-  const int smem_floats = sum_floats > tile_floats(levels, F) ? sum_floats : tile_floats(levels, F);
-  hash_adjoint_kernel<F><<<static_cast<unsigned>(dense_blocks + tiles), kThreads, sizeof(float) * smem_floats, s>>>(
-      pos, g, ld, n, levels, log2_size, lv, dtable, dense_blocks, sum_floats);
+  const size_t sum_bytes = sizeof(unsigned long long) * sum_words;
+  const size_t tile_bytes = sizeof(float) * tile_floats(levels, F);
+  const size_t smem = sum_bytes > tile_bytes ? sum_bytes : tile_bytes;
+  if (smem > 48 * 1024) {  // above the default a kernel must opt in
+    err = cudaFuncSetAttribute(hash_adjoint_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  hash_adjoint_kernel<F><<<static_cast<unsigned>(dense_blocks + tiles), kThreads, smem, s>>>(
+      pos, g, ld, n, levels, log2_size, lv, gmax, headroom, acc, dense_blocks, sum_words);
+  hash_convert_kernel<<<stride_blocks(total), kThreads, 0, s>>>(acc, gmax, headroom,
+                                                                 static_cast<int64_t>(F) << log2_size, total, dtable);
   return cudaGetLastError();
 }
 
@@ -498,17 +593,20 @@ extern "C" int nrc_hash_lookup(const float* pos, const float* table, int n, int 
   }
 }
 
+// scratch: kMaxLevels + levels * 2^log2_size * features 64-bit words,
+// device memory the caller owns (zeroed here, every launch)
 extern "C" int nrc_hash_adjoint(const float* pos, const float* g, long long ld, int n, int levels,
                                 int log2_size, int features, const int* res, int dense_mask,
-                                float* dtable, void* stream) {
+                                float* dtable, void* scratch, void* stream) {
   Levels lv;
-  if (!make_levels(levels, log2_size, features, res, dense_mask, lv)) return cudaErrorInvalidValue;
+  if (!make_levels(levels, log2_size, features, res, dense_mask, lv) || n < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t stride = static_cast<int64_t>(ld);
+  unsigned long long* w = static_cast<unsigned long long*>(scratch);
   switch (features) {
-    case 1: return static_cast<int>(launch_adjoint<1>(pos, g, stride, n, levels, log2_size, lv, dtable, s));
-    case 2: return static_cast<int>(launch_adjoint<2>(pos, g, stride, n, levels, log2_size, lv, dtable, s));
-    case 4: return static_cast<int>(launch_adjoint<4>(pos, g, stride, n, levels, log2_size, lv, dtable, s));
-    default: return static_cast<int>(launch_adjoint<8>(pos, g, stride, n, levels, log2_size, lv, dtable, s));
+    case 1: return static_cast<int>(launch_adjoint<1>(pos, g, stride, n, levels, log2_size, lv, dtable, w, s));
+    case 2: return static_cast<int>(launch_adjoint<2>(pos, g, stride, n, levels, log2_size, lv, dtable, w, s));
+    case 4: return static_cast<int>(launch_adjoint<4>(pos, g, stride, n, levels, log2_size, lv, dtable, w, s));
+    default: return static_cast<int>(launch_adjoint<8>(pos, g, stride, n, levels, log2_size, lv, dtable, w, s));
   }
 }

@@ -14,10 +14,13 @@ one-hot matrix products, a workaround this port leaves out.
   rows in one read where ``idx1 == idx0 ^ 1``; equal to
   ``hash_grid_lookup_plain`` bit for bit.
 - H2 ``hash_grid_adjoint_cuda`` (``nrc_hash_adjoint``): the corners
-  recomputed, w * g added into a zeroed table gradient by atomics (one
-  vector atomic for such a pair; the dense levels pre-summed in shared
-  memory), so the order of each sum changes from run to run; held to
-  ``hash_grid_adjoint_plain`` by ``tools/bench_hash.py::CARD_LIMITS``.
+  recomputed, each term w * g quantised to a 64-bit fixed-point number
+  (a power-of-two scale a level, from the batch's largest |g|, found on the
+  device) and added with integer atomics, which give the same sum in any
+  order; then rounded to f32 once. The same bits on every launch; held to
+  ``hash_grid_adjoint_plain`` by ``tools/bench_hash.py::CARD_LIMITS`` and
+  to ``bench_hash.fixed_point_adjoint``, the kernel's arithmetic in plain
+  PyTorch, bit for bit.
 - ``HashGridLookup``: the ``torch.autograd.Function`` over the pair, with
   respect to the table (positions get no gradient, as in the JAX package's
   training step, which differentiates the weights and the table only).
@@ -54,11 +57,11 @@ LOOKUP_KERNEL = CudaKernel(
     "hash_grid.cu", "nrc_hash_lookup", [_P, _P, _I, _I, _I, _I, _RES, _I, _P, _P],
     extra_flags=("-fmad=false",),
 )
-ADJOINT_KERNEL = CudaKernel(
-    "hash_grid.cu", "nrc_hash_adjoint",
-    [_P, _P, ctypes.c_longlong, _I, _I, _I, _I, _RES, _I, _P, _P],
-    extra_flags=("-fmad=false",),
-)
+ADJOINT_ARGTYPES = [_P, _P, ctypes.c_longlong, _I, _I, _I, _I, _RES, _I, _P, _P, _P]
+ADJOINT_KERNEL = CudaKernel("hash_grid.cu", "nrc_hash_adjoint", ADJOINT_ARGTYPES, extra_flags=("-fmad=false",))
+# H2's scratch: a header of kMaxLevels 64-bit words (each level's largest
+# |g|), then one 64-bit fixed-point sum a table float
+SCRATCH_HEADER = MAX_LEVELS
 
 
 class GridSpec(NamedTuple):
@@ -209,7 +212,9 @@ def launch_adjoint(kernel: CudaKernel, pos: torch.Tensor, g: torch.Tensor, spec:
     """Check the arguments and launch ``kernel``, an entry point with
     ``nrc_hash_adjoint``'s arguments: the table's gradient [L, S, F]
     float32. ``g`` [B, L * F] is read through its row stride (the hash
-    columns of K4's dX need no copy)."""
+    columns of K4's dX need no copy). An entry point without the scratch
+    argument (an older tree's, which ``bench_hash --parent`` times) adds
+    into a zeroed gradient."""
     check_spec(spec)
     dev = pos.device
     pos = pos.contiguous()
@@ -224,12 +229,15 @@ def launch_adjoint(kernel: CudaKernel, pos: torch.Tensor, g: torch.Tensor, spec:
         raise ValueError(f"g: shape {tuple(g.shape)}, expected {(n, width)}")
     if g.stride(1) != 1 or g.stride(0) < width:
         g = g.contiguous()
-    dtable = torch.zeros(spec.table_shape, dtype=torch.float32, device=dev)
+    fixed = len(kernel.argtypes) == len(ADJOINT_ARGTYPES)
+    dtable = (torch.empty if n and fixed else torch.zeros)(spec.table_shape, dtype=torch.float32, device=dev)
     if n:
-        kernel.launch(
-            ptr(pos), ptr(g), g.stride(0), n, spec.levels, spec.log2_size, spec.features,
-            _res_array(spec), _dense_mask(spec), ptr(dtable), current_stream(dev),
-        )
+        args = [ptr(pos), ptr(g), g.stride(0), n, spec.levels, spec.log2_size, spec.features,
+                _res_array(spec), _dense_mask(spec), ptr(dtable)]
+        if fixed:
+            scratch = torch.empty(SCRATCH_HEADER + dtable.numel(), dtype=torch.int64, device=dev)
+            args.append(ptr(scratch))
+        kernel.launch(*args, current_stream(dev))
     return dtable
 
 

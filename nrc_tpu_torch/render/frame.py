@@ -22,7 +22,14 @@ stay on the device (K6 reads the count; the hash encoding's four
 CPU the bounce loop still stops when no ray is alive, a read per bounce.
 The only reads of a frame's results are ``Renderer``'s non-blocking copies
 of the loss and the record count, outside the graph.
-``DEBUG_TIME_VIEW`` waits for the time-view ramp's port and raises.
+
+With ``cfg.reflectance_factoring`` the cache learns radiance over the
+query's reflectance (diffuse + specular albedo): every cache output is
+scaled by its own query's reflectance, and the training targets are
+divided by their record's before the batches are drawn
+(``nrc_tpu/render/frame.py:100-107,275-279,345-350``).
+``DEBUG_TIME_VIEW`` shows each pixel's surface hits over ``max_depth``
+through the cold-to-hot ramp, the running maximum over the accumulation.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from ..config import BATCH_SIZE, NUM_BATCHES, FrameConfig, NetworkConfig, Render
 from ..models import network as N
 from ..scene.camera import generate_primary_rays
 from ..utils import rng as R
+from ..utils.tonemap import time_view_ramp
 from .integrator import check_frame_config, trace_wavefront
 from .scene_device import DeviceScene
 
@@ -86,6 +94,16 @@ def training_rays(cfg: FrameConfig, total_subframe: int, camera: CameraArrays,
         camera.p, camera.u, camera.v, camera.w, lens=cfg.lens_shader,
     )
     return org, dirn, seeds, u_unbiased < train_unbiased_ratio
+
+
+def query_reflectance(q: torch.Tensor) -> torch.Tensor:
+    """Diffuse + specular albedo of a radiance query
+    (``RadianceQuery::reflectance``, ``neural_radiance_caching.h:117``)."""
+    return q[..., 9:12] + q[..., 12:15]
+
+
+def _safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a / (b + 1e-6)  # DENOMINATOR_EPSILON, config.h:55
 
 
 def propagate_radiance(rec_target, rec_ltp, rec_count, end_radiance, end_mask):
@@ -170,8 +188,6 @@ def frame_step(
     network state is trained in place."""
     check_frame_config(cfg)
     mode = cfg.render_mode
-    if mode == RenderMode.DEBUG_TIME_VIEW:
-        raise NotImplementedError("DEBUG_TIME_VIEW waits for the time-view ramp's port")
     dev = image.device
     n_pixels = cfg.num_pixels
 
@@ -206,6 +222,11 @@ def frame_step(
     if queries:
         all_q = torch.cat(queries) if len(queries) > 1 else queries[0]
         cache = N.infer(net_state, all_q, net_cfg)
+        if cfg.reflectance_factoring:
+            # the cache predicts radiance / reflectance: every consumption
+            # (render end, suffix end, cache-vis) takes its own query's
+            # reflectance back (nrc_helpers.cu:68-69,95-96,156-159)
+            cache = cache * query_reflectance(all_q)
     ofs = n_pixels if render_cache else 0
     if cfg.train:
         cache_end = cache[ofs:ofs + cfg.num_tiles]
@@ -226,6 +247,12 @@ def frame_step(
         image = cache[:n_pixels]
     elif mode == RenderMode.DEBUG_THROUGHPUT_ONLY:
         image = out.last_render_throughput
+    elif mode == RenderMode.DEBUG_TIME_VIEW:
+        # each pixel's work events through the cold-to-hot ramp (the analog
+        # of USE_TIME_VIEW's clock view, raygeneration.cu:392-404), latched
+        # as a running maximum over the accumulation
+        heat = time_view_ramp(out.bounce_count.to(torch.float32) / float(cfg.max_depth))
+        image = torch.maximum(image, heat)
 
     # ---- training ----------------------------------------------------------
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -234,6 +261,10 @@ def frame_step(
     targets = propagate_radiance(
         train_out.rec_target, train_out.rec_ltp, train_out.rec_count, cache_end, train_out.end_mask
     )
+    if cfg.reflectance_factoring:
+        # propagation ran in radiance; the network trains on radiance over
+        # each record's reflectance (nrc_helpers.cu:187-207)
+        targets = _safe_div(targets, query_reflectance(train_out.rec_query))
     batch_q, batch_t, num_records = assemble_training_batches(
         total_subframe, train_out.rec_query, targets, train_out.rec_count
     )

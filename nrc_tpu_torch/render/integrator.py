@@ -6,8 +6,11 @@ Port of ``nrc_tpu/render/integrator.py:131-1190`` (reference
 one bounce at a time; every branch is a masked select, as in the JAX package,
 so per-ray results agree with it. Per bounce: closest hit, emission with MIS,
 area-spread truncation into the cache (paper Eq. 2-4, ``hit.cu:527-585``),
-BSDF sampling, next-event estimation with MIS and a shadow ray, and the
-``traced_count`` accounting.
+BSDF sampling (the IORs from the ray's nested-medium stack, pushed and
+popped where a path transmits through a boundary), next-event estimation
+with MIS and a shadow ray (optionally culled by shadow-ray Russian
+roulette, ``FrameConfig.nee_rr_tau``), and the ``traced_count``
+accounting.
 
 The render wavefront (``train=False``) covers every pixel and stops a path
 where its area spread outgrows the camera's footprint. The training
@@ -31,8 +34,8 @@ K1/K2 and W1/W2 answer without work, and every update is masked by
 ``alive`` or ``hit_valid``, so the outputs are the same bit for bit.
 
 Transport features that are not ported (volumes, textures, cutouts,
-layered/measured/noise materials, curves, shadow-ray Russian roulette) raise
-when their ``FrameConfig`` switch is on.
+layered/measured/noise materials, curves) raise when their ``FrameConfig``
+switch is on.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..ops import bsdf as B
 from ..ops.gather_cuda import gather_rows
 from ..ops.intersect import RT_MAX, make_intersectors
 from ..ops.light_sampling import env_radiance, sample_lights
+from ..scene.materials import Archetype
 from ..utils import rng as R
 from ..utils.math import (
     add1,
@@ -55,6 +59,7 @@ from ..utils.math import (
     cross,
     dot,
     normalize,
+    pick1,
     put1,
     safe_div,
 )
@@ -62,9 +67,11 @@ from .scene_device import DeviceScene, mat_row_layout
 
 QUERY_DIMS = 15  # pos3 + dir2 + normal2 + rough2 + diffuse3 + specular3
 
+IOR_STACK_DEPTH = 4  # nested media (per_ray_data.h:81)
+
 _UNPORTED_FLAGS = (
     "has_volumes", "has_textures", "has_cutout", "has_layered",
-    "has_measured", "has_noise", "has_noise_bump", "reflectance_factoring",
+    "has_measured", "has_noise", "has_noise_bump",
 )
 
 
@@ -72,8 +79,6 @@ def check_frame_config(cfg: FrameConfig) -> None:
     for flag in _UNPORTED_FLAGS:
         if getattr(cfg, flag):
             raise NotImplementedError(f"FrameConfig.{flag} is not ported yet")
-    if cfg.nee_rr_tau > 0.0:
-        raise NotImplementedError("shadow-ray Russian roulette (nee_rr_tau > 0) is not ported")
 
 
 def make_query(pos, wo, normal, aux: B.BSDFAux, position_scale: float) -> torch.Tensor:
@@ -124,6 +129,8 @@ class _State(NamedTuple):
     area_threshold: torch.Tensor
     recorded_first: torch.Tensor
     render_done: torch.Tensor    # the render part of the path has terminated
+    ior_stack: torch.Tensor      # [N, 4] nested-medium IORs (per_ray_data.h:81)
+    stack_idx: torch.Tensor      # [N] i64 the stack's top
     bounces: torch.Tensor
     traced: torch.Tensor
     last_render_throughput: torch.Tensor
@@ -167,6 +174,12 @@ def trace_wavefront(
     direct_lighting = cfg.direct_lighting and num_lights > 0
     eps = cfg.scene_epsilon
     sqrt_c = cfg.area_spread_sqrt  # sqrt(c), paper Eq. 4; default c = 0.01
+    # the medium stack, only where an archetype of the scene transmits (the
+    # JAX program computes it always and XLA drops what nothing reads)
+    transmissive = B.transmits(
+        cfg.archetype_set, Archetype.GGX_TRANSMIT, Archetype.GGX_REFLECT_TRANSMIT,
+        Archetype.SPECULAR_TRANSMIT, Archetype.SPECULAR_REFLECT_TRANSMIT, Archetype.DIFFUSE_TRANSMISSION,
+    )
     offs, _ = mat_row_layout(scene.mat_curve_k)
 
     def mcol(row, name):
@@ -194,6 +207,8 @@ def trace_wavefront(
         area_threshold=full(math.inf),
         recorded_first=false,
         render_done=false,
+        ior_stack=torch.ones((n, IOR_STACK_DEPTH), dtype=torch.float32, device=dev),
+        stack_idx=zeros(dtype=torch.int64),
         bounces=zeros(dtype=torch.int64),
         traced=zeros(dtype=torch.int64),
         last_render_throughput=zeros(3),
@@ -249,6 +264,8 @@ def trace_wavefront(
             archetype=mcol(mrow, "archetype").to(torch.int64),
             albedo=mcol(mrow, "albedo"),
             roughness=mcol(mrow, "roughness"),
+            ior=mcol(mrow, "ior"),
+            thin_walled=mcol(mrow, "thin_walled"),
         )
         t_eff = hit.t
         front = dot(wo, ng) >= 0.0
@@ -315,15 +332,24 @@ def trace_wavefront(
         if not truncate:
             terminate = false
 
-        # ---- BSDF sample --------------------------------------------------
+        # ---- BSDF sample: the IORs from the medium stack (hit.cu:488-524) --
         seed, xi = R.rng4(seed)
-        sample = B.bsdf_sample(params, wo, ns, ng, xi)
+        if transmissive:
+            thin = params.thin_walled != 0
+            top = pick1(s.ior_stack, s.stack_idx)
+            below = pick1(s.ior_stack, torch.clamp(s.stack_idx - 1, min=0))
+            outside = front | thin
+            eta_i = torch.where(outside, top, params.ior)
+            eta_t = torch.where(outside, params.ior, below)
+        else:  # nothing transmits: no lobe reads the IORs
+            eta_i = eta_t = params.ior
+        sample = B.bsdf_sample(params, wo, ns, ng, xi, eta_i, eta_t, families=cfg.archetype_set)
         event = torch.where(hit_valid, sample.event, B.BSDF_EVENT_ABSORB)
         event_non_dirac = (event & B.BSDF_EVENT_NON_DIRAC) != 0
         event_specular = (event & B.BSDF_EVENT_SPECULAR) != 0
 
         # ---- aux + cache-vis query (hit.cu:888-898) -----------------------
-        aux = B.bsdf_aux(params)
+        aux = B.bsdf_aux(params, families=cfg.archetype_set)
         query_here = make_query(p_hit, wo, ns_q, aux, cfg.position_scale)
         first_ns = hit_valid & ~s.recorded_first & ~event_specular
         cache_vis_query = torch.where(first_ns[:, None], query_here, s.cache_vis_query)
@@ -385,11 +411,25 @@ def trace_wavefront(
         if direct_lighting:
             seed, xi_l = R.rng4(seed)
             ls = sample_lights(lights, p_hit, xi_l)
-            ev = B.bsdf_eval(params, wo, ls.direction, ns)
+            ev = B.bsdf_eval(params, wo, ls.direction, ns, eta_i, eta_t, families=cfg.archetype_set)
             do_nee = alive & hit_valid & event_non_dirac
             valid_ls = (ls.pdf > 0.0) & (ev.bsdf.amax(dim=-1) > 0.0) & (ev.pdf > 0.0)
             w_mis_l = torch.where(ls.is_singular, 1.0, balance_heuristic(ls.pdf, ev.pdf))
             direct = ev.bsdf * ls.radiance_over_pdf * (float(num_lights) * w_mis_l)[:, None]
+            if cfg.nee_rr_tau > 0.0:
+                # shadow-ray Russian roulette (nrc_tpu/render/integrator.py:
+                # 907-922): survive with p = lum(unoccluded contribution) /
+                # tau, floored at 0.05, scaled by 1 / p. Pixel rays weigh by
+                # the path throughput, training rays take the record's raw
+                # target. The uniform is one LCG step of the seed xor
+                # 0x9E3779B9, a side stream: the main stream is the same
+                # with the feature on or off.
+                ref_rgb = direct if train else s.throughput * direct
+                lum_sh = 0.3 * ref_rgb[:, 0] + 0.59 * ref_rgb[:, 1] + 0.11 * ref_rgb[:, 2]
+                p_sh = torch.clamp(lum_sh * (1.0 / cfg.nee_rr_tau), 0.05, 1.0)
+                _, u_sh_rr = R.rng(seed ^ 0x9E3779B9)
+                valid_ls = valid_ls & (u_sh_rr < p_sh)
+                direct = direct * (1.0 / p_sh)[:, None]
             shadow_tmax = torch.where(do_nee & valid_ls, ls.distance - eps, 0.0)
             occluded = any_hit(p_hit, ls.direction, torch.full_like(shadow_tmax, eps), shadow_tmax)
             shadow_traced = (shadow_tmax > 0.0).to(torch.int64)
@@ -406,6 +446,18 @@ def trace_wavefront(
         throughput = torch.where(
             hit_valid[:, None], s.throughput * sample.bsdf_over_pdf, s.throughput
         )
+        # the nested-medium stack on transmission through a boundary
+        # (hit.cu:488-524, the IOR only): entering pushes the material's
+        # IOR, leaving pops; a thin-walled surface leaves the stack alone
+        stack_idx, ior_stack = s.stack_idx, s.ior_stack
+        if transmissive:
+            transmit = hit_valid & ((event & B.BSDF_EVENT_TRANSMISSION) != 0) & ~thin
+            push = transmit & front
+            pop = transmit & ~front
+            stack_idx = torch.clamp(
+                stack_idx + push.to(torch.int64) - pop.to(torch.int64), 0, IOR_STACK_DEPTH - 1
+            )
+            ior_stack = put1(ior_stack, stack_idx, params.ior, push)
         if train:
             # unbiased-suffix Russian roulette (raygeneration.cu:245-262); it
             # draws one number per bounce on every training ray
@@ -430,6 +482,8 @@ def trace_wavefront(
             area_threshold=area_threshold,
             recorded_first=recorded_first,
             render_done=render_done,
+            ior_stack=ior_stack,
+            stack_idx=stack_idx,
             bounces=s.bounces + hit_valid.to(torch.int64),
             traced=s.traced + active.to(torch.int64) + shadow_traced,
             last_render_throughput=lrt,

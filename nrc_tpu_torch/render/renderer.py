@@ -26,6 +26,13 @@ so does ``set_encoding``, whose state has other shapes and is bound anew. A capt
 raises; nothing falls back to eager frames. ``capture=False`` runs the same
 frames eagerly on the card, to compare with.
 
+A live material edit (``update_material``) copies the new material and
+light tables into the tensors the graphs read, and a render state
+(``models/checkpoint.py::load_render_state``) is copied into the state and
+image in place; where the shapes change, the graphs are dropped instead.
+``screenshot`` writes a tonemapped PNG or a linear ``.hdr`` and
+``save_system_description`` the system file (``utils/image_io.py``).
+
 ``device`` decides where everything runs; a CUDA device without a card
 raises, and nothing falls back to the CPU.
 """
@@ -52,9 +59,12 @@ from ..config import (
 )
 from ..models import network as N
 from ..ops.cuda_build import CudaKernel, launch_counts
+from ..scene.materials import MaterialTable
 from ..scene.scene_builder import Scene
+from ..utils.image_io import write_hdr, write_png
+from ..utils.tonemap import tonemap_to_u8
 from .frame import CameraArrays, FrameStats, frame_step
-from .scene_device import DeviceScene, upload_scene
+from .scene_device import DeviceScene, patch_materials, scene_archetypes, upload_scene
 
 MAX_GRAPHS = 16  # as the JAX package bounds its compile cache
 
@@ -90,6 +100,7 @@ class Renderer:
         adaptive_tiles: bool = True,
         device=torch.device("cuda"),
         capture: bool = True,
+        reflectance_factoring: bool = False,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -122,6 +133,9 @@ class Renderer:
             scene_epsilon=system.scene_epsilon,
             walk_length=system.walk_length,
             position_scale=0.1 / max(extent, 1e-6),
+            # the lobe families this scene's archetypes use
+            archetype_set=scene_archetypes(scene),
+            reflectance_factoring=reflectance_factoring,
         )
         self._net_state: Optional[N.NetworkState] = None
         self.reset_cache()
@@ -175,11 +189,19 @@ class Renderer:
     @net_state.setter
     def net_state(self, state: N.NetworkState) -> None:
         """The first state is bound; a later one is copied into it, so the
-        graphs go on reading the same tensors."""
+        graphs go on reading the same tensors (one of other shapes raises:
+        ``bind_state``)."""
         if self._net_state is None:
             self._net_state = state
         else:
             N.copy_state(self._net_state, state)
+
+    def bind_state(self, state: N.NetworkState) -> None:
+        """Bind a state of other shapes or encoding in place of the current
+        one (``set_encoding``, a render state of another encoding): every
+        graph, which reads the old state's tensors, is dropped."""
+        self.graphs.clear()
+        self._net_state = state
 
     @property
     def device_scene(self) -> DeviceScene:
@@ -224,10 +246,26 @@ class Renderer:
         )
         self.hyper = dataclasses.replace(self.hyper, learning_rate=self.net_cfg.learning_rate)
         self.learning_rate.fill_(self.hyper.learning_rate)
-        self.graphs.clear()
-        self._net_state = N.init_network(
-            torch.Generator().manual_seed(seed), self.net_cfg, self.device
-        )
+        self.bind_state(N.init_network(torch.Generator().manual_seed(seed), self.net_cfg, self.device))
+        self.restart_accumulation()
+
+    def update_material(self, index: int, **changes) -> None:
+        """Live material edit (``nrc_tpu/render/renderer.py:204-219``; the
+        reference GUI's material editors -> ``Device::updateMaterial``,
+        ``Device.cpp:1700-1722``): ``changes`` are ``Material`` field
+        overrides of material ``index``. Geometry and BVH stay; the material
+        and light tables are re-derived and copied into the tensors the
+        graphs read, or, where their shapes change, replace them and the
+        graphs are dropped. The archetype set follows the edit (a fresh
+        renderer on the edited scene would compile those lobes), and the
+        accumulation restarts."""
+        rows = self.scene.material_rows
+        rows[index] = dataclasses.replace(rows[index], **changes)
+        self.scene.materials = MaterialTable.build(rows)
+        patched = patch_materials(self.device_scene, self.scene)
+        if patched is not self.device_scene:
+            self.device_scene = patched  # drops the graphs
+        self.cfg = dataclasses.replace(self.cfg, archetype_set=scene_archetypes(self.scene))
         self.restart_accumulation()
 
     def set_render_mode(self, mode: RenderMode) -> None:
@@ -431,6 +469,61 @@ class Renderer:
         """[H, W, 3] linear HDR, row 0 at the top (display orientation)."""
         img = self.image.detach().cpu().numpy().reshape(self.cfg.height, self.cfg.width, 3)
         return img[::-1]
+
+    def save_system_description(self, path: str) -> str:
+        """Write the current system state in the reference's system-file
+        format (Key S -> ``Application::saveSystemDescription``,
+        ``Application.cpp:1296-1335``; ``nrc_tpu/render/renderer.py:409-441``)."""
+        s, tm, cam = self.system, self.system.tonemapper, self.scene.camera
+        lines = [
+            f"resolution {s.resolution[0]} {s.resolution[1]}",
+            f"tileSize {s.tile_size[0]} {s.tile_size[1]}",
+            f"samplesSqrt {s.samples_sqrt}",
+            f"devicesMask {s.devices_mask}",
+            f"arenaSize {s.arena_size_mib}",
+            f"interop {s.interop}",
+            f"present {s.present}",
+            f"peerToPeer {s.peer_to_peer}",
+            f"pathLengths {s.path_lengths[0]} {s.path_lengths[1]}",
+            f"walkLength {s.walk_length}",
+            f"epsilonFactor {s.epsilon_factor}",
+            f"clockFactor {s.clock_factor}",
+            f"lensShader {s.lens_shader}",
+            "center " + " ".join(str(c) for c in cam.center),
+            f"camera {cam.phi} {cam.theta} {cam.fov} {cam.distance}",
+            f"prefixScreenshot \"{s.prefix_screenshot}\"",
+            f"gamma {tm.gamma}",
+            "colorBalance " + " ".join(str(c) for c in tm.color_balance),
+            f"whitePoint {tm.white_point}",
+            f"burnHighlights {tm.burn_highlights}",
+            f"crushBlacks {tm.crush_blacks}",
+            f"saturation {tm.saturation}",
+            f"brightness {tm.brightness}",
+        ]
+        lines += [f"searchPath \"{p}\"" for p in s.search_paths]
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return path
+
+    def screenshot(self, path: str, tonemap: bool = True) -> str:
+        """The image as a tonemapped PNG, or with ``tonemap=False`` as a
+        linear Radiance ``.hdr`` (``Application::screenshot``,
+        ``Application.cpp:2562-2673``; ``nrc_tpu/render/renderer.py:444-465``).
+        The time view's colours are display-ready: clamped and scaled to
+        8 bits without the tone curve. The extension is appended when
+        missing; returns the path written."""
+        if self.cfg.render_mode == RenderMode.DEBUG_TIME_VIEW:
+            ldr = (torch.clamp(torch.from_numpy(self.image_hdr().copy()), 0.0, 1.0) * 255.0).to(torch.uint8)
+            path = path if path.endswith(".png") else path + ".png"
+            write_png(path, ldr.numpy())
+        elif tonemap:
+            ldr = tonemap_to_u8(torch.from_numpy(self.image_hdr().copy()), self.system.tonemapper)
+            path = path if path.endswith(".png") else path + ".png"
+            write_png(path, ldr.numpy())
+        else:
+            path = path if path.endswith(".hdr") else path + ".hdr"
+            write_hdr(path, self.image_hdr())
+        return path
 
 
 def _release_failed_capture(device: torch.device, stream: torch.cuda.Stream) -> None:

@@ -7,8 +7,10 @@ asked, it builds the 16-wide BVH on the host (``ops/bvh_wide.py``) and
 uploads its row table; smaller scenes get the plane table of the
 brute-force kernels instead. It refuses scenes that need what is not ported
 yet: curves, textures, cutouts, volumes, layered/measured/noise materials,
-archetypes other than diffuse, GGX-reflect and emission-only, and lights
-other than mesh lights.
+the hair and measured archetypes, and lights other than mesh lights.
+``patch_materials`` re-derives the material tables after a live material
+edit, in place where their shapes hold (a captured frame reads them by
+address).
 
 The bounce body fetches per-hit data with row gathers
 (``ops/gather_cuda.py::gather_rows`` over ``tri_shade`` and ``mat_row``);
@@ -18,6 +20,7 @@ have no counterpart here.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Optional
 
@@ -153,7 +156,7 @@ def check_supported(scene) -> None:
     mt = scene.materials
     unported = {
         "curves": getattr(scene, "curves", None) is not None,
-        "archetypes other than diffuse / GGX-reflect / emission-only": bool(
+        "the hair or measured archetype": bool(
             set(np.unique(mt.archetype).tolist()) - SUPPORTED_ARCHETYPES
         ),
         "layered materials": bool(np.any(mt.blend_mode != 0) or np.any(mt.mod_mode != 0)),
@@ -170,6 +173,44 @@ def check_supported(scene) -> None:
     for feature, present in unported.items():
         if present:
             raise NotImplementedError(f"scene uses {feature}, which is not ported yet")
+
+
+def scene_archetypes(scene) -> frozenset:
+    """The archetypes a scene's materials use, both blend lobes
+    (``FrameConfig.archetype_set``, as ``nrc_tpu/render/renderer.py:116``
+    sets it)."""
+    mt = scene.materials
+    return frozenset(np.unique(mt.archetype).tolist() + np.unique(mt.archetype2).tolist())
+
+
+def patch_materials(dev: DeviceScene, scene) -> DeviceScene:
+    """The material-derived tables of ``dev`` re-derived from ``scene``'s
+    materials after a live edit (``nrc_tpu/render/scene_device.py:276-283``;
+    the reference re-uploads the edited argument block,
+    ``Device::updateMaterial``, ``Device.cpp:1700-1722``); geometry and BVH
+    are kept. Where every new table has its old shape (an edit changes
+    values, not rows) the new values are copied into the old tensors and
+    ``dev`` itself is returned, so a captured frame that reads them by
+    address reads the new ones; otherwise a new ``DeviceScene``, whose
+    caller must drop every graph that read the old one."""
+    check_supported(scene)
+    mats = _material_arrays(scene)
+    device = dev.mat_row.device
+    lights = upload_lights(scene.lights, mats["light_radiance"], torch.device("cpu"))
+    mat_row = torch.from_numpy(mats["mat_row"])
+    old = [dev.mat_row] + [getattr(dev.lights, f.name) for f in dataclasses.fields(lights)
+                           if isinstance(getattr(lights, f.name), torch.Tensor)]
+    new = [mat_row] + [getattr(lights, f.name) for f in dataclasses.fields(lights)
+                       if isinstance(getattr(lights, f.name), torch.Tensor)]
+    if lights.types_static == dev.lights.types_static and all(
+            a.shape == b.shape and a.dtype == b.dtype for a, b in zip(old, new)):
+        for a, b in zip(old, new):
+            a.copy_(b)
+        return dev
+    return dev._replace(
+        mat_row=mat_row.to(device),
+        lights=upload_lights(scene.lights, mats["light_radiance"], device),
+    )
 
 
 def upload_scene(scene, device: torch.device, use_bvh: Optional[bool] = None) -> DeviceScene:

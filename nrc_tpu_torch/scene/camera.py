@@ -2,9 +2,8 @@
 
 Port of ``nrc_tpu/scene/camera.py:27-138``: the host-side orbit camera that
 produces the (P, U, V, W) frustum (reference ``nrc/src/Camera.cpp:170-199``)
-and batched primary-ray generation for the pinhole lens
-(``nrc/shaders/lens_shader.cu:40-108``). The fisheye and spherical lenses
-are not ported yet and raise.
+and batched primary-ray generation for the three lenses, pinhole,
+full-format fisheye and spherical (``nrc/shaders/lens_shader.cu:40-108``).
 """
 
 from __future__ import annotations
@@ -67,13 +66,37 @@ def generate_primary_rays(
     lens: int = LENS_PINHOLE,
 ):
     """Batched primary rays: ``pixel_xy`` [N, 2] float pixel coords and
-    ``sample`` [N, 2] jitter in [0,1) -> (org [N,3], dir [N,3])."""
-    if lens != LENS_PINHOLE:
-        raise NotImplementedError(f"lens {lens}: only the pinhole lens is ported")
+    ``sample`` [N, 2] jitter in [0,1) -> (org [N,3], dir [N,3]). The fisheye
+    and sphere lenses span the camera's normalized basis u, v, w."""
     w, h = float(screen[0]), float(screen[1])
     frag = pixel_xy + sample
     org = cam_p.expand(frag.shape[:-1] + (3,)).contiguous()
-    ndc_x = (frag[..., 0] / w) * 2.0 - 1.0
-    ndc_y = (frag[..., 1] / h) * 2.0 - 1.0
-    d = ndc_x[..., None] * cam_u + ndc_y[..., None] * cam_v + cam_w
-    return org, normalize(d)
+
+    if lens == LENS_PINHOLE:
+        ndc_x = (frag[..., 0] / w) * 2.0 - 1.0
+        ndc_y = (frag[..., 1] / h) * 2.0 - 1.0
+        d = ndc_x[..., None] * cam_u + ndc_y[..., None] * cam_v + cam_w
+        return org, normalize(d)
+
+    un, vn, wn = normalize(cam_u), normalize(cam_v), normalize(cam_w)
+    if lens == LENS_FISHEYE:
+        cx, cy = w * 0.5, h * 0.5
+        clen = math.hypot(cx, cy)
+        ux = (frag[..., 0] - cx) / clen
+        uy = (frag[..., 1] - cy) / clen
+        r = torch.sqrt(ux * ux + uy * uy)
+        z = torch.cos(r * 0.7071067812 * 0.5 * math.pi)
+        d = ux[..., None] * un + uy[..., None] * vn + z[..., None] * wn
+        return org, normalize(d)
+
+    if lens == LENS_SPHERE:
+        phi = (frag[..., 0] / w) * 2.0 * math.pi
+        theta = (frag[..., 1] / h) * math.pi
+        st = torch.sin(theta)
+        vx = -torch.sin(phi) * st
+        vy = -torch.cos(theta)
+        vz = -torch.cos(phi) * st
+        d = vx[..., None] * un + vy[..., None] * vn + vz[..., None] * wn
+        return org, normalize(d)
+
+    raise ValueError(f"unknown lens {lens}")

@@ -6,8 +6,10 @@ and the implicit mesh-light assembly of ``_build_lights``
 (``scene_builder.py:361-425``; reference ``Application::createMeshLights``,
 ``Application.cpp:2079-2238``). Loading the reference's ``.txt``/``.mdl``
 files is not ported yet; ``cornell_box()`` builds the Cornell box in code,
-and ``cornell_objects()`` the same box around a finely tessellated sphere
-and torus (about 132 K triangles, the large-scene path).
+``cornell_objects()`` the same box around a finely tessellated sphere and
+torus (about 132 K triangles, the large-scene path), and ``cornell_glass()``
+the box with dielectric blocks and a thin-walled translucent panel (the
+transmission lobes and the IOR stack).
 """
 
 from __future__ import annotations
@@ -298,3 +300,38 @@ def cornell_objects(resolution: Tuple[int, int] = (320, 320)) -> tuple[Scene, Sy
         ModelDecl("torus", (tu, tv, 1.0, 3.0), _translate(4, -9, 3), "glossy"),
     ]
     return _cornell_scene(models[:6] + objects, materials, cam, resolution)
+
+
+def cornell_glass_declarations() -> tuple[List[ModelDecl], Dict[str, Material], dict]:
+    """The Cornell box's declarations with the transmission lobes in view:
+    the tall block glass (``SPECULAR_REFLECT_TRANSMIT``, ior 1.5, albedo
+    1), the short block frosted glass (``GGX_REFLECT_TRANSMIT``, roughness
+    0.2, ior 1.5, albedo 0.95) and a thin-walled translucent panel
+    (``DIFFUSE_TRANSMISSION``, albedo 0.7): a 4x4-tessellated plane of
+    half-extents 2.5 x 5 standing at (6, -4.5, -6) behind the short block,
+    turned -30 degrees about y. 1256 triangles, brute force."""
+    models, materials, cam = cornell_box_declarations()
+    materials = dict(
+        materials,
+        glass=Material(name="glass", archetype=Archetype.SPECULAR_REFLECT_TRANSMIT,
+                       albedo=(1.0, 1.0, 1.0), ior=1.5),
+        frosted=Material(name="frosted", archetype=Archetype.GGX_REFLECT_TRANSMIT,
+                         albedo=(0.95, 0.95, 0.95), roughness=(0.2, 0.2), ior=1.5),
+        panel=Material(name="panel", archetype=Archetype.DIFFUSE_TRANSMISSION,
+                       albedo=(0.7, 0.7, 0.7), thin_walled=True),
+    )
+    tall, short = models[6], models[7]
+    models = models[:6] + [
+        dataclasses.replace(tall, material="glass"),
+        dataclasses.replace(short, material="frosted"),
+        ModelDecl("plane", (4, 4, 2), _translate(6, -4.5, -6) @ _rotate(1, -30) @ _scale(2.5, 5, 1),
+                  "panel"),
+    ]
+    return models, materials, cam
+
+
+def cornell_glass(resolution: Tuple[int, int] = (320, 320)) -> tuple[Scene, SystemConfig]:
+    """The Cornell box with glass, frosted glass and a translucent panel
+    (``cornell_glass_declarations``) and its system settings, as
+    ``cornell_box``'s."""
+    return _cornell_scene(*cornell_glass_declarations(), resolution)

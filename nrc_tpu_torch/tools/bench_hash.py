@@ -4,15 +4,18 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 -m nrc_tpu_torch.tools.bench_hash [--frame [--parent DIR]]
 
-H1 must equal its plain version bit for bit. H2 adds with atomics, so the
-order of each table row's sum changes from run to run; it is held to its
-plain version by ``CARD_LIMITS``: the mean difference over the table in
-units of the mean magnitude of the plain gradient, and the largest
-difference in units of the plain gradient's largest entry. Seeded faults
-(``FAULTS``: one corner's terms dropped, every level's terms added into the
-next level's rows) must read above both limits; ``tests/test_torch_hash.py``
-holds that on the CPU, where a summation in another order (the queries
-shuffled) stands in for the atomics.
+H1 must equal its plain version bit for bit. H2 sums each table row's
+terms as 64-bit fixed-point numbers (``csrc/hash_grid.cu``'s header), so it
+gives the same bits on every launch and equals ``fixed_point_adjoint``, its
+arithmetic in plain PyTorch, bit for bit; against the f32 plain version,
+which rounds each add, it is held by ``CARD_LIMITS``: the mean difference
+over the table in units of the mean magnitude of the plain gradient, and
+the largest difference in units of the plain gradient's largest entry.
+Beside them ``zero_mismatch_rows`` counts the table rows that are zero in
+one and not in the other (Adam's eps of 1e-15 turns such a row into a full
+step). Seeded faults (``FAULTS``: one corner's terms dropped, every level's
+terms added into the next level's rows) must read above both limits;
+``tests/test_torch_hash.py`` holds that on the CPU.
 
 Times are device times of ten calls captured in a CUDA graph and replayed
 (``bench_intersect.device_ms``), at the shapes of a 320x320 FULL + train
@@ -24,10 +27,11 @@ tiles) and at 16,384 (``STEP_ROWS``: a training step's batch), H2 at
 the bytes the function must move over 3.35 TB/s (positions and output
 gradient read once, the output or the table gradient written once, the
 table read once: at 4.19 MB it stays in the L2) and its float32 operations
-over 67 TFLOP/s. Neither kernel has scratch in device memory (H2's
-pre-sums and both kernels' tiles stay in shared memory), so there is no
-scratch bound beside it. No single PyTorch call computes either; beside
-H2, ``index_add_`` of the 8 * L * B precomputed weighted rows is timed as a
+over 67 TFLOP/s. H2's pre-sums and both kernels' tiles stay in shared
+memory; H2's 64-bit sums in device memory (8 bytes a table float, zeroed,
+added into and read once) are its design's own traffic, printed beside H2
+as ``scratch_bound_ms`` and no part of the bound. No single PyTorch call
+computes either; beside H2, ``index_add_`` of the 8 * L * B precomputed weighted rows is timed as a
 reading, which is not the same function (its indices and weights are
 given, not computed). The last line is one JSON object.
 
@@ -39,14 +43,15 @@ training batches shuffled by ``assemble_training_batches``) and four H2
 launches (positions and g through K4's dX row stride; ``record_frame``),
 and ``measure``s each launch and the all-random sets: every build held to
 the plain version (H1 bit for bit; H2 within ``CARD_LIMITS``, with whether
-two runs and the plain version on the CPU copy agree bit for bit), its
+two runs, and the fixed-point model, agree bit for bit), its
 device time in turns (shipped, parent, parent, shipped; averaged), H2's on
 the grid cut to the dense and to the hashed levels, and how many rows a
 launch's terms land on (``row_load``: H2's contention). The frame-weighted
 time of a build is the sum over the frame's launches. ``--parent DIR``
 builds ``DIR/hash_grid.cu``, another tree's source with the same entry
 points (``git archive <commit> nrc_tpu_torch/csrc | tar -x -C
-build/parent``), and times it beside the shipped build.
+build/parent``; a tree whose H2 has no scratch argument, as before the
+fixed point, is called without it), and times it beside the shipped build.
 """
 
 from __future__ import annotations
@@ -54,6 +59,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
+import re
 import subprocess
 from pathlib import Path
 
@@ -112,6 +119,39 @@ def adjoint_gap(got: torch.Tensor, ref: torch.Tensor) -> dict:
             "h2_largest": (d.max() / ref.abs().max().clamp(min=1e-30)).item()}
 
 
+def zero_mismatch_rows(got: torch.Tensor, ref: torch.Tensor) -> int:
+    """Table rows [L, S] that are all zero in one gradient and not in the other."""
+    return int(((got == 0).all(dim=-1) != (ref == 0).all(dim=-1)).sum())
+
+
+def level_shifts(g: torch.Tensor, spec: GridSpec) -> list:
+    """H2's fixed-point scale 2^s a level (``csrc/hash_grid.cu::level_shift``):
+    the level's largest |g| below 2^e, a row's at most 8 B terms below 2^62,
+    s = 62 - ceil(log2(8 B)) - e; 0 for a level whose g is all zero."""
+    n = g.shape[0]
+    headroom = (8 * n - 1).bit_length()
+    gmax = g.reshape(n, spec.levels, spec.features).abs().amax(dim=(0, 2)).tolist()
+    return [62 - headroom - math.frexp(m)[1] if m > 0.0 else 0 for m in gmax]
+
+
+def fixed_point_adjoint(pos: torch.Tensor, g: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """H2's arithmetic in plain PyTorch: each term w * g (f32) times its
+    level's 2^s, rounded to the nearest int64 (ties to even), summed as
+    integers (in any order: the same bits), times 2^-s rounded to f32 once.
+    Equal to the kernel bit for bit."""
+    n = pos.shape[0]
+    L, S, F = spec.table_shape
+    g3 = g.reshape(n, L, F)
+    scale = torch.tensor([2.0 ** sh for sh in level_shifts(g, spec)], dtype=torch.float64, device=pos.device)
+    ofs = torch.arange(L, device=pos.device) * S
+    acc = torch.zeros((L * S, F), dtype=torch.int64, device=pos.device)
+    for corner in range(8):
+        idx, w = HC.corner_index_weight(pos, corner, spec)
+        q = torch.round((w[..., None] * g3).double() * scale[:, None]).to(torch.int64)
+        acc.index_add_(0, (idx + ofs).reshape(-1), q.reshape(-1, F))
+    return (acc.view(L, S, F).double() * (1.0 / scale)[:, None, None]).float()
+
+
 def within_limits(gap: dict) -> bool:
     return all(gap[k] <= CARD_LIMITS[k] for k in CARD_LIMITS)
 
@@ -141,8 +181,9 @@ def _shifted_levels(pos, g, spec):
 FAULTS = {"dropped corner": _dropped_corner, "shifted level offset": _shifted_levels}
 
 # Hash training on the card against the CPU path, and a replayed frame
-# against an eager one. H2's atomics change the last bits of the table's
-# gradient from run to run, and K4's tensor-core sums differ from the plain
+# against an eager one. H2's fixed-point sums differ from the CPU's f32
+# scatter-add in the last bits (and, before the fixed point, its f32
+# atomics changed them from run to run), and K4's tensor-core sums differ from the plain
 # version's (tools/bench_mlp.py::CARD_LIMITS). With the hash encoding's Adam
 # eps of 1e-15 any gradient above 1e-15, a rounding residue included, moves
 # its entry by about lr = 1e-2 in the first steps, so an entry whose tiny
@@ -265,6 +306,13 @@ def bound(n: int, spec: GridSpec) -> dict:
     return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+def scratch_bound_ms(spec: GridSpec) -> float:
+    """H2's 64-bit sums over the memory rate: written once (zeroed) and read
+    once (the conversion to f32); the atomics' adds stay in the L2."""
+    L, S, F = spec.table_shape
+    return 1e3 * 2 * 8 * (HC.SCRATCH_HEADER + L * S * F) / HBM_BYTES_PER_S
+
+
 def check_lookup(spec: GridSpec, n: int, gen: torch.Generator, device) -> dict:
     """H1 against its plain version at ``n`` queries: the words that differ
     and the largest |difference| (both must be 0)."""
@@ -291,14 +339,18 @@ def check(spec: GridSpec, n_lookup: int, n_adjoint: int, gen: torch.Generator, d
     a = HC.hash_grid_adjoint_cuda(pos, g_view, spec)
     b = HC.hash_grid_adjoint_cuda(pos, g_view, spec)
     ref = HC.hash_grid_adjoint_plain(pos, g, spec)
+    model = fixed_point_adjoint(pos, g, spec)
     torch.cuda.synchronize(device)
     gap = adjoint_gap(a, ref)
-    spread = adjoint_gap(a, b)
     faults = {name: adjoint_gap(fault(pos, g, spec), ref) for name, fault in FAULTS.items()}
-    out = {"h1": h1, "h2": gap, "h2_max_abs": (a - ref).abs().max().item(), "h2_run_to_run": spread,
-           "h2_bits_equal_run_to_run": bool(torch.equal(a, b)), "faults": faults}
+    out = {"h1": h1, "h2": gap, "h2_max_abs": (a - ref).abs().max().item(),
+           "h2_zero_mismatch_rows": zero_mismatch_rows(a, ref), "h2_run_to_run": adjoint_gap(a, b),
+           "h2_bits_equal_run_to_run": bool(torch.equal(a, b)),
+           "h2_bits_equal_fixed_point_model": bool(torch.equal(a, model)), "faults": faults}
     if not within_limits(gap):
         raise AssertionError(f"H2 {label}: {gap} outside {CARD_LIMITS}")
+    if not (out["h2_bits_equal_run_to_run"] and out["h2_bits_equal_fixed_point_model"]):
+        raise AssertionError(f"H2 {label}: two launches or the fixed-point model disagree bit for bit: {out}")
     for name, reading in faults.items():
         if not above_limits(reading):
             raise AssertionError(f"H2 {label}: the seeded fault '{name}' reads {reading}, not above {CARD_LIMITS}")
@@ -324,7 +376,7 @@ def times(spec: GridSpec, n_lookup: int, n_adjoint: int, gen: torch.Generator, d
     h2 = {"n": n_adjoint,
           "ms": BI.device_ms(lambda: HC.hash_grid_adjoint_cuda(pos2, g, spec)),
           "plain_ms": BI.device_ms(lambda: HC.hash_grid_adjoint_plain(pos2, g, spec), iters=5),
-          **bound(n_adjoint, spec), "library_ms": None}
+          **bound(n_adjoint, spec), "library_ms": None, "scratch_bound_ms": scratch_bound_ms(spec)}
     n_dense = sum(spec.dense)
     split = {}
     if 0 < n_dense < spec.levels:
@@ -368,9 +420,14 @@ def hash_builds(parent: str | None = None) -> dict:
     entry points."""
     builds = {"shipped": (HC.LOOKUP_KERNEL, HC.ADJOINT_KERNEL)}
     if parent:
-        source = str((Path(parent) / "hash_grid.cu").resolve())
-        builds["parent"] = tuple(CudaKernel(source, k.symbol, k.argtypes, extra_flags=k.extra_flags)
-                                 for k in (HC.LOOKUP_KERNEL, HC.ADJOINT_KERNEL))
+        path = (Path(parent) / "hash_grid.cu").resolve()
+        # H2 before the fixed point took no scratch argument
+        adjoint_args = HC.ADJOINT_ARGTYPES
+        if not re.search(r"float\* dtable, void\* scratch, void\* stream", path.read_text()):
+            adjoint_args = adjoint_args[:-1]
+        builds["parent"] = tuple(CudaKernel(str(path), k.symbol, args, extra_flags=k.extra_flags)
+                                 for k, args in ((HC.LOOKUP_KERNEL, HC.LOOKUP_KERNEL.argtypes),
+                                                 (HC.ADJOINT_KERNEL, adjoint_args)))
     return builds
 
 
@@ -436,7 +493,7 @@ def measure(kind: str, args, builds: dict) -> dict:
     h2 = kind == "H2"
     if h2:
         ref = HC.hash_grid_adjoint_plain(pos, x, spec)
-        ref_cpu = HC.hash_grid_adjoint_plain(pos.cpu(), x.cpu(), spec)
+        model = fixed_point_adjoint(pos, x, spec)
 
         def run(k):
             return HC.launch_adjoint(k, pos, x, spec)
@@ -452,8 +509,9 @@ def measure(kind: str, args, builds: dict) -> dict:
         got = run(kernels[h2])
         if h2:
             gap = adjoint_gap(got, ref)
-            res = dict(ok=within_limits(gap), gap=gap, bits_equal_run_to_run=bool(torch.equal(got, run(kernels[h2]))),
-                       bits_equal_plain_cpu=bool(torch.equal(got.cpu(), ref_cpu)))
+            res = dict(ok=within_limits(gap), gap=gap, zero_mismatch_rows=zero_mismatch_rows(got, ref),
+                       bits_equal_run_to_run=bool(torch.equal(got, run(kernels[h2]))),
+                       bits_equal_fixed_point_model=bool(torch.equal(got, model)))
         else:
             res = dict(ok=bool(torch.equal(got.view(torch.int32), ref.view(torch.int32))))
         row["builds"][name] = dict(res, ms=0.0)
@@ -514,8 +572,9 @@ def measure_launches(cases, builds: dict) -> list:
         print(f"{label:16s} {kind} B = {row['n']:6d}: bound {row['bound_ms']:.4f} ms; "
               + (f"rows {row['row_load']}; " if "row_load" in row else "")
               + "; ".join(f"{b}: {x['ms']:.4f} ms{'' if x['ok'] else ' DISAGREES'}"
-                          + (f" (bit-equal run to run: {x['bits_equal_run_to_run']}, to the plain version on the CPU: "
-                             f"{x['bits_equal_plain_cpu']}; by level {x.get('by_level_ms')})"
+                          + (f" (bit-equal run to run: {x['bits_equal_run_to_run']}, to the fixed-point model: "
+                             f"{x['bits_equal_fixed_point_model']}; rows zero in one only: "
+                             f"{x['zero_mismatch_rows']}; by level {x.get('by_level_ms')})"
                              if kind == "H2" else "")
                           for b, x in row["builds"].items()))
     return rows

@@ -4,14 +4,18 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 -m nrc_tpu_torch.tools.profile_frame
 
-Five configurations at 320x320 (64x5 network, seeded init). On the
+Six configurations at 320x320 (64x5 network, seeded init). On the
 1224-triangle Cornell box with the frequency encoding: FULL and NO_CACHE
 with ``train=False`` (the serving side), then FULL + train, the main path,
 after the adaptive tile size has settled. The same FULL + train with the
 hash encoding (``set_encoding``), whose frame runs four ``train_step``s
 (H1, K3, K4, H2 and the table's Adam + EMA each) where the frequency frame
 runs K6. On the 132 K-triangle ``cornell_objects`` scene, which goes
-through the wide BVH: FULL + train, likewise settled.
+through the wide BVH: FULL + train, likewise settled. On ``cornell_glass``
+(dielectric blocks and a translucent panel: the transmission lobes and the
+IOR stack) FULL + train with reflectance factoring and shadow-ray Russian
+roulette at tau = 0.5, likewise settled. ``--only NAME ...`` runs some of
+them (``full``, ``no_cache``, ``train``, ``hash``, ``objects``, ``glass``).
 
 Each configuration runs twice from the same renderer: eagerly
 (``Renderer.capture = False``; every kernel issued from Python) and
@@ -46,7 +50,9 @@ MB each) go to a temporary directory and are removed.
 
 from __future__ import annotations
 
+import argparse
 import collections
+import dataclasses
 import json
 import os
 import statistics
@@ -59,7 +65,7 @@ import torch
 from ..config import InputEncoding, RenderMode
 from ..models.network import TABLE_UPDATE_RANGE
 from ..render.renderer import Renderer
-from ..scene.scene_builder import cornell_box, cornell_objects
+from ..scene.scene_builder import cornell_box, cornell_glass, cornell_objects
 
 RES = 320
 TIMED_FRAMES = 20
@@ -242,26 +248,40 @@ def profile_both(r: Renderer, label: str) -> dict:
     return {"mode": label, "eager": eager, "replayed": replayed}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    configs = ("full", "no_cache", "train", "hash", "objects", "glass")
+    ap = argparse.ArgumentParser(description="where a frame's time goes on the card")
+    ap.add_argument("--only", nargs="+", choices=configs, default=configs)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: no CUDA device is available")
     scene, system = cornell_box((RES, RES))
     dev = torch.device("cuda", 0)
     results = []
-    for mode in (RenderMode.FULL, RenderMode.NO_CACHE):
-        r = Renderer(scene, system, render_mode=mode, train=False, device=dev)
-        results.append(profile_both(r, mode.name))
-    r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
-    r.render(8)  # the tile size follows the record count two frames late
-    results.append(profile_both(r, "FULL + train"))
-    r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
-    r.set_encoding(InputEncoding.HASH)
-    r.render(8)
-    results.append(profile_both(r, "hash FULL + train"))
-    big, big_system = cornell_objects((RES, RES))
-    r = Renderer(big, big_system, render_mode=RenderMode.FULL, device=dev)
-    r.render(8)
-    results.append(profile_both(r, "cornell_objects FULL + train"))
+    for name, mode in (("full", RenderMode.FULL), ("no_cache", RenderMode.NO_CACHE)):
+        if name in args.only:
+            r = Renderer(scene, system, render_mode=mode, train=False, device=dev)
+            results.append(profile_both(r, mode.name))
+    if "train" in args.only:
+        r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
+        r.render(8)  # the tile size follows the record count two frames late
+        results.append(profile_both(r, "FULL + train"))
+    if "hash" in args.only:
+        r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
+        r.set_encoding(InputEncoding.HASH)
+        r.render(8)
+        results.append(profile_both(r, "hash FULL + train"))
+    if "objects" in args.only:
+        big, big_system = cornell_objects((RES, RES))
+        r = Renderer(big, big_system, render_mode=RenderMode.FULL, device=dev)
+        r.render(8)
+        results.append(profile_both(r, "cornell_objects FULL + train"))
+    if "glass" in args.only:
+        glass, glass_system = cornell_glass((RES, RES))
+        r = Renderer(glass, glass_system, render_mode=RenderMode.FULL, device=dev, reflectance_factoring=True)
+        r.cfg = dataclasses.replace(r.cfg, nee_rr_tau=0.5)
+        r.render(8)
+        results.append(profile_both(r, "cornell_glass FULL + train (factoring, shadow-ray roulette 0.5)"))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True, timeout=60,

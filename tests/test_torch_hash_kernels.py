@@ -10,24 +10,30 @@ rules, which this file models and holds to the plain versions
   of a hashed level (PRIMES[0] = 1; negative cells wrap as uint32 and keep
   it) and for a dense level's unclamped even idx0. H1 reads the pair that
   holds idx0 in one load and takes idx1's row from it when the rule holds,
-  else reads idx1's row; H2 adds both terms with one vector atomic then;
+  else reads idx1's row; H2 adds both terms as 2F consecutive 64-bit words
+  then;
 - H1 sums the corners in order 0..7 whatever the reads, so the model is
   equal to the plain lookup bit for bit;
 - H1's tile: a block's 32 queries, a warp a level, the features through
   shared memory rows padded to an odd number of store words (no two lanes
   of a phase on one bank), stored as 16-byte words of the contiguous
   [32, L * F] output;
-- H2's dense pre-sum: the dense levels that fit a block's shared memory
-  are summed per block of at most kDenseQueries queries, each touched row
-  added once; the sum in another order than the plain one stays within
-  ``bench_hash.CARD_LIMITS``.
+- H2's fixed point: each term w * g times its level's 2^s (from the
+  batch's largest |g| and the headroom of 8 B terms a row), rounded to an
+  int64 and added as an integer, so the sum has the same bits in any order:
+  the pairs, the dense pre-sum (the dense levels that fit kSharedBytes of
+  64-bit rows, summed per block of at most kDenseQueries queries, each
+  touched row added once) and a shuffle of the queries all give
+  ``bench_hash.fixed_point_adjoint``'s bits, which stay within
+  ``bench_hash.CARD_LIMITS`` of the f32 plain version.
 
 The constants come from the source's text (as
 ``tests/test_torch_walk_groups.py`` reads ``intersect_wide.cu``), and a few
 lines of the kernels' text are held so that an edit of a rule there fails
 here until the model follows. Seeded faults (the pair's halves swapped, a
 pair taken without the rule, a pre-summed row dropped, a swapped vector
-atomic) read as wrong. The card holds the kernels themselves to the plain
+atomic, i.e. the pair's halves added into each other's rows) read as
+wrong. The card holds the kernels themselves to the plain
 versions (``chip_smoke.py`` 3d and 6d, ``tools/bench_hash.py``). No JAX
 function is used here.
 """
@@ -101,7 +107,9 @@ def test_the_kernel_constants_are_the_wrappers():
     assert THREADS % 32 == 0 and TILE == 32
     # warp w takes levels w, w + WARPS, ...: at most two levels a warp
     assert 2 * WARPS >= HC.MAX_LEVELS
-    assert SHARED_BYTES == 48 * 1024 and DENSE_QUERIES >= 1
+    # H2's pre-sum opts in above the 48 KB default, within the 227 KB a
+    # block may have
+    assert 48 * 1024 < SHARED_BYTES <= 227 * 1024 and DENSE_QUERIES >= 1
 
 
 def _tile_stride(levels, features):
@@ -160,25 +168,27 @@ def test_the_tile_store_writes_each_output_float_once(rows, grid):
 
 def _presum_levels(spec):
     """``choose_presum``: the dense levels from the coarsest while their rows
-    fit a block's shared memory; their float offsets."""
-    floats, chosen = 0, {}
+    of 64-bit sums fit kSharedBytes; their word offsets."""
+    words, chosen = 0, {}
     for level, (dense, res) in enumerate(zip(spec.dense, spec.res)):
         if not dense:
             continue
         rows = (res + 1) ** 3
-        if floats + rows * spec.features > SHARED_BYTES // 4:
+        if words + rows * spec.features > SHARED_BYTES // 8:
             break
-        chosen[level] = floats
-        floats += rows * spec.features
-    return chosen, floats
+        chosen[level] = words
+        words += rows * spec.features
+    return chosen, words
 
 
 def test_the_shipped_dense_level_is_pre_summed_and_fits():
     spec = BH.full_spec()
-    chosen, floats = _presum_levels(spec)
-    assert list(chosen) == [0] and floats == 17 ** 3 * 2 and 4 * floats == 39304 <= SHARED_BYTES
-    # with the tile's 512 threads, shared memory lets the blocks that fill an SM's threads stay
-    assert (THREADS_AN_SM // THREADS) * 4 * max(floats, TILE * _tile_stride(16, 2)) <= SHARED_BYTES_AN_SM
+    chosen, words = _presum_levels(spec)
+    assert list(chosen) == [0] and words == 17 ** 3 * 2 and 8 * words == 78608 <= SHARED_BYTES
+    # every block of the launch gets as much shared memory: two of 512
+    # threads an SM (the tile needs 4.3 KB)
+    assert 8 * words >= 4 * TILE * _tile_stride(16, 2)
+    assert SHARED_BYTES_AN_SM // (8 * words) == 2 and 2 * THREADS <= THREADS_AN_SM
 
 
 # ---------------------------------------------------------------------------
@@ -288,78 +298,133 @@ def test_lookup_model_on_a_frames_positions():
 # H2
 # ---------------------------------------------------------------------------
 
+def _quantised(pos, g, spec):
+    """Each corner's terms [B, L, F] as the kernel adds them: w * g (f32)
+    times the level's 2^s, rounded to the nearest int64; and 2^-s a level."""
+    n = pos.shape[0]
+    L, _, F = spec.table_shape
+    shifts = BH.level_shifts(g, spec)
+    scale = torch.tensor([2.0 ** sh for sh in shifts], dtype=torch.float64)
+    g3 = g.reshape(n, L, F)
+    terms = [torch.round((w[..., None] * g3).double() * scale[:, None]).to(torch.int64)
+             for _, w in _corners(pos, spec)]
+    return terms, 1.0 / scale
+
+
 def adjoint_model(pos, g, spec, fault=None, block_queries=DENSE_QUERIES):
-    """H2 as the kernel adds: the pre-summed dense levels per block of
-    queries (each touched row added once, a row whose terms summed to zero
-    not at all), the other levels tile by tile, an aligned x-corner pair as
-    one 2F-float add at idx0 & ~1, else row by row."""
+    """H2 as the kernel adds: the quantised terms of the pre-summed dense
+    levels per block of queries (each touched row added once, a row whose
+    terms summed to zero not at all), the other levels tile by tile, an
+    aligned x-corner pair as 2F words at idx0 & ~1, else row by row; the
+    integer sums times 2^-s rounded to f32 once."""
     n = pos.shape[0]
     L, S, F = spec.table_shape
     ofs = _level_offsets(spec)
-    g3 = g.reshape(n, L, F)
     corners = _corners(pos, spec)
+    terms, inv = _quantised(pos, g, spec)
     chosen, _ = _presum_levels(spec)
     pre = torch.tensor([level in chosen for level in range(L)])
-    dflat = torch.zeros((L * S, F))
+    acc = torch.zeros((L * S, F), dtype=torch.int64)
     blocks = -(-n // block_queries) if chosen else 0
     per = -(-n // blocks) if blocks else 0
     for blk in range(blocks):
         q = slice(blk * per, min(n, (blk + 1) * per))
         for level in chosen:
-            sums = torch.zeros((S, F))
+            sums = torch.zeros((S, F), dtype=torch.int64)
             for k in range(8):
-                idx, w = corners[k]
-                sums.index_add_(0, idx[q, level], w[q, level, None] * g3[q, level])
+                sums.index_add_(0, corners[k][0][q, level], terms[k][q, level])
             touched = (sums != 0).any(dim=1)
             if fault == "pre-summed row dropped":
                 touched[touched.nonzero()[0]] = False
             rows = touched.nonzero()[:, 0]
-            dflat.index_add_(0, rows + ofs[level], sums[rows])
+            acc.index_add_(0, rows + ofs[level], sums[rows])
     rest = ~pre
     for j in range(4):
-        (i0, w0), (i1, w1) = corners[2 * j], corners[2 * j + 1]
-        u0, u1 = w0[..., None] * g3, w1[..., None] * g3
+        (i0, _), (i1, _) = corners[2 * j], corners[2 * j + 1]
+        u0, u1 = terms[2 * j], terms[2 * j + 1]
         pair = (i1 == (i0 ^ 1)) & rest
         odd = (i0 & 1).bool()
         if fault == "vector atomic swapped":
             odd = ~odd
         two = torch.where(odd[..., None, None], torch.stack([u1, u0], -2), torch.stack([u0, u1], -2))
         base = (i0 & ~1) + ofs
-        dflat.view(L * S // 2, 2 * F).index_add_(0, (base[pair] // 2), two[pair].reshape(-1, 2 * F))
+        acc.view(L * S // 2, 2 * F).index_add_(0, (base[pair] // 2), two[pair].reshape(-1, 2 * F))
         single = ~(i1 == (i0 ^ 1)) & rest
-        dflat.index_add_(0, (i0 + ofs)[single], u0[single])
-        dflat.index_add_(0, (i1 + ofs)[single], u1[single])
-    return dflat.view(L, S, F)
+        acc.index_add_(0, (i0 + ofs)[single], u0[single])
+        acc.index_add_(0, (i1 + ofs)[single], u1[single])
+    return (acc.view(L, S, F).double() * inv[:, None, None]).float()
 
 
 @pytest.mark.parametrize("box", [(-0.3, 1.3), (0.25, 0.75)], ids=["wide", "frame"])
 @pytest.mark.parametrize("grid", sorted(GRIDS))
 def test_adjoint_model_within_card_limits(grid, box):
+    """The kernel's adds give ``fixed_point_adjoint``'s bits (the integer
+    sum's order does not matter), within the limits of the f32 plain sum."""
     spec = _spec(grid)
     pos, _, g = _inputs(spec, 999, 5, *box)
     ref = HC.hash_grid_adjoint_plain(pos, g, spec)
     got = adjoint_model(pos, g, spec)
+    assert torch.equal(got, BH.fixed_point_adjoint(pos, g, spec))
     assert BH.within_limits(BH.adjoint_gap(got, ref)), BH.adjoint_gap(got, ref)
 
 
 def test_adjoint_model_pre_sums_in_blocks_of_the_sources_size():
     """The shipped grid at a training batch's shape: its dense level in
-    ceil(B / kDenseQueries) blocks of the queries, the model within the
-    limits for blocks of that size and of one query (no pre-sum at all)."""
+    ceil(B / kDenseQueries) blocks of the queries, or in blocks of one query
+    (no pre-sum at all), or the queries shuffled: the same bits each way,
+    within the limits of the plain version."""
     spec = BH.full_spec()
     pos, _, g = _inputs(spec, 4096, 6, 0.25, 0.75)
     ref = HC.hash_grid_adjoint_plain(pos, g, spec)
-    for queries in (DENSE_QUERIES, 1):
-        assert BH.within_limits(BH.adjoint_gap(adjoint_model(pos, g, spec, block_queries=queries), ref))
+    got = adjoint_model(pos, g, spec)
+    assert BH.within_limits(BH.adjoint_gap(got, ref))
+    perm = torch.randperm(4096, generator=torch.Generator().manual_seed(6))
+    for other in (adjoint_model(pos, g, spec, block_queries=1), adjoint_model(pos[perm], g[perm], spec),
+                  BH.fixed_point_adjoint(pos[perm], g[perm], spec)):
+        assert torch.equal(other, got)
 
 
 @pytest.mark.parametrize("fault", ["pre-summed row dropped", "vector atomic swapped"])
 def test_adjoint_model_catches_seeded_faults(fault):
-    spec = BH.full_spec()
+    """A row of the pre-sum dropped (on the edge grid, whose two dense
+    levels are pre-summed) or an x-corner pair's halves added into each
+    other's rows (the shipped grid)."""
+    spec = _spec("edge") if fault == "pre-summed row dropped" else BH.full_spec()
     pos, _, g = _inputs(spec, 999, 7, 0.25, 0.75)
     ref = HC.hash_grid_adjoint_plain(pos, g, spec)
     gap = BH.adjoint_gap(adjoint_model(pos, g, spec, fault=fault), ref)
     assert not BH.within_limits(gap), gap
+
+
+@pytest.mark.parametrize("n", [1, 999, 16384])
+def test_fixed_point_headroom_holds_a_rows_worst_sum(n):
+    """The scale leaves room for 8 B terms of the level's largest |g| on one
+    row (every corner of every query there): their sum stays below 2^62,
+    while the largest term keeps 62 - ceil(log2(8 B)) - 1 bits or more."""
+    spec = BH.full_spec()
+    g = torch.randn((n, spec.levels * spec.features), generator=torch.Generator().manual_seed(n))
+    g[:, :spec.features] = 0.0  # a level with no gradient adds only zeros
+    shifts = BH.level_shifts(g, spec)
+    gmax = g.reshape(n, spec.levels, spec.features).abs().amax(dim=(0, 2))
+    assert shifts[0] == 0
+    for level in range(1, spec.levels):
+        top = round(float(gmax[level]) * 2.0 ** shifts[level])
+        assert 8 * n * top < 2 ** 62
+        assert top >= 2 ** (62 - (8 * n - 1).bit_length() - 1)
+
+
+def test_fixed_point_rows_of_tiny_terms():
+    """A term below half a quantum adds nothing: a row that only such terms
+    reach stays zero, where the plain f32 sum is not (the reading
+    ``zero_mismatch_rows`` prints beside CARD_LIMITS). At the frame's
+    shapes a quantum is 2^-46 or so of the level's largest |g|."""
+    spec = _spec("edge")
+    pos, _, g = _inputs(spec, 64, 9, 0.25, 0.75)
+    g[1:] *= 1e-20  # one query carries the level's largest |g|
+    ref = HC.hash_grid_adjoint_plain(pos, g, spec)
+    got = BH.fixed_point_adjoint(pos, g, spec)
+    assert BH.zero_mismatch_rows(got, ref) > 0
+    assert BH.zero_mismatch_rows(got, got) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -406,7 +471,7 @@ def test_frame_totals_sum_the_frames_launches_only():
     r"if \(q\.idx1 == \(q\.idx0 \^ 1\)\) \{",
     # the aligned pair holds idx0
     r"load_floats<2 \* F>\(level_rows \+ static_cast<int64_t>\(q\.idx0 & ~1\) \* F, two\);",
-    r"atomic_add_floats<2 \* F>\(level_rows \+ static_cast<int64_t>\(q\.idx0 & ~1\) \* F, two\);",
+    r"atomic_add_fixed<2 \* F>\(level_rows \+ static_cast<int64_t>\(q\.idx0 & ~1\) \* F, two\);",
     # the halves by idx0's parity
     r"r0\[f\] = odd \? two\[F \+ f\] : two\[f\];",
     r"r1\[f\] = odd \? two\[f\] : two\[F \+ f\];",
@@ -423,7 +488,14 @@ def test_frame_totals_sum_the_frames_launches_only():
     r"load_shared<F>\(gtile \+ lane \* stride \+ l \* F, gl\);",
     r"const int word = features < 4 \? features : 4;\s*return word \* \(\(levels \* features / word\) \| 1\);",
     # a pre-summed row that summed to zero is not added
-    r"if \(any\) atomic_add_floats<F>",
+    r"if \(any\) atomic_add_fixed<F>",
+    # the fixed point: the scale a level, the term rounded once, the sum
+    # turned to f32 once
+    r"return 62 - headroom - e;",
+    r"while \(\(int64_t\{1\} << bits\) < int64_t\{8\} \* n\) \+\+bits;",
+    r"__double2ll_rn\(__dmul_rn\(static_cast<double>\(t\), scale\)\)",
+    r"u0\[f\] = quantise\(__fmul_rn\(q\.w0, gl\[f\]\), scale\);",
+    r"__double2float_rn\(__dmul_rn\(__ll2double_rn\(static_cast<long long>\(acc\[i\]\)\), inv\)\)",
 ])
 def test_the_kernels_text_holds_the_models_rules(line):
     assert re.search(line, SOURCE), line

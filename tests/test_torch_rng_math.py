@@ -11,7 +11,7 @@ import torch
 from nrc_tpu.scene.camera import generate_primary_rays as jax_primary_rays
 from nrc_tpu.utils import math as JM
 from nrc_tpu.utils import rng as JR
-from nrc_tpu_torch.scene.camera import generate_primary_rays
+from nrc_tpu_torch.scene.camera import LENS_FISHEYE, LENS_PINHOLE, LENS_SPHERE, generate_primary_rays
 from nrc_tpu_torch.scene.scene_builder import cornell_box
 from nrc_tpu_torch.utils import math as PM
 from nrc_tpu_torch.utils import rng as PR
@@ -46,6 +46,10 @@ def test_lcg_and_rng4_bit_exact():
 
 
 def test_primary_rays_match():
+    """The three lenses (pinhole, fisheye, sphere) against the JAX function
+    on the same jittered pixels: directions within 1e-6 (a few float32 ulp
+    of a unit vector: XLA and PyTorch round sin, cos and the products
+    apart), the origins equal. An unknown lens raises."""
     scene, _ = cornell_box((48, 32))
     cam = scene.camera.frustum()
     rs = np.random.default_rng(1)
@@ -53,17 +57,22 @@ def test_primary_rays_match():
         np.meshgrid(np.arange(48), np.arange(32), indexing="xy"), -1
     ).reshape(-1, 2).astype(np.float32)
     jitter = rs.random(pix.shape, dtype=np.float32)
-    jo, jd = jax_primary_rays(pix, jitter, (48, 32), *cam)
-    po, pd = generate_primary_rays(
-        torch.from_numpy(pix), torch.from_numpy(jitter), (48, 32),
-        *(torch.from_numpy(c) for c in cam),
-    )
-    np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=1e-6, rtol=0)
-    np.testing.assert_allclose(pd.numpy(), np.asarray(jd), atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError):
+    for lens in (LENS_PINHOLE, LENS_FISHEYE, LENS_SPHERE):
+        jo, jd = jax_primary_rays(pix, jitter, (48, 32), *cam, lens=lens)
+        po, pd = generate_primary_rays(
+            torch.from_numpy(pix), torch.from_numpy(jitter), (48, 32),
+            *(torch.from_numpy(c) for c in cam), lens=lens,
+        )
+        np.testing.assert_array_equal(po.numpy(), np.asarray(jo))
+        np.testing.assert_allclose(pd.numpy(), np.asarray(jd), atol=1e-6, rtol=0)
+    # the fisheye and sphere lenses span the normalized basis
+    for c in cam[1:]:
+        np.testing.assert_allclose(PM.normalize(torch.from_numpy(c)).numpy(), np.asarray(JM.normalize(c)),
+                                   atol=6e-8, rtol=0)
+    with pytest.raises(ValueError):
         generate_primary_rays(
             torch.from_numpy(pix), torch.from_numpy(jitter), (48, 32),
-            *(torch.from_numpy(c) for c in cam), lens=1,
+            *(torch.from_numpy(c) for c in cam), lens=3,
         )
 
 

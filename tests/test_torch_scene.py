@@ -35,10 +35,12 @@ from test_torch_intersect import planes_from_tpu_layout
 CPU = torch.device("cpu")
 
 
-def jax_cornell_scene(resolution=(32, 32)) -> JScene:
-    """The JAX package's ``Scene`` for the port's Cornell declarations, built
-    with the JAX package's own host code. Material rows convert by field name."""
-    models, materials, cam = cornell_box_declarations()
+def jax_cornell_scene(resolution=(32, 32), declarations=cornell_box_declarations) -> JScene:
+    """The JAX package's ``Scene`` for the port's Cornell declarations (or
+    another ``declarations()`` of planes and boxes, as ``cornell_glass``'s),
+    built with the JAX package's own host code. Material rows convert by
+    field name."""
+    models, materials, cam = declarations()
     rows = [JMaterial(**dataclasses.asdict(m)) for m in materials.values()]
     names = list(materials)
     parts = {k: [] for k in ("p0", "p1", "p2", "n0", "n1", "n2", "uv0", "uv1", "uv2", "mat")}
@@ -170,8 +172,8 @@ class TestUpload:
     @pytest.mark.parametrize(
         "change",
         [
-            dict(archetype=Archetype.GGX_TRANSMIT),
-            dict(archetype=Archetype.SPECULAR_REFLECT_TRANSMIT),
+            dict(archetype=Archetype.HAIR),
+            dict(archetype=Archetype.MEASURED),
             dict(cutout_opacity=0.5),
             dict(sigma_a=(0.1, 0.1, 0.1)),
             dict(blend_mode=1),

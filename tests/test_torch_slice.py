@@ -58,6 +58,7 @@ from nrc_tpu_torch.config import RenderMode
 from nrc_tpu_torch.models.network import state_from_numpy
 from nrc_tpu_torch.render.frame import frame_step
 from nrc_tpu_torch.render.renderer import Renderer
+from nrc_tpu_torch.scene.lights import TYPE_LIGHT_ENV_CONST
 from nrc_tpu_torch.scene.scene_builder import cornell_box
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_scene import jax_cornell_scene
@@ -322,11 +323,17 @@ def test_accumulation_and_benchmark(setup):
 
 
 def test_unported_paths_raise(setup):
+    """What the port still refuses: volumes and textures (their frame
+    switches) and environment lights (the upload). DEBUG_TIME_VIEW and
+    shadow-ray Russian roulette, refused before, are ported
+    (``test_torch_glass_slice.py``)."""
     scene, system, _ = setup
     r = Renderer(scene, system, device="cpu")
+    for flag in ("has_volumes", "has_textures"):
+        with pytest.raises(NotImplementedError):
+            frame_step(r.device_scene, r.net_state, r.image, r._camera_arrays(), 0, 0,
+                       dataclasses.replace(r.cfg, **{flag: True}), r.net_cfg)
+    env = dataclasses.replace(scene)
+    env.lights = dataclasses.replace(scene.lights, type=np.asarray([TYPE_LIGHT_ENV_CONST], np.int32))
     with pytest.raises(NotImplementedError):
-        frame_step(r.device_scene, r.net_state, r.image, r._camera_arrays(), 0, 0,
-                   dataclasses.replace(r.cfg, render_mode=RenderMode.DEBUG_TIME_VIEW), r.net_cfg)
-    with pytest.raises(NotImplementedError):
-        frame_step(r.device_scene, r.net_state, r.image, r._camera_arrays(), 0, 0,
-                   dataclasses.replace(r.cfg, nee_rr_tau=0.5), r.net_cfg)
+        Renderer(env, system, device="cpu")
