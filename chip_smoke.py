@@ -86,6 +86,22 @@ Phases, each of which raises on failure (non-zero exit):
    tables, an archetype edit captures another, eager and replayed frames
    bit for bit after each; a screenshot (PNG, HDR) and a render state
    written and read back, the state loaded under a captured graph;
+6f. declared lights and textures: ``cornell_lights`` (a point, a spot and
+   an IES light beside the area light) and ``env_textured`` (a 1024 x 512
+   equirect sky with a sun, textured albedo, a cutout panel, a textured
+   emitter) at 320x320: FULL + train replayed (K1, K3, K6 and K7 launched,
+   K2 on ``cornell_lights`` only: ``env_textured``'s shadow rays are
+   closest-hit hops through its cutout panel; a finite image, the loss
+   curve, launches per replayed frame) and under the profiler; FULL and
+   NO_CACHE serving (ms/frame, traced rays, device busy, kernels a frame);
+   8 FULL + train frames replayed against eager ones bit for bit (as 6c);
+   K7 on the six tables the slice adds (the light row, the mesh-light pool
+   row, the env alias and eval rows, the atlas's quad rows, the NEE
+   texture row) bit for bit against the plain gather and timed beside
+   ``index_select`` and its bound; a colour edit of the textured floor
+   that replays the captured graph; 32x32 FULL + train and NO_CACHE frames
+   on the card against the CPU under phase 9's bounds, ``env_textured``'s
+   training frame split at K6 (``_card_vs_cpu_through_k6``);
 7. large scene: FULL + train at 320x320 on ``cornell_objects`` (the wide
    BVH path), replayed: frames until the tile size settles, then 8 timed
    frames and 4 more counted; W1, W2 and the path's gather must run, K1 and
@@ -259,6 +275,15 @@ def _print_eager_and_replayed(PF, r, label):
               + (f"; the hash table's Adam + EMA {row['hash_table_update_device_ms_per_frame']:.4f} ms/frame"
                  if row["hash_table_update_device_ms_per_frame"] else ""))
     print(f"{label} graphs: " + ", ".join(f"tile {k[2][0]}x{k[2][1]} {g.nbytes} bytes" for k, g in r.graphs.items()))
+
+
+def _print_replayed(PF, r, label):
+    """Replayed frames under the profiler (profile_frame's replayed column)."""
+    row = PF.profile_mode(r, 4, 10, stacks=False)
+    print(f"{label} replayed: {row['ms_per_frame_median']:.3f} ms/frame median of 10 "
+          f"({row['ms_per_frame_min']:.3f}-{row['ms_per_frame_max']:.3f}), device busy "
+          f"{row['device_busy_ms_per_frame']:.3f} ms/frame, idle {100 * row['device_idle_share']:.1f} %, "
+          f"{row['kernel_launches_per_frame']:.0f} kernels a frame; by group {row['device_ms_per_frame_by_group']}")
 
 
 def _replay_matches_eager(scene, system, dev, frames, label, **renderer_kw):
@@ -643,6 +668,119 @@ def _live_edits(dev):
           f"under a captured graph and its next frame bit for bit")
 
 
+def _lights_slice(kernels, dev, BI, PF, path_gather):
+    """cornell_lights and env_textured at 320x320, phase 6f of the module's
+    docstring: FULL + train replayed and under the profiler, FULL and
+    NO_CACHE serving, 8 FULL + train frames replayed against eager ones bit
+    for bit, K7 on the six tables the slice adds, a colour edit of a
+    textured material replayed on its graph, then 32x32 frames on the card
+    against the CPU."""
+    import tempfile
+
+    import torch
+
+    from nrc_tpu_torch.config import RenderMode
+    from nrc_tpu_torch.ops import gather_cuda as GC
+    from nrc_tpu_torch.render.renderer import Renderer
+    from nrc_tpu_torch.scene.scene_builder import cornell_lights, env_textured
+    from nrc_tpu_torch.tools import bench_gather
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        scenes = {"cornell_lights": cornell_lights((320, 320), d), "env_textured": env_textured((320, 320), directory=d)}
+        small = {"cornell_lights": cornell_lights((32, 32), d), "env_textured": env_textured((32, 32), directory=d)}
+    print(f"lights slice: scenes built in {time.perf_counter() - t0:.2f} s (files written, read back, tables built)")
+    renderers = {}
+    for name, (scene, system) in scenes.items():
+        r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
+        renderers[name] = r
+        sizes = BI.settle_tiles(r)
+        trained, counts = _counted(kernels, kernels, lambda: r.benchmark(8))
+        r.flush_stats()
+        for k in ("intersect_planes", "fused_forward", "fused_train4", path_gather):
+            _check(counts[k] > 0, f"{k} was not launched by the {name} FULL + train run")
+        # a scene with cutouts traces its shadow rays as closest-hit hops
+        _check((counts["occluded_planes"] == 0) == r.cfg.has_cutout,
+               f"{name}: K2 launched {counts['occluded_planes']} times with cutout {r.cfg.has_cutout}")
+        _check(bool(torch.isfinite(r.image).all()) and r.image.std().item() > 0.0, f"{name} image bad")
+        _check(math.isfinite(trained["loss"]) and int(r.last_stats.num_train_records) > 0, f"{name} training bad")
+        per_frame = _replayed_launches(r, kernels)
+        _check(per_frame["fused_train4"] == 1, f"a replayed {name} frame launched K6 {per_frame['fused_train4']} times")
+        lt = scene.lights
+        print(f"{name} FULL + train 320x320 ({scene.num_triangles} triangles; light types {lt.type.tolist()}; "
+              f"{scene.materials.atlas.num_textures} textures, textures {r.cfg.has_textures}, cutout "
+              f"{r.cfg.has_cutout}): tile sizes {sizes}, {trained['ms_per_frame']:.3f} ms/frame, "
+              f"{trained['mrays_per_s']:.2f} traced Mrays/s, {trained['traced_rays_per_frame']:.0f} rays/frame, "
+              f"{int(r.last_stats.num_train_records)} records in the last frame, loss {trained['loss']:.4f}, image mean "
+              f"{r.image.mean().item():.4f}; launches per replayed frame { {k: v for k, v in per_frame.items() if v} }")
+        print(f"{name} loss curve (per frame): {[round(v, 4) for v in r.loss_history]}")
+        _print_replayed(PF, r, f"{name} FULL + train")
+        for mode in (RenderMode.FULL, RenderMode.NO_CACHE):
+            rs = Renderer(scene, system, render_mode=mode, train=False, device=dev)
+            served, counts = _counted(kernels, kernels, lambda: rs.benchmark(8))
+            for k in ("intersect_planes", path_gather) + (() if rs.cfg.has_cutout else ("occluded_planes",)):
+                _check(counts[k] > 0, f"{k} was not launched by the {name} {mode.name} run")
+            _check(bool(torch.isfinite(rs.image).all()) and rs.image.std().item() > 0.0, f"{name} {mode.name} bad")
+            print(f"{name} {mode.name} 320x320 (train=False): {served['ms_per_frame']:.3f} ms/frame, "
+                  f"{served['mrays_per_s']:.2f} traced Mrays/s, {served['traced_rays_per_frame']:.0f} traced rays/frame, "
+                  f"image mean {rs.image.mean().item():.4f}")
+            _print_replayed(PF, rs, f"{name} {mode.name}")
+        _replay_matches_eager(scene, _with_tiles(system, (4, 4)), dev, 8, name)
+        print(f"lights slice: {name} done at {time.perf_counter() - t0:.1f} s")
+
+    # K7 on the six tables the slice adds, at the frame's N: bit for bit
+    # against the plain gather, then timed (CUDA-graph replay) beside
+    # index_select and the byte bound (bench_gather.bound_ms)
+    ds_l, ds_e = (renderers[k].device_scene for k in ("cornell_lights", "env_textured"))
+    tables = {"light_row": ds_l.lights.light_row, "mesh_row": ds_l.lights.mesh_row,
+              "env_alias_pack": ds_e.lights.env_alias_pack, "env_eval_pack": ds_e.lights.env_eval_pack,
+              "texels_quad": ds_e.atlas["texels_quad"], "NEE texture row": ds_e.nee_tex}
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n = 320 * 320
+    for label, table in tables.items():
+        index_sets = [torch.randint(0, table.shape[0], (n,), generator=gen, device=dev) for _ in range(10)]
+        for idx in index_sets[:2]:
+            got = GC.gather_rows_cuda(GC.GATHER_KERNEL, table, idx).view(torch.int32)
+            bad = int((got != GC.gather_rows_plain(table, idx).view(torch.int32)).sum())
+            _check(bad == 0, f"K7 on {label} {tuple(table.shape)}: {bad} words differ from the plain gather")
+        ms = bench_gather.time_ms(lambda idx: GC.gather_rows_cuda(GC.GATHER_KERNEL, table, idx), index_sets)
+        lib = bench_gather.time_ms(lambda idx: torch.index_select(table, 0, idx), index_sets)
+        unique = sum(bench_gather.unique_rows(idx) for idx in index_sets) / len(index_sets)
+        bound = bench_gather.bound_ms(unique, n, table.shape[1])
+        print(f"K7 on {label} {tuple(table.shape)} at N = {n}: bit for bit; {ms:.4f} ms, index_select {lib:.4f} ms, "
+              f"bound {bound:.4f} ms" + ("; K7 LOSES to index_select" if ms > lib else ""))
+
+    # a colour edit of the textured floor: the tables copied into the
+    # captured graph's tensors, the next frames replays of the same graph
+    r = renderers["env_textured"]
+    floor = [m.name for m in r.scene.material_rows].index("floor")
+    graphs, replays = len(r.graphs), r.replays
+    quad = r.device_scene.atlas["texels_quad"].data_ptr()
+    before = r.image.mean().item()
+    r.update_material(floor, albedo=(0.3, 0.6, 0.9))
+    r.render(2)
+    _check(len(r.graphs) == graphs and r.replays == replays + 2
+           and r.device_scene.atlas["texels_quad"].data_ptr() == quad,
+           "the colour edit of a textured material did not replay the captured graph")
+    print(f"env_textured live edit: the floor's colour edited, {r.replays - replays} replays of the captured graph, "
+          f"{len(r.graphs)} graphs, the atlas kept; image mean {before:.4f} -> {r.image.mean().item():.4f}")
+
+    # 32x32 on the card against the CPU, 8x8 tiles
+    # cornell_lights under phase 9's bounds; env_textured's training frame
+    # split at K6 (_card_vs_cpu_through_k6 says why)
+    for name, (scene, system) in small.items():
+        system = _with_tiles(system, (8, 8))
+        for mode, train in ((RenderMode.FULL, True), (RenderMode.NO_CACHE, False)):
+            label = f"{name} {mode.name}{' + train' if train else ''}"
+            if train and name == "env_textured":
+                rg, rcpu = (Renderer(scene, system, render_mode=mode, device=dd, capture=False) for dd in (dev, "cpu"))
+                _card_vs_cpu_through_k6(rg, rcpu, label)
+            else:
+                rg, rcpu = (Renderer(scene, system, render_mode=mode, train=train, device=dd) for dd in (dev, "cpu"))
+                _small_card_vs_cpu(rg, rcpu, label, train)
+    print(f"lights slice: {time.perf_counter() - t0:.1f} s")
+
+
 def _convergence(dev, net_cfg, label):
     """The JAX package's online-training oracle (tests/test_frame.py:92-139)
     on the port's Cornell box at 64x64, 8x8 tiles."""
@@ -701,6 +839,79 @@ def _small_card_vs_cpu(rg, rcpu, label, train):
           f"(limit 1e-7)")
     _check(n_rec[0] == n_rec[1] > 0 and loss_gap <= 1e-5 and dmax <= 1e-5 and dmean <= 1e-7,
            f"{label}: the card's training disagrees with the CPU path")
+
+
+def _card_vs_cpu_through_k6(rg, rcpu, label):
+    """One 32x32 FULL + train frame of an eager card renderer against the CPU,
+    with the training held at K6's door. The image and the records are held
+    under phase 9's bounds, and so is everything up to K6: its batches
+    (queries encoded, targets), and the plain K6 run on the card's batches
+    against the CPU frame's state and losses. K6 itself is held against
+    the state the card's frame left, run on the CPU's batches. Phase 9's
+    direct state bound is printed, not held: with a batch of 16,384 rows
+    drawn from a few records, a ReLU mask bit that K6's tensor-core sums flip
+    on one record (bench_mlp.CARD_LIMITS) repeats over a tenth of the batch."""
+    import torch
+
+    from nrc_tpu_torch.models import network as N
+    from nrc_tpu_torch.ops import mlp_cuda as MC
+
+    seen = {}
+    original = N.fused_train4
+
+    def recording(w, mu, nu, ema, step, x4, t4, lr, n, hyper):
+        start = [[t.detach().clone() for t in group] for group in (w, mu, nu, ema)]
+        args = (step.clone(), x4.clone(), t4.clone(), lr.clone(), n.clone(), hyper)
+        losses = original(w, mu, nu, ema, step, x4, t4, lr, n, hyper)
+        seen[x4.device.type] = (start, args, losses.detach().cpu().clone())
+        return losses
+
+    N.fused_train4 = recording
+    try:
+        sg, sc = rg.render(1), rcpu.render(1)
+    finally:
+        N.fused_train4 = original
+    close, mean_gap = _image_agreement(rg.image.cpu(), rcpu.image)
+    n_rec = (int(sg.num_train_records), int(sc.num_train_records))
+
+    def state(rr):
+        st = rr.net_state
+        return [t.detach().cpu() for m in (st.params, st.opt.mu, st.opt.nu, st.ema) for t in m.tensors()]
+
+    def run(fn, dev, start, args):
+        groups = [[t.to(dev).clone() for t in group] for group in start]
+        step, x4, t4, lr, n, hyper = args
+        losses = fn(*groups, step.to(dev).clone(), x4.to(dev), t4.to(dev), lr.to(dev), n.to(dev), hyper)
+        return [t.cpu() for group in groups for t in group], losses.cpu()
+
+    def gaps(a, b):
+        d = [(x - y).abs() for x, y in zip(a, b)]
+        return max(t.max().item() for t in d), max(t.mean().item() for t in d)
+
+    (start_g, args_g, losses_g), (start_c, args_c, losses_c) = seen["cuda"], seen["cpu"]
+    x_gap = (args_g[1].cpu() - args_c[1]).abs().max().item()
+    t_gap = ((args_g[2].cpu() - args_c[2]).abs() / args_c[2].abs().clamp(min=1e-3)).max().item()
+    start_gap = gaps([t.cpu() for g in start_g for t in g], [t for g in start_c for t in g])[0]
+    plain_state, plain_loss = run(MC.fused_train4_plain, "cpu", start_g, args_g)
+    k6_state, k6_loss = run(MC.fused_train4_cuda, rg.device, start_c, args_c)
+    plain_gap, k6_gap, direct = gaps(plain_state, state(rcpu)), gaps(k6_state, state(rg)), gaps(state(rg), state(rcpu))
+    plain_loss_gap = ((plain_loss - losses_c).abs() / losses_c.abs()).max().item()
+    k6_loss_gap = ((k6_loss - losses_g).abs() / losses_g.abs()).max().item()
+    print(f"32x32 {label} card vs CPU: {close:.4f} of pixels within 1e-3, means {mean_gap:.2e} apart; records "
+          f"{n_rec[0]} vs {n_rec[1]} (must be equal); K6's batches: encoded queries {x_gap:.3g} apart (limit 1e-5), "
+          f"targets {t_gap:.3g} relative (limit 1e-5), the state before {start_gap:.3g}; the plain K6 on the card's "
+          f"batches against the CPU frame: state largest |diff| {plain_gap[0]:.3g} (limit 1e-5), largest mean "
+          f"{plain_gap[1]:.3g} (limit 1e-7), losses {plain_loss_gap:.3g} relative (limit 1e-5); K6 on the CPU's "
+          f"batches against the card frame: {k6_gap[0]:.3g} and {k6_gap[1]:.3g} (same limits), loss "
+          f"{k6_loss_gap:.3g}; the card's state against the CPU's directly (phase 9's bound, printed): largest "
+          f"|diff| {direct[0]:.3g}, largest mean {direct[1]:.3g}, loss "
+          f"{abs(float(sg.loss) / float(sc.loss) - 1.0):.3g} relative")
+    _check(close >= 0.98 and mean_gap < 1e-3 and n_rec[0] == n_rec[1] > 0, f"{label}: the card's frame disagrees")
+    _check(x_gap <= 1e-5 and t_gap <= 1e-5 and start_gap == 0.0, f"{label}: K6's batches disagree")
+    _check(plain_gap[0] <= 1e-5 and plain_gap[1] <= 1e-7 and plain_loss_gap <= 1e-5,
+           f"{label}: the plain K6 on the card's batches disagrees with the CPU frame")
+    _check(k6_gap[0] <= 1e-5 and k6_gap[1] <= 1e-7 and k6_loss_gap <= 1e-5,
+           f"{label}: K6 on the CPU's batches disagrees with the card frame")
 
 
 def _hash_card_vs_cpu(dev, hash_cfg):
@@ -1335,6 +1546,9 @@ def main() -> int:
     _replay_matches_eager(glass_scene, _with_tiles(glass_system, (4, 4)), dev, 6, "cornell_glass",
                           reflectance_factoring=True, nee_rr_tau=GLASS_TAU)
     _live_edits(dev)
+
+    # ---- 6f. declared lights and textures: cornell_lights and env_textured ------
+    _lights_slice(kernels, dev, BI, PF, path_gather)
 
     # ---- 7. the large scene: FULL + train through the wide BVH -------------------
     sizes = BI.settle_tiles(rb)

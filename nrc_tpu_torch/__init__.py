@@ -10,8 +10,10 @@ the kernel's plain PyTorch version (the tests' path). Nothing falls back.
 
 Ported so far: one whole frame with the frequency encoding — the render and
 training wavefronts, cache inference, radiance propagation, batch assembly
-and the four Adam + EMA steps (kernels K1-K6) — for scenes with diffuse,
-GGX-reflect and emission-only materials and mesh lights. Scenes above the
+and the four Adam + EMA steps (kernels K1-K6) — for scenes with the
+diffuse, glossy, transmissive and emission-only archetypes, mesh lights,
+declared lights (constant, equirect and cube environments, point, spot and
+IES lights), textures and stochastic cutout. Scenes above the
 BVH threshold (16384 triangles) are traced through a 16-wide BVH built on
 the host (``ops/bvh_wide.py``, ``native/``) and walked by the kernels W1/W2;
 row fetches go through the gather kernels K7-K9. This package never imports

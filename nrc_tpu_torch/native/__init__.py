@@ -6,8 +6,8 @@ source), named by a hash of the source and flags so that an edited source
 rebuilds. The flags are those of ``nrc_tpu/native/__init__.py``, so both
 packages build the same BVH on one machine. Without a C compiler
 ``get_lib()`` returns None and the callers (``ops/bvh.py``,
-``ops/bvh_wide.py``) take their numpy/Python builds: slower, and another
-(valid) tree.
+``ops/bvh_wide.py``, ``scene/lights.py``) take their numpy/Python builds:
+slower, and another (valid) tree; the alias tables are the same bits.
 """
 
 from __future__ import annotations
@@ -80,5 +80,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
             p, p, p,                 # meta, box, leaf_ids
             p,                       # out_counts[3]
         ]
+        lib.alias_table_build.restype = i32
+        lib.alias_table_build.argtypes = [p, ctypes.c_int64, p, p]  # p, n, prob, alias
         _lib = lib
         return _lib

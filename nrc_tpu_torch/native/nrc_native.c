@@ -1,13 +1,15 @@
 /* nrc_native: host-side native helpers of the PyTorch/CUDA port.
  *
- * The port's own copy of the two host functions the wide-BVH build needs
- * from nrc_tpu/native/nrc_native.c, unchanged in their arithmetic so that
- * both packages build the same tree on one machine with the same compiler
- * flags:
+ * The port's own copy of the host functions it needs from
+ * nrc_tpu/native/nrc_native.c, unchanged in their arithmetic so that both
+ * packages build the same tree and tables on one machine with the same
+ * compiler flags:
  *   - bvh_build_binned_sah: 16-bin SAH builder over triangle AABBs, giving a
  *     flat binary tree (ops/bvh.py::build_bvh)
  *   - bvh_collapse_wide: greedy collapse of that tree into wide nodes
  *     (ops/bvh_wide.py::collapse_wide_arrays)
+ *   - alias_table_build: Vose's Walker alias table, bit-identical to the
+ *     Python loop of scene/lights.py::build_alias_table_loop
  * Loaded with ctypes by native/__init__.py.
  */
 
@@ -387,4 +389,41 @@ EXPORT int32_t bvh_collapse_wide(
     out_counts[2] = max_depth + 1;
     free(prims); free(area); free(stk);
     return W;
+}
+
+/* ------------------------------------------------------------------ */
+/* Walker alias table (Vose O(n))                                      */
+/* ------------------------------------------------------------------ */
+
+/* Build prob/alias from already-scaled p (mean 1.0; p[i] = w[i]*n/total).
+ * Two index stacks, LIFO as in the Python loop, so the result is the same
+ * bits. Returns 0, or -1 on allocation failure. */
+EXPORT int32_t alias_table_build(const double *p_in, int64_t n,
+                                 float *prob, int32_t *alias)
+{
+    if (n <= 0) return 0;
+    double *p = (double *)malloc(sizeof(double) * (size_t)n);
+    int64_t *small = (int64_t *)malloc(sizeof(int64_t) * (size_t)n);
+    int64_t *large = (int64_t *)malloc(sizeof(int64_t) * (size_t)n);
+    if (!p || !small || !large) {
+        free(p); free(small); free(large);
+        return -1;
+    }
+    int64_t ns = 0, nl = 0;
+    for (int64_t i = 0; i < n; i++) {
+        p[i] = p_in[i];
+        prob[i] = 1.0f;
+        alias[i] = (int32_t)i;
+        if (p[i] < 1.0) small[ns++] = i; else large[nl++] = i;
+    }
+    while (ns > 0 && nl > 0) {
+        int64_t s = small[--ns];
+        int64_t l = large[--nl];
+        prob[s] = (float)p[s];
+        alias[s] = (int32_t)l;
+        p[l] = p[l] - (1.0 - p[s]);
+        if (p[l] < 1.0) small[ns++] = l; else large[nl++] = l;
+    }
+    free(p); free(small); free(large);
+    return 0;
 }

@@ -33,7 +33,23 @@ captured as a CUDA graph: a dead lane traces an empty t range, which
 K1/K2 and W1/W2 answer without work, and every update is masked by
 ``alive`` or ``hit_valid``, so the outputs are the same bit for bit.
 
-Transport features that are not ported (volumes, textures, cutouts,
+Declared lights and textures (``FrameConfig.has_textures`` /
+``has_cutout``, set from the scene): an escaping ray takes the environment's
+radiance with MIS against the BSDF pdf; a hit's albedo and emission are
+multiplied by their textures' bilinear fetches at its texcoord; a textured
+mesh light's EDF is fetched at the sampled point in NEE; a cutout surface
+passes a ray through with probability 1 - opacity (the wavefront form of
+``optixIgnoreIntersection`` in ``__anyhit__radiance_cutout``,
+``hit.cu:1400-1423``): the lane keeps its direction, throughput and MIS
+state, re-traces from the hit point at the next bounce and carries the
+distance passed (``pass_dist``) into its area spread. A shadow ray through
+cutouts takes three closest-hit hops, each blocked with probability =
+opacity (``__anyhit__shadow_cutout``, ``hit.cu:1447-1468``), on uniforms
+drawn before the hops; the JAX package's hops exit once every lane has
+resolved, and a lane resolved early adds nothing to a later hop, so the
+card runs all three and reads nothing back, and the result and the
+``traced_count`` are the same. Each of these compiles in only when its
+switch is on. Transport features that are not ported (volumes,
 layered/measured/noise materials, curves) raise when their ``FrameConfig``
 switch is on.
 """
@@ -50,6 +66,7 @@ from ..ops import bsdf as B
 from ..ops.gather_cuda import gather_rows
 from ..ops.intersect import RT_MAX, make_intersectors
 from ..ops.light_sampling import env_radiance, sample_lights
+from ..ops.texture import apply_uv_transform, sample_bilinear
 from ..scene.materials import Archetype
 from ..utils import rng as R
 from ..utils.math import (
@@ -69,10 +86,7 @@ QUERY_DIMS = 15  # pos3 + dir2 + normal2 + rough2 + diffuse3 + specular3
 
 IOR_STACK_DEPTH = 4  # nested media (per_ray_data.h:81)
 
-_UNPORTED_FLAGS = (
-    "has_volumes", "has_textures", "has_cutout", "has_layered",
-    "has_measured", "has_noise", "has_noise_bump",
-)
+_UNPORTED_FLAGS = ("has_volumes", "has_layered", "has_measured", "has_noise", "has_noise_bump")
 
 
 def check_frame_config(cfg: FrameConfig) -> None:
@@ -136,6 +150,8 @@ class _State(NamedTuple):
     last_render_throughput: torch.Tensor
     render_query: torch.Tensor
     cache_vis_query: torch.Tensor
+    # distance passed through cutouts since the last real hit (has_cutout only)
+    pass_dist: Optional[torch.Tensor] = None
     # training wavefront only (None in the render wavefront)
     suffix: Optional[torch.Tensor] = None     # in the training suffix
     unbiased: Optional[torch.Tensor] = None   # suffix ends only unbiased
@@ -181,10 +197,31 @@ def trace_wavefront(
         Archetype.SPECULAR_TRANSMIT, Archetype.SPECULAR_REFLECT_TRANSMIT, Archetype.DIFFUSE_TRANSMISSION,
     )
     offs, _ = mat_row_layout(scene.mat_curve_k)
+    has_tex, has_cutout = cfg.has_textures, cfg.has_cutout
 
     def mcol(row, name):
         a, b = offs[name]
         return row[:, a] if b == a + 1 else row[:, a:b]
+
+    def tex_id(row, name):
+        return mcol(row, name).to(torch.int64)
+
+    def bary_uv(uvp, bu, bv):
+        """The texcoord at barycentrics (bu, bv) from a row's uv0|uv1|uv2."""
+        return ((1.0 - bu - bv)[:, None] * uvp[:, 0:2] + bu[:, None] * uvp[:, 2:4]
+                + bv[:, None] * uvp[:, 4:6])
+
+    def cutout_opacity_at(prim, bu, bv):
+        """cutout_opacity x the cutout texture's RGB mean at a shadow hop's
+        hit: one triangle row gather and one material row gather."""
+        tsr = gather_rows(scene.tri_shade, prim)
+        row = gather_rows(scene.mat_row, tsr[:, 24:26].view(torch.int32)[:, 0].to(torch.int64))
+        uv = apply_uv_transform(bary_uv(tsr[:, 18:24], bu, bv), mcol(row, "uv_xf"))
+        rgba = sample_bilinear(scene.atlas, tex_id(row, "cutout_tex"), uv)
+        return mcol(row, "cutout_opacity") * rgba[:, :3].mean(dim=-1)
+
+    # textured mesh-light EDFs sampled by NEE: (atlas, [L, 7] rows)
+    nee_tex_ctx = (scene.atlas, scene.nee_tex) if has_tex and num_lights else None
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros((n,) + shape, dtype=dtype, device=dev)
@@ -214,6 +251,7 @@ def trace_wavefront(
         last_render_throughput=zeros(3),
         render_query=zeros(QUERY_DIMS),
         cache_vis_query=zeros(QUERY_DIMS),
+        pass_dist=zeros() if has_cutout else None,
     )
     if train:
         state = state._replace(
@@ -260,14 +298,30 @@ def trace_wavefront(
         meta = tsr[:, 24:26].view(torch.int32).to(torch.int64)  # bit-cast columns
         mid, tri_light_id = meta[:, 0], meta[:, 1]
         mrow = gather_rows(scene.mat_row, mid)           # ONE material row gather
+        albedo = mcol(mrow, "albedo")
+        # ---- textures and stochastic cutout (hit.cu:1400-1423) ----------
+        passthrough = None
+        if has_tex or has_cutout:
+            # the texcoord from the triangle row, the material's uv transform
+            uv_hit = apply_uv_transform(bary_uv(tsr[:, 18:24], hit.u, hit.v), mcol(mrow, "uv_xf"))
+        if has_tex:
+            albedo = albedo * sample_bilinear(scene.atlas, tex_id(mrow, "albedo_tex"), uv_hit)[:, :3]
+        if has_cutout:
+            rgba_cut = sample_bilinear(scene.atlas, tex_id(mrow, "cutout_tex"), uv_hit)
+            opacity = mcol(mrow, "cutout_opacity") * rgba_cut[:, :3].mean(dim=-1)
+            seed, u_cut = R.rng(seed)
+            passthrough = hit_valid & (u_cut >= opacity)
+            hit_valid = hit_valid & ~passthrough
         params = B.MaterialParams(
             archetype=mcol(mrow, "archetype").to(torch.int64),
-            albedo=mcol(mrow, "albedo"),
+            albedo=albedo,
             roughness=mcol(mrow, "roughness"),
             ior=mcol(mrow, "ior"),
             thin_walled=mcol(mrow, "thin_walled"),
         )
-        t_eff = hit.t
+        # the reference's one optixTrace sums t across ignored any-hits, so
+        # the area spread's distance includes the cutouts passed (hit.cu:536, 569)
+        t_eff = hit.t + s.pass_dist if has_cutout else hit.t
         front = dot(wo, ng) >= 0.0
         ns_q = torch.where((~front)[:, None], -ns, ns)  # query normal (hit.cu:600)
         prev_non_dirac = (s.event & B.BSDF_EVENT_NON_DIRAC) != 0
@@ -293,6 +347,8 @@ def trace_wavefront(
 
         # ---- emission of the hit surface (mesh lights, hit.cu:738-821) --
         em_rad = mcol(mrow, "emission_radiance")
+        if has_tex:
+            em_rad = em_rad * sample_bilinear(scene.atlas, tex_id(mrow, "emission_tex"), uv_hit)[:, :3]
         cos_e = dot(ns, wo)
         emissive = hit_valid & front & (em_rad.amax(dim=-1) > 0.0) & (cos_e > 0.0)
         if num_lights:
@@ -319,6 +375,11 @@ def trace_wavefront(
             terminate = false
         else:
             area_threshold = s.area_threshold
+            if has_cutout:
+                # the first real hit came after a cutout passthrough: the
+                # camera's threshold (depth 0's formula) is set now
+                thr0 = sqrt_c * safe_div(t_eff, torch.sqrt(4.0 * math.pi * torch.clamp(abs_cos, min=1e-12)))
+                area_threshold = torch.where(hit_valid & torch.isinf(area_threshold), thr0, area_threshold)
             prev_specular = (s.event & B.BSDF_EVENT_SPECULAR) != 0
             pdf_prev = torch.where(s.pdf == 0.0, math.inf, s.pdf)
             delta = safe_div(
@@ -344,7 +405,11 @@ def trace_wavefront(
         else:  # nothing transmits: no lobe reads the IORs
             eta_i = eta_t = params.ior
         sample = B.bsdf_sample(params, wo, ns, ng, xi, eta_i, eta_t, families=cfg.archetype_set)
-        event = torch.where(hit_valid, sample.event, B.BSDF_EVENT_ABSORB)
+        if has_cutout:  # a passthrough keeps the previous event for MIS
+            event = torch.where(hit_valid, sample.event,
+                                torch.where(passthrough, s.event, B.BSDF_EVENT_ABSORB))
+        else:
+            event = torch.where(hit_valid, sample.event, B.BSDF_EVENT_ABSORB)
         event_non_dirac = (event & B.BSDF_EVENT_NON_DIRAC) != 0
         event_specular = (event & B.BSDF_EVENT_SPECULAR) != 0
 
@@ -410,7 +475,7 @@ def trace_wavefront(
         shadow_traced = torch.zeros_like(s.traced)
         if direct_lighting:
             seed, xi_l = R.rng4(seed)
-            ls = sample_lights(lights, p_hit, xi_l)
+            ls = sample_lights(lights, p_hit, xi_l, tex_ctx=nee_tex_ctx)
             ev = B.bsdf_eval(params, wo, ls.direction, ns, eta_i, eta_t, families=cfg.archetype_set)
             do_nee = alive & hit_valid & event_non_dirac
             valid_ls = (ls.pdf > 0.0) & (ev.bsdf.amax(dim=-1) > 0.0) & (ev.pdf > 0.0)
@@ -431,8 +496,33 @@ def trace_wavefront(
                 valid_ls = valid_ls & (u_sh_rr < p_sh)
                 direct = direct * (1.0 / p_sh)[:, None]
             shadow_tmax = torch.where(do_nee & valid_ls, ls.distance - eps, 0.0)
-            occluded = any_hit(p_hit, ls.direction, torch.full_like(shadow_tmax, eps), shadow_tmax)
-            shadow_traced = (shadow_tmax > 0.0).to(torch.int64)
+            if has_cutout:
+                # three closest-hit hops through cutouts, each blocked with
+                # probability = opacity; the tail counts as visible
+                # (nrc_tpu/render/integrator.py:925-990, without the
+                # NRC_CUTOUT_FAST pre-pass). The uniforms are drawn first,
+                # so the stream does not depend on where the hops end.
+                u_hops = []
+                for _ in range(3):
+                    seed, u_h = R.rng(seed)
+                    u_hops.append(u_h)
+                occluded = false
+                sh_tmin = torch.full_like(shadow_tmax, eps)
+                sh_done = shadow_tmax <= 0.0
+                for u_h in u_hops:
+                    if _all_done(~sh_done):
+                        break
+                    shadow_traced = shadow_traced + (~sh_done).to(torch.int64)
+                    sh = closest_hit(p_hit, ls.direction, sh_tmin, torch.where(sh_done, 0.0, shadow_tmax))
+                    op = cutout_opacity_at(torch.clamp(sh.prim, min=0), sh.u, sh.v)
+                    blocked = sh.valid & (u_h < op) & ~sh_done
+                    occluded = occluded | blocked
+                    cont = sh.valid & ~blocked & ~sh_done
+                    sh_tmin = torch.where(cont, sh.t + eps, sh_tmin)
+                    sh_done = sh_done | ~cont
+            else:
+                occluded = any_hit(p_hit, ls.direction, torch.full_like(shadow_tmax, eps), shadow_tmax)
+                shadow_traced = (shadow_tmax > 0.0).to(torch.int64)
             ok = do_nee & valid_ls & ~occluded
             if train:
                 # NEE into the record just written (hit.cu:1030-1056)
@@ -467,9 +557,14 @@ def trace_wavefront(
             kill = do_rr & (prob < u_rr)
             throughput = torch.where((do_rr & ~kill)[:, None], throughput / prob[:, None], throughput)
             alive = alive & ~kill  # an unbiased end: the mask stays 0
+        moved = hit_valid
+        if has_cutout:
+            moved = hit_valid | passthrough
+            s = s._replace(pass_dist=torch.where(passthrough, s.pass_dist + hit.t,
+                                                 torch.where(hit_valid, 0.0, s.pass_dist)))
         return s._replace(
             **rec,
-            pos=torch.where(hit_valid[:, None], p_hit, s.pos),
+            pos=torch.where(moved[:, None], p_hit, s.pos),
             wi=torch.where(hit_valid[:, None], sample.wi, s.wi),
             seed=seed,
             throughput=throughput,
@@ -477,14 +572,14 @@ def trace_wavefront(
             pdf=torch.where(hit_valid, sample.pdf, s.pdf),
             event=event,
             alive=alive,
-            hit_before=s.hit_before | hit_valid,
+            hit_before=s.hit_before | moved,
             area_spread=area_spread_next,
             area_threshold=area_threshold,
             recorded_first=recorded_first,
             render_done=render_done,
             ior_stack=ior_stack,
             stack_idx=stack_idx,
-            bounces=s.bounces + hit_valid.to(torch.int64),
+            bounces=s.bounces + moved.to(torch.int64),
             traced=s.traced + active.to(torch.int64) + shadow_traced,
             last_render_throughput=lrt,
             render_query=render_query,

@@ -64,7 +64,7 @@ from ..scene.scene_builder import Scene
 from ..utils.image_io import write_hdr, write_png
 from ..utils.tonemap import tonemap_to_u8
 from .frame import CameraArrays, FrameStats, frame_step
-from .scene_device import DeviceScene, patch_materials, scene_archetypes, upload_scene
+from .scene_device import DeviceScene, patch_materials, scene_archetypes, scene_texture_flags, upload_scene
 
 MAX_GRAPHS = 16  # as the JAX package bounds its compile cache
 
@@ -136,6 +136,7 @@ class Renderer:
             # the lobe families this scene's archetypes use
             archetype_set=scene_archetypes(scene),
             reflectance_factoring=reflectance_factoring,
+            **scene_texture_flags(scene),
         )
         self._net_state: Optional[N.NetworkState] = None
         self.reset_cache()
@@ -253,19 +254,24 @@ class Renderer:
         """Live material edit (``nrc_tpu/render/renderer.py:204-219``; the
         reference GUI's material editors -> ``Device::updateMaterial``,
         ``Device.cpp:1700-1722``): ``changes`` are ``Material`` field
-        overrides of material ``index``. Geometry and BVH stay; the material
-        and light tables are re-derived and copied into the tensors the
-        graphs read, or, where their shapes change, replace them and the
-        graphs are dropped. The archetype set follows the edit (a fresh
-        renderer on the edited scene would compile those lobes), and the
-        accumulation restarts."""
+        overrides of material ``index``. Geometry and BVH stay, and the
+        texture atlas too: the table is rebuilt on it, so a texture it holds
+        is not decoded again. The material, light and texture tables are
+        re-derived; an edit of values (a colour, a roughness) copies them
+        into the tensors the captured graphs read, and the next frame
+        replays its graph. An edit that changes their shapes (a texture the
+        atlas lacks) replaces them and drops the graphs, and one that
+        changes the archetype set or the texture switches selects another
+        graph (a fresh renderer on the edited scene would compile the same).
+        The accumulation restarts."""
         rows = self.scene.material_rows
         rows[index] = dataclasses.replace(rows[index], **changes)
-        self.scene.materials = MaterialTable.build(rows)
+        self.scene.materials = MaterialTable.build(rows, atlas=self.scene.materials.atlas)
         patched = patch_materials(self.device_scene, self.scene)
         if patched is not self.device_scene:
             self.device_scene = patched  # drops the graphs
-        self.cfg = dataclasses.replace(self.cfg, archetype_set=scene_archetypes(self.scene))
+        self.cfg = dataclasses.replace(self.cfg, archetype_set=scene_archetypes(self.scene),
+                                       **scene_texture_flags(self.scene))
         self.restart_accumulation()
 
     def set_render_mode(self, mode: RenderMode) -> None:

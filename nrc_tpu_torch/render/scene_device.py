@@ -5,12 +5,15 @@ the ``Scene`` by field name, so it takes the JAX package's ``Scene``
 unchanged as well as the port's. Above ``BVH_THRESHOLD`` triangles, or when
 asked, it builds the 16-wide BVH on the host (``ops/bvh_wide.py``) and
 uploads its row table; smaller scenes get the plane table of the
-brute-force kernels instead. It refuses scenes that need what is not ported
-yet: curves, textures, cutouts, volumes, layered/measured/noise materials,
-the hair and measured archetypes, and lights other than mesh lights.
-``patch_materials`` re-derives the material tables after a live material
-edit, in place where their shapes hold (a captured frame reads them by
-address).
+brute-force kernels instead. The texture atlas goes up as tensors
+(``scene/texture.py::TextureAtlas.device_arrays``: the 16-wide quad rows and
+the level descriptors), and so does each light's row of the textured
+mesh-light EDF ([L, 7]: emission texture id, uv transform;
+``nrc_tpu/render/integrator.py:242-256``). It refuses scenes that need what
+is not ported yet: curves, volumes, layered/measured/noise materials and
+the hair and measured archetypes. ``patch_materials`` re-derives the
+material tables after a live material edit, in place where their shapes
+hold (a captured frame reads them by address).
 
 The bounce body fetches per-hit data with row gathers
 (``ops/gather_cuda.py::gather_rows`` over ``tri_shade`` and ``mat_row``);
@@ -80,6 +83,11 @@ class DeviceScene(NamedTuple):
     mat_curve_k: int         # K, the curve resolution in mat_row
     lights: DeviceLights
     bvh: Optional[WideBVH] = None  # the 16-wide BVH; None = brute force
+    # the texture atlas's device arrays by name (texels_quad [T, 16] and
+    # the level descriptors, ops/texture.py); 1-entry dummies without textures
+    atlas: Optional[dict] = None
+    # [L, 7] per light: emission texture id (-1 = none) as f32 | uv transform
+    nee_tex: Optional[torch.Tensor] = None
 
     @property
     def num_triangles(self) -> int:
@@ -147,8 +155,25 @@ def _material_arrays(scene) -> dict:
     )
     if mat_row.shape[1] != row_w:
         raise ValueError(f"material row width {mat_row.shape[1]} != layout {row_w}")
+    # per light: its material's emission texture and uv transform, the
+    # textured EDF that NEE samples (nrc_tpu/render/integrator.py:242-256)
+    lmat = np.asarray(scene.lights.material_id, np.int64)
+    l_mid = np.maximum(lmat, 0)
+    l_tex = np.where(lmat >= 0, mt.emission_tex[l_mid], -1)
+    nee_tex = np.concatenate([np.asarray(l_tex, np.float32)[:, None], f32(mt.uv_xf)[l_mid]], axis=-1)
+    if nee_tex.shape[0] == 0:
+        nee_tex = np.zeros((1, 7), np.float32)
+    # the lookups read the quad rows, not the texels
+    atlas = {k: v for k, v in mt.atlas.device_arrays().items() if k != "texels"}
     return dict(mat_row=mat_row, emission_radiance=emission_radiance,
-                light_radiance=lr, curve_k=k_curve)
+                light_radiance=lr, curve_k=k_curve, nee_tex=nee_tex, atlas=atlas)
+
+
+def _atlas_tensors(atlas: dict, device) -> dict:
+    """The atlas's host arrays as tensors: floats as float32, descriptors as int64."""
+    return {k: torch.as_tensor(np.ascontiguousarray(v), device=device,
+                               dtype=torch.float32 if v.dtype.kind == "f" else torch.int64)
+            for k, v in atlas.items()}
 
 
 def check_supported(scene) -> None:
@@ -160,10 +185,6 @@ def check_supported(scene) -> None:
             set(np.unique(mt.archetype).tolist()) - SUPPORTED_ARCHETYPES
         ),
         "layered materials": bool(np.any(mt.blend_mode != 0) or np.any(mt.mod_mode != 0)),
-        "textures": bool(
-            max(np.max(mt.albedo_tex), np.max(mt.cutout_tex), np.max(mt.emission_tex)) >= 0
-        ),
-        "cutout opacity": bool(np.min(mt.cutout_opacity) < 1.0),
         "volumes": bool(np.max(mt.sigma_a) + np.max(mt.sigma_s) > 0.0),
         "measured BSDFs": bool(np.max(mt.mbsdf_index) >= 0),
         "procedural noise": bool(
@@ -183,33 +204,56 @@ def scene_archetypes(scene) -> frozenset:
     return frozenset(np.unique(mt.archetype).tolist() + np.unique(mt.archetype2).tolist())
 
 
+def scene_texture_flags(scene) -> dict:
+    """``FrameConfig.has_textures`` and ``has_cutout`` of a scene, as
+    ``nrc_tpu/render/renderer.py:95-104`` sets them: textures when the atlas
+    holds any, cutout when a material's opacity is below 1 or it binds a
+    cutout texture."""
+    mt = scene.materials
+    return dict(
+        has_textures=mt.atlas.num_textures > 0,
+        has_cutout=bool(np.min(mt.cutout_opacity) < 1.0 or np.max(mt.cutout_tex) >= 0),
+    )
+
+
 def patch_materials(dev: DeviceScene, scene) -> DeviceScene:
     """The material-derived tables of ``dev`` re-derived from ``scene``'s
     materials after a live edit (``nrc_tpu/render/scene_device.py:276-283``;
     the reference re-uploads the edited argument block,
     ``Device::updateMaterial``, ``Device.cpp:1700-1722``); geometry and BVH
-    are kept. Where every new table has its old shape (an edit changes
-    values, not rows) the new values are copied into the old tensors and
-    ``dev`` itself is returned, so a captured frame that reads them by
-    address reads the new ones; otherwise a new ``DeviceScene``, whose
-    caller must drop every graph that read the old one."""
+    are kept, and so is the atlas when the edit adds no texture. Where every
+    new table has its old shape (an edit changes values, as a colour edit
+    does, not rows: the same textures and the same light layout) the new
+    values are copied into the old tensors and ``dev`` itself is returned,
+    so a captured frame that reads them by address reads the new ones;
+    otherwise (a new texture, another light layout) a new ``DeviceScene``,
+    whose caller must drop every graph that read the old one."""
     check_supported(scene)
     mats = _material_arrays(scene)
     device = dev.mat_row.device
-    lights = upload_lights(scene.lights, mats["light_radiance"], torch.device("cpu"))
-    mat_row = torch.from_numpy(mats["mat_row"])
-    old = [dev.mat_row] + [getattr(dev.lights, f.name) for f in dataclasses.fields(lights)
-                           if isinstance(getattr(lights, f.name), torch.Tensor)]
-    new = [mat_row] + [getattr(lights, f.name) for f in dataclasses.fields(lights)
-                       if isinstance(getattr(lights, f.name), torch.Tensor)]
-    if lights.types_static == dev.lights.types_static and all(
+    cpu = torch.device("cpu")
+    lights = upload_lights(scene.lights, mats["light_radiance"], cpu)
+    atlas = _atlas_tensors(mats["atlas"], cpu)
+
+    def tensors(mat_row, nee_tex, lights, atlas):
+        return [mat_row, nee_tex] + [getattr(lights, f.name) for f in dataclasses.fields(lights)
+                                     if isinstance(getattr(lights, f.name), torch.Tensor)] + [
+            atlas[k] for k in sorted(atlas)]
+
+    old = tensors(dev.mat_row, dev.nee_tex, dev.lights, dev.atlas)
+    new = tensors(torch.from_numpy(mats["mat_row"]), torch.from_numpy(mats["nee_tex"]), lights, atlas)
+    statics = ("types_static", "env_is_cube", "env_shape")
+    if sorted(atlas) == sorted(dev.atlas) and all(
+            getattr(lights, k) == getattr(dev.lights, k) for k in statics) and all(
             a.shape == b.shape and a.dtype == b.dtype for a, b in zip(old, new)):
         for a, b in zip(old, new):
             a.copy_(b)
         return dev
     return dev._replace(
-        mat_row=mat_row.to(device),
+        mat_row=new[0].to(device),
+        nee_tex=new[1].to(device),
         lights=upload_lights(scene.lights, mats["light_radiance"], device),
+        atlas=_atlas_tensors(mats["atlas"], device),
     )
 
 
@@ -253,4 +297,6 @@ def upload_scene(scene, device: torch.device, use_bvh: Optional[bool] = None) ->
         mat_curve_k=mats["curve_k"],
         lights=upload_lights(scene.lights, mats["light_radiance"], device),
         bvh=bvh,
+        atlas=_atlas_tensors(mats["atlas"], device),
+        nee_tex=dev(mats["nee_tex"]),
     )

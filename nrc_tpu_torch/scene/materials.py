@@ -5,9 +5,10 @@ Port of ``nrc_tpu/scene/materials.py:24-311``: the BSDF archetype enum, one
 ``MaterialTable.build``. The table keeps every column of the JAX package's
 table, so ``render/scene_device.py`` assembles the same merged material row.
 
-Textures and measured BSDFs are not ported yet: ``build`` raises on a
-texture or measurement path instead of decoding it, and the table carries no
-texture atlas or measurement stack.
+``build`` resolves the three texture paths of a row into ids of the
+table's ``TextureAtlas`` (``scene/texture.py``). Measured BSDFs are not
+ported yet: ``build`` raises on a measurement path, and the table carries no
+measurement stack.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+
+from .texture import TextureAtlas
 
 # resampled measured-curve resolution (``nrc_tpu/ops/layered.py:53``)
 CURVE_RES = 16
@@ -75,7 +78,7 @@ class Material:
     # measured BSDF (not ported: a non-empty path raises in build)
     mbsdf_path: str = ""
     mbsdf_multiplier: float = 1.0
-    # 2D textures (not ported: a non-empty path raises in build)
+    # 2D textures: albedo and emission tints, cutout opacity (its RGB mean)
     albedo_tex_path: str = ""
     albedo_tex_srgb: bool = True
     cutout_tex_path: str = ""
@@ -136,7 +139,7 @@ class MaterialTable:
     hair_absorption: np.ndarray     # [M, 3] f32
     hair_cuticle_angle: np.ndarray  # [M] f32
     hair_diffuse_weight: np.ndarray  # [M] f32
-    albedo_tex: np.ndarray          # [M] int32 (always -1 here)
+    albedo_tex: np.ndarray          # [M] int32 atlas id (-1 = none)
     cutout_tex: np.ndarray          # [M] int32
     emission_tex: np.ndarray        # [M] int32
     uv_xf: np.ndarray               # [M, 6] f32: su, sv, tu, tv, cos_rz, sin_rz
@@ -164,17 +167,24 @@ class MaterialTable:
     noise_marble: np.ndarray        # [M] int32
     noise_target: np.ndarray        # [M] int32
     noise_bump_factor: np.ndarray   # [M] f32
+    atlas: TextureAtlas = None      # the decoded textures the ids index
 
     @staticmethod
-    def build(materials: list[Material]) -> "MaterialTable":
+    def build(materials: list[Material], atlas: Optional[TextureAtlas] = None) -> "MaterialTable":
+        """The table of ``materials``. ``atlas``: an existing atlas to add the
+        textures to (its (path, sRGB) dedup makes a texture it holds free),
+        as a live edit passes so that no image is decoded again
+        (``nrc_tpu/scene/materials.py:185-270``)."""
         if not materials:
             materials = [Material()]
         for m in materials:
-            paths = (m.albedo_tex_path, m.cutout_tex_path, m.emission_tex_path)
-            if any(paths) or m.mbsdf_path:
-                raise NotImplementedError(
-                    f"material {m.name!r}: textures and measured BSDFs are not ported"
-                )
+            if m.mbsdf_path:
+                raise NotImplementedError(f"material {m.name!r}: measured BSDFs are not ported")
+        if atlas is None:
+            atlas = TextureAtlas.empty()
+
+        def tex(path: str, srgb: bool) -> int:
+            return atlas.add(path, srgb) if path else -1
 
         def arr(field, dtype):
             return np.asarray([getattr(m, field) for m in materials], dtype)
@@ -220,9 +230,10 @@ class MaterialTable:
             hair_absorption=arr("hair_absorption", f32),
             hair_cuticle_angle=arr("hair_cuticle_angle", f32),
             hair_diffuse_weight=arr("hair_diffuse_weight", f32),
-            albedo_tex=none.copy(),
-            cutout_tex=none.copy(),
-            emission_tex=none.copy(),
+            albedo_tex=np.asarray([tex(m.albedo_tex_path, m.albedo_tex_srgb) for m in materials], np.int32),
+            cutout_tex=np.asarray([tex(m.cutout_tex_path, False) for m in materials], np.int32),
+            emission_tex=np.asarray([tex(m.emission_tex_path, m.emission_tex_srgb) for m in materials],
+                                    np.int32),
             uv_xf=uv_xf,
             archetype2=iarr("archetype2"),
             albedo2=arr("albedo2", f32),
@@ -250,4 +261,5 @@ class MaterialTable:
             noise_marble=iarr("noise_marble"),
             noise_target=iarr("noise_target"),
             noise_bump_factor=arr("noise_bump_factor", f32),
+            atlas=atlas,
         )

@@ -2,28 +2,52 @@
 
 Port of the parts of ``nrc_tpu/scene/scene_builder.py`` the serving path
 uses: the ``Scene`` dataclass, the geometry flattening of ``build_scene``
-and the implicit mesh-light assembly of ``_build_lights``
-(``scene_builder.py:361-425``; reference ``Application::createMeshLights``,
+and ``_build_lights`` (``scene_builder.py:277-429``): declared lights (an
+environment first, constant or a Radiance ``.hdr`` map; point, spot and IES
+lights, an IES profile found on the search paths) and one implicit mesh
+light per emissive material (reference ``Application::createMeshLights``,
 ``Application.cpp:2079-2238``). Loading the reference's ``.txt``/``.mdl``
-files is not ported yet; ``cornell_box()`` builds the Cornell box in code,
-``cornell_objects()`` the same box around a finely tessellated sphere and
-torus (about 132 K triangles, the large-scene path), and ``cornell_glass()``
-the box with dielectric blocks and a thin-walled translucent panel (the
-transmission lobes and the IOR stack).
+files is not ported yet; the scenes are built in code: ``cornell_box()``,
+``cornell_objects()`` (the same box around a finely tessellated sphere and
+torus, about 132 K triangles, the large-scene path), ``cornell_glass()``
+(dielectric blocks and a thin-walled translucent panel: the transmission
+lobes and the IOR stack), ``cornell_lights()`` (the box's area light with a
+point, a spot and an IES light) and ``env_textured()`` (an open scene under
+an equirect or constant environment with textured albedo, a cutout panel
+and a textured emitter). The last two write their files (an LM-63 profile,
+PNG textures, an RLE ``.hdr`` map) into a directory the caller gives and
+load them back through the file path every scene takes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..config import SystemConfig
+from ..utils.hdr_loader import load_radiance_hdr
+from ..utils.image_io import write_hdr_rle, write_png
 from . import geometry as geo
 from .camera import Camera
-from .lights import TYPE_LIGHT_MESH, LightTable, build_mesh_light, empty_light_table
+from .ies import ies_to_texture, load_ies
+from .lights import (
+    TYPE_LIGHT_ENV_CONST,
+    TYPE_LIGHT_ENV_SPHERE,
+    TYPE_LIGHT_IES,
+    TYPE_LIGHT_MESH,
+    TYPE_LIGHT_POINT,
+    TYPE_LIGHT_SPOT,
+    LightTable,
+    build_cube_env_weights,
+    build_env_cdf,
+    build_mesh_light,
+    empty_light_table,
+)
 from .materials import Archetype, EmissionMode, Material, MaterialTable
 
 
@@ -86,15 +110,87 @@ def make_mesh(decl: ModelDecl) -> geo.Mesh:
     raise NotImplementedError(f"model kind {decl.kind!r} is not ported")
 
 
+@dataclasses.dataclass
+class LightDecl:
+    """One declared light of a scene (the fields of the JAX parser's
+    ``LightDecl``, ``nrc_tpu/scene/parser.py:164-172``)."""
+
+    light_type: str                         # env | point | spot | ies
+    matrix: np.ndarray                      # 4x4 object-to-world
+    emission: Tuple[float, float, float]
+    multiplier: float
+    texture: str = ""                       # env emission texture filename
+    profile: str = ""                       # IES profile filename
+    spot_angle: float = 45.0                # full cone angle, degrees
+    spot_exponent: float = 0.0
+
+
 def build_lights(
+    decls: Sequence[LightDecl], search_paths: Sequence[str],
     mat_rows: List[Material], p0, p1, p2, n0, n1, n2, uv0, uv1, uv2,
     material_id: np.ndarray,
 ) -> tuple[LightTable, np.ndarray]:
-    """Implicit mesh lights: one light per emissive material's triangle set
-    (``nrc_tpu/scene/scene_builder.py:361-425``). Declared lights (env,
-    point, spot, IES) are not ported."""
+    """Declared lights, then one implicit mesh light per emissive material's
+    triangle set (``nrc_tpu/scene/scene_builder.py:277-429``): the
+    environment first (``Device.cpp:1544``), each emission times its
+    multiplier, a spot's half angle ``radians(min(angle, 180) / 2)``, an IES
+    profile searched on ``search_paths``. ``light_id`` of an emissive
+    triangle indexes the table, after the declared lights."""
+    types: List[int] = []
+    matrices: List[np.ndarray] = []
+    emissions, areas, inv_integrals, spot_half, spot_exp = [], [], [], [], []
+    mat_ids: List[int] = []
+    tri_start: List[int] = []
+    tri_count: List[int] = []
+    ies_index: List[int] = []
+    ies_textures: List[np.ndarray] = []
+    env_texture = env_cdf_u = env_cdf_v = env_cube = None
+
+    def add(ltype, matrix, emission, area=0.0, inv_integral=0.0, sa=45.0, se=0.0, mid=-1,
+            ts=0, tc=0, ies=-1):
+        types.append(ltype)
+        ies_index.append(ies)
+        matrices.append(np.asarray(matrix, np.float32))
+        emissions.append(emission)
+        areas.append(area)
+        inv_integrals.append(inv_integral)
+        spot_half.append(np.radians(min(sa, 180.0) * 0.5))
+        spot_exp.append(se)
+        mat_ids.append(mid)
+        tri_start.append(ts)
+        tri_count.append(tc)
+
+    for ld in sorted(decls, key=lambda l: 0 if l.light_type == "env" else 1):
+        emission = tuple(c * ld.multiplier for c in ld.emission)
+        if ld.light_type == "env":
+            tex, cube = _load_env_texture(tuple(search_paths), ld.texture) if ld.texture else (None, None)
+            if tex is not None:
+                env_texture, env_cube = tex, cube
+                env_cdf_u, env_cdf_v, integral = build_env_cdf(tex)
+                if cube is not None:  # the integral over the cube's own texels
+                    _, integral = build_cube_env_weights(cube)
+                add(TYPE_LIGHT_ENV_SPHERE, ld.matrix, emission if any(emission) else (1.0, 1.0, 1.0),
+                    inv_integral=1.0 / integral)
+            else:
+                add(TYPE_LIGHT_ENV_CONST, ld.matrix, emission if any(emission) else (1.0, 1.0, 1.0))
+        elif ld.light_type == "point":
+            add(TYPE_LIGHT_POINT, ld.matrix, emission)
+        elif ld.light_type == "spot":
+            add(TYPE_LIGHT_SPOT, ld.matrix, emission, sa=ld.spot_angle, se=ld.spot_exponent)
+        elif ld.light_type == "ies":
+            # emissionProfile -> goniometric candela texture
+            # (Application.cpp:2042-2052 LoaderIES -> Picture::createIES)
+            prof = -1
+            for sp in search_paths if ld.profile else ():
+                path = os.path.join(sp, ld.profile) if sp else ld.profile
+                if os.path.isfile(path):
+                    ies_textures.append(ies_to_texture(load_ies(path)))
+                    prof = len(ies_textures) - 1
+                    break
+            add(TYPE_LIGHT_IES, ld.matrix, emission, ies=prof)
+
     light_id = np.full(material_id.shape[0], -1, np.int32)
-    areas, mat_ids, tri_start, tri_count, pools = [], [], [], [], []
+    pools = []
     start = 0
     for mid, mat in enumerate(mat_rows):
         if not mat.is_emissive:
@@ -103,54 +199,98 @@ def build_lights(
         if sel.size == 0:
             continue
         cdf, area = build_mesh_light(p0[sel], p1[sel], p2[sel])
-        pools.append(
-            (p0[sel], p1[sel], p2[sel], n0[sel], n1[sel], n2[sel], cdf,
-             uv0[sel], uv1[sel], uv2[sel])
-        )
-        light_id[sel] = len(areas)
-        areas.append(area)
-        mat_ids.append(mid)
-        tri_start.append(start)
-        tri_count.append(sel.shape[0])
+        pools.append((p0[sel], p1[sel], p2[sel], n0[sel], n1[sel], n2[sel], cdf,
+                      uv0[sel], uv1[sel], uv2[sel]))
+        light_id[sel] = len(types)
+        add(TYPE_LIGHT_MESH, np.eye(4), (1.0, 1.0, 1.0), area=area, mid=mid, ts=start, tc=sel.shape[0])
         start += sel.shape[0]
-    if not areas:
+    if not types:
         return empty_light_table(), light_id
 
-    n = len(areas)
-    mats = np.stack([np.eye(4, dtype=np.float32)] * n)
-
-    def cat(k):
+    def cat(k, width):
+        if not pools:
+            return np.zeros((0, width) if width else (0,), np.float32)
         return np.concatenate([pool[k] for pool in pools])
 
+    mats = np.stack(matrices)
     table = LightTable(
-        type=np.full(n, TYPE_LIGHT_MESH, np.int32),
+        type=np.asarray(types, np.int32),
         matrix=mats,
         matrix_inv=np.stack([np.linalg.inv(m) for m in mats]).astype(np.float32),
-        emission=np.ones((n, 3), np.float32),
+        emission=np.asarray(emissions, np.float32),
         area=np.asarray(areas, np.float32),
-        inv_integral=np.zeros(n, np.float32),
-        spot_angle_half=np.full(n, np.radians(45.0 * 0.5), np.float32),
-        spot_exponent=np.zeros(n, np.float32),
+        inv_integral=np.asarray(inv_integrals, np.float32),
+        spot_angle_half=np.asarray(spot_half, np.float32),
+        spot_exponent=np.asarray(spot_exp, np.float32),
         material_id=np.asarray(mat_ids, np.int32),
         tri_start=np.asarray(tri_start, np.int32),
         tri_count=np.asarray(tri_count, np.int32),
-        mesh_p0=cat(0), mesh_p1=cat(1), mesh_p2=cat(2),
-        mesh_n0=cat(3), mesh_n1=cat(4), mesh_n2=cat(5),
-        mesh_cdf=cat(6),
-        mesh_uv0=cat(7), mesh_uv1=cat(8), mesh_uv2=cat(9),
-        ies_index=np.full(n, -1, np.int32),
+        mesh_p0=cat(0, 3), mesh_p1=cat(1, 3), mesh_p2=cat(2, 3),
+        mesh_n0=cat(3, 3), mesh_n1=cat(4, 3), mesh_n2=cat(5, 3),
+        mesh_cdf=cat(6, 0),
+        mesh_uv0=cat(7, 2), mesh_uv1=cat(8, 2), mesh_uv2=cat(9, 2),
+        env_texture=env_texture, env_cdf_u=env_cdf_u, env_cdf_v=env_cdf_v, env_cube=env_cube,
+        ies_texture=np.stack(ies_textures) if ies_textures else None,
+        ies_index=np.asarray(ies_index, np.int32),
     )
     return table, light_id
+
+
+def _load_env_texture(search_paths: Tuple[str, ...], filename: str):
+    """An env map file -> (equirect [H, W, 3], cube [6, Hc, Wc, 3] or None),
+    the first found on the search paths (``nrc_tpu/scene/scene_builder.py:
+    432-460``). A Radiance ``.hdr`` loads as the lat-long map; a file that
+    does not load gives (None, None), and the light becomes a constant
+    environment. DDS cube maps are not ported yet."""
+    for sp in search_paths + ("",):
+        path = os.path.join(sp, filename) if sp else filename
+        if not os.path.isfile(path):
+            continue
+        if path.lower().endswith(".dds"):
+            raise NotImplementedError(
+                f"{path}: DDS environment maps are not ported yet (ROADMAP Queue 1 item 4, dds_loader)"
+            )
+        try:
+            return load_radiance_hdr(path), None
+        except (OSError, ValueError):
+            return None, None
+    return None, None
+
+
+def _equirect_from_cube(cube: np.ndarray, height: int = 0) -> np.ndarray:
+    """A lat-long proxy [h, 2h, 3] of a cube map, bilinear through
+    ``ops/texture.py::sample_cube_env`` on the CPU (display only: the
+    importance tables and MIS pdfs come from the faces)."""
+    from ..ops.texture import sample_cube_env
+
+    h = height or max(2 * cube.shape[1], 8)
+    w = 2 * h
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    phi = (np.arange(w) + 0.5) / w * 2.0 * np.pi
+    st = np.sin(theta)[:, None]
+    # the env sampler's object-space mapping (light_sample.cu:95-106)
+    d = np.stack(
+        [np.sin(phi)[None, :] * st, np.broadcast_to(-np.cos(theta)[:, None], (h, w)),
+         -np.cos(phi)[None, :] * st],
+        axis=-1,
+    ).reshape(-1, 3)
+    out = sample_cube_env(torch.from_numpy(np.ascontiguousarray(cube, np.float32)),
+                          torch.from_numpy(d.astype(np.float32)))
+    return out.numpy().reshape(h, w, 3).astype(np.float32)
 
 
 def assemble_scene(
     models: Sequence[ModelDecl],
     materials: Dict[str, Material],
     camera: Camera,
+    lights: Sequence[LightDecl] = (),
+    search_paths: Sequence[str] = (),
 ) -> Scene:
     """Flatten declared models into one world-space triangle soup, as
-    ``nrc_tpu/scene/scene_builder.py::build_scene`` does, and derive the
-    mesh lights. ``materials`` keeps its insertion order as material ids."""
+    ``nrc_tpu/scene/scene_builder.py::build_scene`` does, and build the
+    light table: the declared ``lights`` (files found on ``search_paths``)
+    and the mesh lights. ``materials`` keeps its insertion order as
+    material ids."""
     mat_rows = list(materials.values())
     mat_index = {name: i for i, name in enumerate(materials)}
     tri = {k: [] for k in ("p0", "p1", "p2", "n0", "n1", "n2", "uv0", "uv1", "uv2", "mat")}
@@ -167,8 +307,8 @@ def assemble_scene(
     n0, n1, n2 = arrays["n0"], arrays["n1"], arrays["n2"]
     uv0, uv1, uv2 = arrays["uv0"], arrays["uv1"], arrays["uv2"]
     material_id = arrays["mat"]
-    lights, light_id = build_lights(
-        mat_rows, p0, p1, p2, n0, n1, n2, uv0, uv1, uv2, material_id
+    light_table, light_id = build_lights(
+        lights, search_paths, mat_rows, p0, p1, p2, n0, n1, n2, uv0, uv1, uv2, material_id
     )
     return Scene(
         p0=p0, p1=p1, p2=p2, n0=n0, n1=n1, n2=n2, uv0=uv0, uv1=uv1, uv2=uv2,
@@ -176,7 +316,7 @@ def assemble_scene(
         light_id=light_id,
         materials=MaterialTable.build(mat_rows),
         material_rows=mat_rows,
-        lights=lights,
+        lights=light_table,
         camera=camera,
     )
 
@@ -262,7 +402,7 @@ def cornell_box_declarations() -> tuple[
     return models, materials, camera
 
 
-def _cornell_scene(models, materials, cam, resolution) -> tuple[Scene, SystemConfig]:
+def _cornell_scene(models, materials, cam, resolution, lights=(), search_paths=()) -> tuple[Scene, SystemConfig]:
     system = SystemConfig(
         resolution=tuple(resolution),
         tile_size=(16, 16),
@@ -270,9 +410,10 @@ def _cornell_scene(models, materials, cam, resolution) -> tuple[Scene, SystemCon
         path_lengths=(2, 6),
         center=cam["center"],
         camera=(cam["phi"], cam["theta"], cam["fov"], cam["distance"]),
+        search_paths=tuple(search_paths),
     )
     camera = Camera(aspect=resolution[0] / max(resolution[1], 1), **cam)
-    return assemble_scene(models, materials, camera), system
+    return assemble_scene(models, materials, camera, lights, search_paths), system
 
 
 def cornell_box(resolution: Tuple[int, int] = (320, 320)) -> tuple[Scene, SystemConfig]:
@@ -335,3 +476,221 @@ def cornell_glass(resolution: Tuple[int, int] = (320, 320)) -> tuple[Scene, Syst
     (``cornell_glass_declarations``) and its system settings, as
     ``cornell_box``'s."""
     return _cornell_scene(*cornell_glass_declarations(), resolution)
+
+
+# ---------------------------------------------------------------------------
+# Declared lights and textures
+# ---------------------------------------------------------------------------
+
+IES_PROFILE = "cornell_lights.ies"
+
+
+def write_ies_profile(path: str) -> None:
+    """An LM-63-2002 Type C profile: vertical angles 0-180 degrees in 10
+    degree steps, horizontal angles 0, 90 and 180 (bilateral symmetry,
+    mirrored to 360 on load); the candela falls from 1 at the nadir as
+    cos^1.5 to 0 at the horizon and is 0 above it, 30 % lower across the
+    0-180 plane at 90 degrees than along it."""
+    v = np.arange(0, 181, 10)
+    h = np.asarray([0, 90, 180])
+    fall = np.where(v < 90, np.cos(np.radians(np.minimum(v, 90))) ** 1.5, 0.0)
+    cd = np.stack([fall * (1.0 - 0.3 * math.sin(math.radians(a))) for a in h])
+    lines = [
+        "IESNA:LM-63-2002",
+        "[TEST] nrc_tpu_torch cornell_lights",
+        "[LUMINAIRE] a downlight with a bilateral profile",
+        "TILT=NONE",
+        f"1 1000 1 {v.size} {h.size} 1 1 0 0 0",
+        "1 1 100",
+        " ".join(str(int(a)) for a in v),
+        " ".join(str(int(a)) for a in h),
+    ] + [" ".join(f"{c:.6f}" for c in row) for row in cd]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def cornell_lights_declarations(directory: str) -> tuple[
+    List[ModelDecl], Dict[str, Material], dict, List[LightDecl]
+]:
+    """The Cornell box (its ceiling area light kept) with three declared
+    lights, all four in one uniform light pick: a warm point light at
+    (-5, 6, 2); a spot light at (5, 8, 0), 60 degree full cone, exponent 2,
+    its local +z turned to face down; and an IES light at (0, 6, -5) facing
+    down (the profile's nadir is local -y) with ``write_ies_profile``'s
+    profile, written into ``directory``. Intensities about a third of the
+    area light's on-axis 509 W/sr (radiance 100 / pi over 16 units of
+    area), so each type carries a visible share. Mesh lights follow the
+    declared ones in the table: light 3 is the ceiling. ``directory`` is
+    made if it does not exist."""
+    models, materials, cam = cornell_box_declarations()
+    os.makedirs(directory, exist_ok=True)
+    write_ies_profile(os.path.join(directory, IES_PROFILE))
+    lights = [
+        LightDecl("point", _translate(-5, 6, 2), (180.0, 160.0, 130.0), 1.0),
+        LightDecl("spot", _translate(5, 8, 0) @ _rotate(0, 90), (130.0, 160.0, 190.0), 1.0,
+                  spot_angle=60.0, spot_exponent=2.0),
+        LightDecl("ies", _translate(0, 6, -5), (170.0, 170.0, 170.0), 1.0, profile=IES_PROFILE),
+    ]
+    return models, materials, cam, lights
+
+
+def cornell_lights(resolution: Tuple[int, int] = (320, 320),
+                   directory: Optional[str] = None) -> tuple[Scene, SystemConfig]:
+    """The Cornell box with a point, a spot and an IES light beside its area
+    light (``cornell_lights_declarations``), 1224 triangles, brute force;
+    system settings as ``cornell_box``'s. The IES profile is written into
+    ``directory`` (a new temporary directory when None), the scene's
+    search path."""
+    directory = directory or _scene_directory()
+    models, materials, cam, lights = cornell_lights_declarations(directory)
+    return _cornell_scene(models, materials, cam, resolution, lights, (directory,))
+
+
+ENV_SIZE = (1024, 512)  # the equirect map's width and height
+SUN_RADIANCE = 20000.0  # the sun disc's radiance, sky radiance about 1
+SUN_DIR = (35.0, 120.0)  # elevation and azimuth (degrees) of the sun
+
+
+def sky_map(width: int, height: int) -> np.ndarray:
+    """A lat-long sky [height, width, 3], row 0 the zenith: a gradient from
+    a pale horizon to a deeper zenith blue, a dim ground below the horizon,
+    and a sun disc 2 degrees across at ``SUN_DIR``, ``SUN_RADIANCE`` bright
+    (each texel near it holds the disc's share of 8 x 8 sub-samples, so the
+    disc shows at any width)."""
+    elev = (0.5 - (np.arange(height) + 0.5) / height) * np.pi  # +pi/2 at row 0
+    up = np.clip(np.sin(elev), 0.0, 1.0)[:, None]
+    horizon, zenith = np.asarray([1.1, 1.15, 1.2]), np.asarray([0.25, 0.45, 0.9])
+    sky = horizon + (zenith - horizon) * up ** 0.6
+    sky = np.where((elev < 0.0)[:, None], np.asarray([0.12, 0.1, 0.08]), sky)
+    img = np.broadcast_to(sky[:, None, :], (height, width, 3)).copy()
+
+    def direction(el, az):  # the env sampler's object space: u = 0 on -z
+        el, az = np.broadcast_arrays(el, az)
+        return np.stack([np.cos(el) * np.sin(az), np.sin(el), -np.cos(el) * np.cos(az)], axis=-1)
+
+    el_s, az_s = np.radians(SUN_DIR[0]), np.radians(SUN_DIR[1])
+    sun = direction(el_s, az_s)
+    radius = np.radians(1.0)
+    texel = np.pi / height
+    rows = np.nonzero(np.abs(elev - el_s) < radius + 2 * texel)[0]
+    span = (radius + 2 * texel) / max(np.cos(el_s), 1e-3)
+    az = (np.arange(width) + 0.5) / width * 2.0 * np.pi
+    cols = np.nonzero(np.abs((az - az_s + np.pi) % (2 * np.pi) - np.pi) < span)[0]
+    sub = (np.arange(8) + 0.5) / 8.0
+    for r in rows:
+        for c in cols:
+            el = (0.5 - (r + sub[:, None]) / height) * np.pi
+            a = (c + sub[None, :]) / width * 2.0 * np.pi
+            inside = direction(el, a) @ sun >= math.cos(radius)
+            img[r, c] += SUN_RADIANCE * inside.mean()
+    return img.astype(np.float32)
+
+
+def _write_textures(directory: str) -> Dict[str, str]:
+    """The env_textured scene's PNG textures -> their paths."""
+    n = 128
+    y, x = np.mgrid[0:n, 0:n]
+    checker = np.where(((x // 16) + (y // 16)) % 2 == 0, 200, 60)[..., None] * np.asarray([1.0, 0.95, 0.85])
+    panel = np.stack([40 + 160 * x / n, 90 + 0 * x, 200 - 150 * y / n], axis=-1)
+    cx, cy = (x % 32) - 15.5, (y % 32) - 15.5
+    holes = np.where(cx * cx + cy * cy < 10.0 ** 2, 0, 255)[..., None].repeat(3, axis=-1)
+    r = np.hypot(x - n / 2, y - n / 2) / (n / 2)
+    emitter = np.stack([255 * np.clip(1.2 - r, 0, 1), 180 + 60 * np.cos(6 * r), 90 + 100 * x / n], axis=-1)
+    paths = {}
+    for name, img in (("checker", checker), ("panel", panel), ("holes", holes), ("emitter", emitter)):
+        paths[name] = os.path.join(directory, f"env_textured_{name}.png")
+        write_png(paths[name], np.clip(img, 0, 255).astype(np.uint8))
+    return paths
+
+
+def env_textured_declarations(directory: str, env: str = "equirect",
+                              env_size: Tuple[int, int] = ENV_SIZE) -> tuple[
+    List[ModelDecl], Dict[str, Material], dict, List[LightDecl]
+]:
+    """An open scene under an environment, its files written into
+    ``directory``:
+
+    - a 40 x 40 floor (8 x 8 tessellated) with a checker albedo texture
+      repeated 4 x 4 (uv scale);
+    - the Cornell box's two blocks, a diffuse one and a GGX-reflect one;
+    - a vertical panel (4 x 4 tessellated, 6 x 10 units) with an albedo
+      texture and a cutout texture with round holes (RGB 0 = a hole);
+    - a small emissive quad (3 x 3 units, radiant exitance 60) whose
+      emission texture makes it a textured mesh-light EDF;
+    - ``env="equirect"``: a ``sky_map`` of ``env_size`` (width, height)
+      written as an RLE Radiance ``.hdr`` (the sun several thousand times
+      brighter than the sky, so the alias table is far from uniform);
+      ``env="constant"``: a constant environment of radiance (0.8, 0.9, 1.0).
+
+    The camera looks down at the scene from above the horizon, so most
+    paths escape to the environment. ``directory`` is made if it does not
+    exist."""
+    os.makedirs(directory, exist_ok=True)
+    tex = _write_textures(directory)
+    materials = {
+        "floor": Material(name="floor", albedo=(0.9, 0.9, 0.9), albedo_tex_path=tex["checker"],
+                          uv_scale=(4.0, 4.0)),
+        "white": Material(name="white", albedo=(0.8, 0.8, 0.8)),
+        "glossy": Material(name="glossy", archetype=Archetype.GGX_REFLECT, albedo=(0.9, 0.9, 0.9),
+                           roughness=(0.1, 0.1), ior=1.5),
+        "panel": Material(name="panel", albedo=(1.0, 1.0, 1.0), albedo_tex_path=tex["panel"],
+                          cutout_tex_path=tex["holes"]),
+        "lamp": Material(name="lamp", archetype=Archetype.NULL_BSDF, albedo=(0.0, 0.0, 0.0),
+                         emission_intensity=(60.0, 60.0, 60.0), emission_mode=EmissionMode.RADIANT_EXITANCE,
+                         emission_tex_path=tex["emitter"]),
+    }
+    models = [
+        ModelDecl("plane", (8, 8, 1), _translate(0, -10, 0) @ _scale(20.0), "floor"),
+        ModelDecl("box", (), _translate(-4, -4, -3) @ _rotate(1, 20) @ _scale(3, 6, 3), "white"),
+        ModelDecl("box", (), _translate(4, -7, 3) @ _rotate(1, -20) @ _scale(3.0), "glossy"),
+        ModelDecl("plane", (4, 4, 2), _translate(-9, -5, 5) @ _rotate(1, 30) @ _scale(3, 5, 1), "panel"),
+        ModelDecl("plane", (1, 1, 2), _translate(9, -5, -3) @ _rotate(1, -40) @ _scale(1.5), "lamp"),
+    ]
+    if env == "equirect":
+        write_hdr_rle(os.path.join(directory, "env_textured_sky.hdr"), sky_map(*env_size))
+        lights = [LightDecl("env", np.eye(4), (1.0, 1.0, 1.0), 1.0, texture="env_textured_sky.hdr")]
+    elif env == "constant":
+        lights = [LightDecl("env", np.eye(4), (0.8, 0.9, 1.0), 1.0)]
+    else:
+        raise ValueError(f"env must be 'equirect' or 'constant', not {env!r}")
+    camera = dict(center=(0.0, -6.0, 0.0), phi=0.75, theta=0.58, fov=55.0, distance=32.0)
+    return models, materials, camera, lights
+
+
+def env_textured(resolution: Tuple[int, int] = (320, 320), env: str = "equirect",
+                 directory: Optional[str] = None,
+                 env_size: Tuple[int, int] = ENV_SIZE) -> tuple[Scene, SystemConfig]:
+    """The open textured scene (``env_textured_declarations``), brute force;
+    system settings as ``cornell_box``'s. Its files go into ``directory`` (a
+    new temporary directory when None), the scene's search path."""
+    directory = directory or _scene_directory()
+    models, materials, cam, lights = env_textured_declarations(directory, env, env_size)
+    return _cornell_scene(models, materials, cam, resolution, lights, (directory,))
+
+
+def _scene_directory() -> str:
+    import tempfile
+
+    return tempfile.mkdtemp(prefix="nrc_scene_")
+
+
+SCENES = {
+    "cornell_box": cornell_box,
+    "cornell_objects": cornell_objects,
+    "cornell_glass": cornell_glass,
+    "cornell_lights": cornell_lights,
+    "env_textured": env_textured,
+}
+
+
+def named_scene(name: str, resolution: Tuple[int, int], **kwargs) -> tuple[Scene, SystemConfig]:
+    """A built-in scene by its name in ``SCENES``. A scene that loads files
+    (``cornell_lights``, ``env_textured``) writes them into a temporary
+    directory that is removed once they are loaded: the scene holds what it
+    read."""
+    if name in ("cornell_lights", "env_textured"):
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="nrc_scene_") as directory:
+            return SCENES[name](resolution, directory=directory, **kwargs)
+    return SCENES[name](resolution, **kwargs)

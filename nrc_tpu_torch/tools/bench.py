@@ -2,7 +2,8 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 -m nrc_tpu_torch.tools.bench [--encoding frequency|hash] [--scene cornell_box|cornell_objects]
+    python3 -m nrc_tpu_torch.tools.bench [--encoding frequency|hash]
+        [--scene cornell_box|cornell_objects|cornell_lights|env_textured]
 
 The configuration of the JAX package's ``bench.py:82-89``: the Cornell box
 (``cornell_box``, 1224 triangles) at 320x320, FULL render mode with online
@@ -13,7 +14,11 @@ captures the frame's CUDA graph), then 5 reps of 32 frames, each frame one
 graph replay, the accumulation and the training carried from rep to rep.
 ``--scene cornell_objects`` runs the same protocol on the 132,272-triangle
 scene, whose rays go through the wide BVH and the walk kernels W1/W2 (the
-BVH is built on the host before the warm-up).
+BVH is built on the host before the warm-up); ``--scene cornell_lights``
+on the box with a point, a spot and an IES light beside its area light, and
+``--scene env_textured`` on the open scene under a 1024 x 512 equirect sky
+with textured albedo, a cutout panel and a textured emitter (their files
+are written and read in a temporary directory before the warm-up).
 
 Per rep: host ms/frame (the host clock around the rep, which ends in a
 synchronise), device ms/frame (CUDA events around the rep's replays on the
@@ -45,10 +50,10 @@ import torch
 
 from ..config import InputEncoding, RenderMode
 from ..render.renderer import Renderer
-from ..scene.scene_builder import cornell_box, cornell_objects
+from ..scene.scene_builder import named_scene
 
 RES = 320
-SCENES = {"cornell_box": cornell_box, "cornell_objects": cornell_objects}
+SCENES = ("cornell_box", "cornell_objects", "cornell_lights", "env_textured")
 TILE = (4, 4)
 WARMUP = 3
 FRAMES = 32
@@ -118,7 +123,7 @@ def run(frames: int = FRAMES, reps: int = REPS, encoding: InputEncoding = InputE
     if not torch.cuda.is_available():
         raise RuntimeError("bench: no CUDA device is available")
     dev = torch.device("cuda", 0)
-    scene, system = SCENES[scene_name]((RES, RES))
+    scene, system = named_scene(scene_name, (RES, RES))
     system = dataclasses.replace(system, tile_size=TILE)
     r = Renderer(scene, system, render_mode=RenderMode.FULL, train=True, adaptive_tiles=False, device=dev)
     r.set_encoding(encoding)
@@ -161,7 +166,7 @@ def run(frames: int = FRAMES, reps: int = REPS, encoding: InputEncoding = InputE
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="traced Mrays/s of a Cornell FULL + train frame on one card")
     ap.add_argument("--encoding", choices=("frequency", "hash"), default="frequency")
-    ap.add_argument("--scene", choices=tuple(SCENES), default="cornell_box")
+    ap.add_argument("--scene", choices=SCENES, default="cornell_box")
     args = ap.parse_args(argv)
     result = run(encoding=InputEncoding[args.encoding.upper()], scene_name=args.scene)
     print(result["device"])

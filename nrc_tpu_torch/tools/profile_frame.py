@@ -14,8 +14,13 @@ runs K6. On the 132 K-triangle ``cornell_objects`` scene, which goes
 through the wide BVH: FULL + train, likewise settled. On ``cornell_glass``
 (dielectric blocks and a translucent panel: the transmission lobes and the
 IOR stack) FULL + train with reflectance factoring and shadow-ray Russian
-roulette at tau = 0.5, likewise settled. ``--only NAME ...`` runs some of
-them (``full``, ``no_cache``, ``train``, ``hash``, ``objects``, ``glass``).
+roulette at tau = 0.5, likewise settled. On ``cornell_lights`` (a point, a
+spot and an IES light beside the area light) and on ``env_textured`` (an
+open scene under a 1024 x 512 equirect sky, textured albedo, a cutout
+panel, a textured emitter): FULL and NO_CACHE serving and FULL + train,
+likewise settled. ``--only NAME ...`` runs some of them (``full``,
+``no_cache``, ``train``, ``hash``, ``objects``, ``glass``, ``lights``,
+``env``).
 
 Each configuration runs twice from the same renderer: eagerly
 (``Renderer.capture = False``; every kernel issued from Python) and
@@ -65,7 +70,7 @@ import torch
 from ..config import InputEncoding, RenderMode
 from ..models.network import TABLE_UPDATE_RANGE
 from ..render.renderer import Renderer
-from ..scene.scene_builder import cornell_box, cornell_glass, cornell_objects
+from ..scene.scene_builder import cornell_box, cornell_glass, cornell_objects, named_scene
 
 RES = 320
 TIMED_FRAMES = 20
@@ -248,8 +253,22 @@ def profile_both(r: Renderer, label: str) -> dict:
     return {"mode": label, "eager": eager, "replayed": replayed}
 
 
+def profile_scene(name: str, dev: torch.device) -> list:
+    """A named scene's FULL and NO_CACHE serving frames and its FULL + train
+    frames after the tile size has settled."""
+    scene, system = named_scene(name, (RES, RES))
+    rows = []
+    for mode in (RenderMode.FULL, RenderMode.NO_CACHE):
+        r = Renderer(scene, system, render_mode=mode, train=False, device=dev)
+        rows.append(profile_both(r, f"{name} {mode.name}"))
+    r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
+    r.render(8)
+    rows.append(profile_both(r, f"{name} FULL + train"))
+    return rows
+
+
 def main(argv=None) -> int:
-    configs = ("full", "no_cache", "train", "hash", "objects", "glass")
+    configs = ("full", "no_cache", "train", "hash", "objects", "glass", "lights", "env")
     ap = argparse.ArgumentParser(description="where a frame's time goes on the card")
     ap.add_argument("--only", nargs="+", choices=configs, default=configs)
     args = ap.parse_args(argv)
@@ -282,6 +301,9 @@ def main(argv=None) -> int:
         r.cfg = dataclasses.replace(r.cfg, nee_rr_tau=0.5)
         r.render(8)
         results.append(profile_both(r, "cornell_glass FULL + train (factoring, shadow-ray roulette 0.5)"))
+    for name, label in (("lights", "cornell_lights"), ("env", "env_textured")):
+        if name in args.only:
+            results += profile_scene(label, dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True, timeout=60,

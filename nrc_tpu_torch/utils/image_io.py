@@ -90,8 +90,7 @@ def read_png(path: str) -> np.ndarray:
     return out
 
 
-def write_hdr(path: str, rgb: np.ndarray) -> None:
-    """Write a linear Radiance RGBE ``.hdr`` image. ``rgb``: [H, W, 3] float."""
+def _to_rgbe(rgb: np.ndarray) -> np.ndarray:
     img = np.asarray(rgb, dtype=np.float32)
     h, w, _ = img.shape
     maxc = np.max(img, axis=-1)
@@ -102,10 +101,55 @@ def write_hdr(path: str, rgb: np.ndarray) -> None:
     rgbe[..., :3] = np.clip(img * scale[..., None] + 0.5, 0, 255).astype(np.uint8)
     rgbe[..., 3] = np.clip(e + 128, 0, 255).astype(np.uint8)
     rgbe[maxc < 1e-32] = 0
+    return rgbe
+
+
+def write_hdr(path: str, rgb: np.ndarray) -> None:
+    """Write a linear Radiance RGBE ``.hdr`` image. ``rgb``: [H, W, 3] float."""
+    rgbe = _to_rgbe(rgb)
+    h, w, _ = rgbe.shape
     with open(path, "wb") as f:
         f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
         f.write(f"-Y {h} +X {w}\n".encode())
         f.write(rgbe.tobytes())  # flat (non-RLE) scanlines
+
+
+def _rle_plane(v: np.ndarray) -> bytes:
+    """One component plane of a scanline in the adaptive RLE of Radiance
+    files: a run of 4 to 127 equal bytes as (128 + count, value), anything
+    else as literals (count <= 128, bytes)."""
+    out = bytearray()
+    n, x = v.size, 0
+    while x < n:
+        run = 1
+        while x + run < n and run < 127 and v[x + run] == v[x]:
+            run += 1
+        if run >= 4:
+            out += bytes((128 + run, int(v[x])))
+            x += run
+            continue
+        start = x
+        while x < n and x - start < 128:  # literals up to the next run of 4
+            if x + 3 < n and v[x] == v[x + 1] == v[x + 2] == v[x + 3]:
+                break
+            x += 1
+        out += bytes((x - start,)) + v[start:x].tobytes()
+    return bytes(out)
+
+
+def write_hdr_rle(path: str, rgb: np.ndarray) -> None:
+    """Write a linear Radiance ``.hdr`` with adaptive-RLE scanlines (width
+    8 to 32767). ``rgb``: [H, W, 3] float, row 0 at the top (``-Y``)."""
+    rgbe = _to_rgbe(rgb)
+    h, w, _ = rgbe.shape
+    if not 8 <= w < 32768:
+        raise ValueError(f"RLE scanlines need a width in [8, 32767], got {w}")
+    head = bytes((2, 2, w >> 8, w & 255))
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        for row in rgbe:
+            f.write(head + b"".join(_rle_plane(np.ascontiguousarray(row[:, c])) for c in range(4)))
 
 
 def read_hdr(path: str) -> np.ndarray:
