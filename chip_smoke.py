@@ -93,7 +93,8 @@ Phases, each of which raises on failure (non-zero exit):
    K2 on ``cornell_lights`` only: ``env_textured``'s shadow rays are
    closest-hit hops through its cutout panel; a finite image, the loss
    curve, launches per replayed frame) and under the profiler; FULL and
-   NO_CACHE serving (ms/frame, traced rays, device busy, kernels a frame);
+   NO_CACHE serving (ms/frame, traced rays, the hand kernels' launches a
+   replayed frame);
    8 FULL + train frames replayed against eager ones bit for bit (as 6c);
    K7 on the six tables the slice adds (the light row, the mesh-light pool
    row, the env alias and eval rows, the atlas's quad rows, the NEE
@@ -101,7 +102,7 @@ Phases, each of which raises on failure (non-zero exit):
    ``index_select`` and its bound; a colour edit of the textured floor
    that replays the captured graph; 32x32 FULL + train and NO_CACHE frames
    on the card against the CPU under phase 9's bounds, ``env_textured``'s
-   training frame split at K6 (``_card_vs_cpu_through_k6``);
+   training state through K6's rounding decisions (``_card_vs_cpu_decisions``);
 7. large scene: FULL + train at 320x320 on ``cornell_objects`` (the wide
    BVH path), replayed: frames until the tile size settles, then 8 timed
    frames and 4 more counted; W1, W2 and the path's gather must run, K1 and
@@ -671,12 +672,10 @@ def _live_edits(dev):
 def _lights_slice(kernels, dev, BI, PF, path_gather):
     """cornell_lights and env_textured at 320x320, phase 6f of the module's
     docstring: FULL + train replayed and under the profiler, FULL and
-    NO_CACHE serving, 8 FULL + train frames replayed against eager ones bit
-    for bit, K7 on the six tables the slice adds, a colour edit of a
-    textured material replayed on its graph, then 32x32 frames on the card
-    against the CPU."""
-    import tempfile
-
+    NO_CACHE serving (their profiles: tools/profile_frame.py --only lights
+    env), 8 FULL + train frames replayed against eager ones bit for bit, K7
+    on the six tables the slice adds, a colour edit of a textured material
+    replayed on its graph, then 32x32 frames on the card against the CPU."""
     import torch
 
     from nrc_tpu_torch.config import RenderMode
@@ -686,9 +685,8 @@ def _lights_slice(kernels, dev, BI, PF, path_gather):
     from nrc_tpu_torch.tools import bench_gather
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        scenes = {"cornell_lights": cornell_lights((320, 320), d), "env_textured": env_textured((320, 320), directory=d)}
-        small = {"cornell_lights": cornell_lights((32, 32), d), "env_textured": env_textured((32, 32), directory=d)}
+    scenes = {"cornell_lights": cornell_lights((320, 320)), "env_textured": env_textured((320, 320))}
+    small = {"cornell_lights": cornell_lights((32, 32)), "env_textured": env_textured((32, 32))}
     print(f"lights slice: scenes built in {time.perf_counter() - t0:.2f} s (files written, read back, tables built)")
     renderers = {}
     for name, (scene, system) in scenes.items():
@@ -721,10 +719,11 @@ def _lights_slice(kernels, dev, BI, PF, path_gather):
             for k in ("intersect_planes", path_gather) + (() if rs.cfg.has_cutout else ("occluded_planes",)):
                 _check(counts[k] > 0, f"{k} was not launched by the {name} {mode.name} run")
             _check(bool(torch.isfinite(rs.image).all()) and rs.image.std().item() > 0.0, f"{name} {mode.name} bad")
+            per_frame = _replayed_launches(rs, kernels)
             print(f"{name} {mode.name} 320x320 (train=False): {served['ms_per_frame']:.3f} ms/frame, "
                   f"{served['mrays_per_s']:.2f} traced Mrays/s, {served['traced_rays_per_frame']:.0f} traced rays/frame, "
-                  f"image mean {rs.image.mean().item():.4f}")
-            _print_replayed(PF, rs, f"{name} {mode.name}")
+                  f"image mean {rs.image.mean().item():.4f}; launches per replayed frame "
+                  f"{ {k: v for k, v in per_frame.items() if v} } (every kernel of the frame: profile_frame)")
         _replay_matches_eager(scene, _with_tiles(system, (4, 4)), dev, 8, name)
         print(f"lights slice: {name} done at {time.perf_counter() - t0:.1f} s")
 
@@ -765,16 +764,16 @@ def _lights_slice(kernels, dev, BI, PF, path_gather):
     print(f"env_textured live edit: the floor's colour edited, {r.replays - replays} replays of the captured graph, "
           f"{len(r.graphs)} graphs, the atlas kept; image mean {before:.4f} -> {r.image.mean().item():.4f}")
 
-    # 32x32 on the card against the CPU, 8x8 tiles
-    # cornell_lights under phase 9's bounds; env_textured's training frame
-    # split at K6 (_card_vs_cpu_through_k6 says why)
+    # 32x32 on the card against the CPU, 8x8 tiles, under phase 9's bounds;
+    # env_textured's training state through K6's rounding decisions
+    # (_card_vs_cpu_decisions says why)
     for name, (scene, system) in small.items():
         system = _with_tiles(system, (8, 8))
         for mode, train in ((RenderMode.FULL, True), (RenderMode.NO_CACHE, False)):
             label = f"{name} {mode.name}{' + train' if train else ''}"
             if train and name == "env_textured":
                 rg, rcpu = (Renderer(scene, system, render_mode=mode, device=dd, capture=False) for dd in (dev, "cpu"))
-                _card_vs_cpu_through_k6(rg, rcpu, label)
+                _card_vs_cpu_decisions(rg, rcpu, label)
             else:
                 rg, rcpu = (Renderer(scene, system, render_mode=mode, train=train, device=dd) for dd in (dev, "cpu"))
                 _small_card_vs_cpu(rg, rcpu, label, train)
@@ -841,30 +840,35 @@ def _small_card_vs_cpu(rg, rcpu, label, train):
            f"{label}: the card's training disagrees with the CPU path")
 
 
-def _card_vs_cpu_through_k6(rg, rcpu, label):
-    """One 32x32 FULL + train frame of an eager card renderer against the CPU,
-    with the training held at K6's door. The image and the records are held
-    under phase 9's bounds, and so is everything up to K6: its batches
-    (queries encoded, targets), and the plain K6 run on the card's batches
-    against the CPU frame's state and losses. K6 itself is held against
-    the state the card's frame left, run on the CPU's batches. Phase 9's
-    direct state bound is printed, not held: with a batch of 16,384 rows
-    drawn from a few records, a ReLU mask bit that K6's tensor-core sums flip
-    on one record (bench_mlp.CARD_LIMITS) repeats over a tenth of the batch."""
+def _card_vs_cpu_decisions(rg, rcpu, label):
+    """One 32x32 FULL + train frame of an eager card renderer against the
+    same frame on the CPU, for a frame whose batch K6 and its plain version
+    round apart. The image, the records and K6's batches are held under
+    phase 9's bounds, and the plain K6 on the card's batches must give the
+    CPU frame's state. The frame's state is the card's K6 on those batches
+    (bit for bit); K6 against the plain K6 on them is read with
+    bench_mlp.check_train_state and printed, as is the card's state against
+    the CPU's. K6 is held step by step instead (bench_mlp.
+    check_train_decisions): to the plain step fed the card's forward, under
+    phase 9's bounds, with every activation the two round apart listed and
+    each within its rounding interval's reach. A batch of 16,384 rows drawn
+    from ten records repeats one such decision on a tenth of the batch, and
+    Adam's first steps turn the gradient it moves into a weight step of the
+    order of the learning rate."""
     import torch
 
     from nrc_tpu_torch.models import network as N
     from nrc_tpu_torch.ops import mlp_cuda as MC
+    from nrc_tpu_torch.tools import bench_mlp as BM
 
     seen = {}
     original = N.fused_train4
 
     def recording(w, mu, nu, ema, step, x4, t4, lr, n, hyper):
-        start = [[t.detach().clone() for t in group] for group in (w, mu, nu, ema)]
-        args = (step.clone(), x4.clone(), t4.clone(), lr.clone(), n.clone(), hyper)
-        losses = original(w, mu, nu, ema, step, x4, t4, lr, n, hyper)
-        seen[x4.device.type] = (start, args, losses.detach().cpu().clone())
-        return losses
+        start = [[t.detach().cpu().clone() for t in group] for group in (w, mu, nu, ema)]
+        args = tuple(t.detach().cpu().clone() for t in (step, x4, t4, lr, n))
+        seen[x4.device.type] = (start, args + (hyper,))
+        return original(w, mu, nu, ema, step, x4, t4, lr, n, hyper)
 
     N.fused_train4 = recording
     try:
@@ -878,40 +882,41 @@ def _card_vs_cpu_through_k6(rg, rcpu, label):
         st = rr.net_state
         return [t.detach().cpu() for m in (st.params, st.opt.mu, st.opt.nu, st.ema) for t in m.tensors()]
 
-    def run(fn, dev, start, args):
-        groups = [[t.to(dev).clone() for t in group] for group in start]
-        step, x4, t4, lr, n, hyper = args
-        losses = fn(*groups, step.to(dev).clone(), x4.to(dev), t4.to(dev), lr.to(dev), n.to(dev), hyper)
-        return [t.cpu() for group in groups for t in group], losses.cpu()
-
     def gaps(a, b):
         d = [(x - y).abs() for x, y in zip(a, b)]
         return max(t.max().item() for t in d), max(t.mean().item() for t in d)
 
-    (start_g, args_g, losses_g), (start_c, args_c, losses_c) = seen["cuda"], seen["cpu"]
-    x_gap = (args_g[1].cpu() - args_c[1]).abs().max().item()
-    t_gap = ((args_g[2].cpu() - args_c[2]).abs() / args_c[2].abs().clamp(min=1e-3)).max().item()
-    start_gap = gaps([t.cpu() for g in start_g for t in g], [t for g in start_c for t in g])[0]
-    plain_state, plain_loss = run(MC.fused_train4_plain, "cpu", start_g, args_g)
-    k6_state, k6_loss = run(MC.fused_train4_cuda, rg.device, start_c, args_c)
-    plain_gap, k6_gap, direct = gaps(plain_state, state(rcpu)), gaps(k6_state, state(rg)), gaps(state(rg), state(rcpu))
-    plain_loss_gap = ((plain_loss - losses_c).abs() / losses_c.abs()).max().item()
-    k6_loss_gap = ((k6_loss - losses_g).abs() / losses_g.abs()).max().item()
+    (start_g, args_g), (start_c, args_c) = seen["cuda"], seen["cpu"]
+    step, x4, t4, lr, n, hyper = args_g
+    x_gap = (x4 - args_c[1]).abs().max().item()
+    t_gap = ((t4 - args_c[2]).abs() / args_c[2].abs().clamp(min=1e-3)).max().item()
+    start_gap = gaps([t for g in start_g for t in g], [t for g in start_c for t in g])[0]
+    plain = [[t.clone() for t in g] for g in start_g]
+    MC.fused_train4_plain(*plain, step.clone(), x4, t4, lr, n, hyper)
+    plain_gap = gaps([t for g in plain for t in g], state(rcpu))
+    try:
+        k6_reading = BM.check_train_state(state(rg), [t for g in plain for t in g])
+    except AssertionError as e:
+        k6_reading = str(e)
+    text, four = BM.check_train_decisions(start_g, step, x4, t4, lr, n, hyper)
+    direct = gaps(state(rg), state(rcpu))
     print(f"32x32 {label} card vs CPU: {close:.4f} of pixels within 1e-3, means {mean_gap:.2e} apart; records "
           f"{n_rec[0]} vs {n_rec[1]} (must be equal); K6's batches: encoded queries {x_gap:.3g} apart (limit 1e-5), "
-          f"targets {t_gap:.3g} relative (limit 1e-5), the state before {start_gap:.3g}; the plain K6 on the card's "
-          f"batches against the CPU frame: state largest |diff| {plain_gap[0]:.3g} (limit 1e-5), largest mean "
-          f"{plain_gap[1]:.3g} (limit 1e-7), losses {plain_loss_gap:.3g} relative (limit 1e-5); K6 on the CPU's "
-          f"batches against the card frame: {k6_gap[0]:.3g} and {k6_gap[1]:.3g} (same limits), loss "
-          f"{k6_loss_gap:.3g}; the card's state against the CPU's directly (phase 9's bound, printed): largest "
-          f"|diff| {direct[0]:.3g}, largest mean {direct[1]:.3g}, loss "
-          f"{abs(float(sg.loss) / float(sc.loss) - 1.0):.3g} relative")
+          f"targets {t_gap:.3g} relative (limit 1e-5), the state before {start_gap:.3g} (must be 0); the plain K6 "
+          f"on the card's batches against the CPU frame's state: largest |diff| {plain_gap[0]:.3g} (limit 1e-5), "
+          f"largest mean {plain_gap[1]:.3g} (limit 1e-7)")
+    print(f"32x32 {label}: the card's state against the CPU's (phase 9's bound, printed): largest |diff| "
+          f"{direct[0]:.3g} (1e-5), largest mean {direct[1]:.3g} (1e-7), loss "
+          f"{abs(float(sg.loss) / float(sc.loss) - 1.0):.3g} relative (1e-5); K6 against the plain K6 on the "
+          f"card's batches (bench_mlp.check_train_state, printed): {k6_reading}")
+    print(f"32x32 {label}: K6 step by step against the plain step fed the card's forward "
+          f"(bench_mlp.check_train_decisions, held): {text}")
     _check(close >= 0.98 and mean_gap < 1e-3 and n_rec[0] == n_rec[1] > 0, f"{label}: the card's frame disagrees")
     _check(x_gap <= 1e-5 and t_gap <= 1e-5 and start_gap == 0.0, f"{label}: K6's batches disagree")
-    _check(plain_gap[0] <= 1e-5 and plain_gap[1] <= 1e-7 and plain_loss_gap <= 1e-5,
+    _check(plain_gap[0] <= 1e-5 and plain_gap[1] <= 1e-7,
            f"{label}: the plain K6 on the card's batches disagrees with the CPU frame")
-    _check(k6_gap[0] <= 1e-5 and k6_gap[1] <= 1e-7 and k6_loss_gap <= 1e-5,
-           f"{label}: K6 on the CPU's batches disagrees with the card frame")
+    _check(all(torch.equal(a, b) for a, b in zip(four, state(rg))),
+           f"{label}: K6 on the frame's batches does not give the frame's state")
 
 
 def _hash_card_vs_cpu(dev, hash_cfg):

@@ -156,8 +156,15 @@ def fused_train_grad_plain(w_in, w_h, w_out, x, target):
     """Plain PyTorch version of K5: (loss, dw_in, dw_h, dw_out) of the
     RelativeL2Luminance loss over the linear output's columns 0-2."""
     a0, acts, _ = _forward_acts(w_in, w_h, x)
+    return train_grad_from_acts(w_in, w_h, w_out, a0, acts, target)
+
+
+def train_grad_from_acts(w_in, w_h, w_out, a0, acts, target):
+    """``fused_train_grad_plain`` from the forward on: the loss and the
+    gradients, given the bf16 input ``a0`` and the bf16 activations ``acts``
+    of every layer."""
     pred = acts[-1] @ _bf16(w_out)
-    inv_count = 1.0 / float(x.shape[0] * 3)
+    inv_count = 1.0 / float(a0.shape[0] * 3)
     p = pred[:, :3]
     lum = 0.299 * p[:, 0:1] + 0.587 * p[:, 1:2] + 0.114 * p[:, 2:3]
     denom = lum * lum + 0.01

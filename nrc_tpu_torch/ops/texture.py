@@ -6,8 +6,11 @@ objects through the MDL texture runtime (``tex_lookup_float4_2d``,
 filtering, here as row gathers from the flat atlas
 (``scene/texture.py``). On the renderer's atlas every texel row carries its
 2x2 wrap-neighbour window (``texels_quad``, 16 floats), so a bilinear
-fetch is ONE row gather through ``gather_rows`` (K7 on the card); a raw
-host atlas without it (unit tests) takes the four-corner fetch.
+fetch is ONE row gather through ``gather_rows`` (K7 on the card). A raw
+host atlas without it takes the four-corner fetch: the renderer never does
+(``device_arrays`` always builds the quad rows); that path is there only to
+hold the fetch against the JAX package's raw-atlas lookup
+(``tests/test_torch_textures.py``).
 
 A ``tex_id`` of -1 reads white (1, 1, 1, 1), so material code multiplies
 unconditionally.
@@ -31,7 +34,9 @@ def _wrap(i: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
 def sample_bilinear(atlas: dict, tex_id: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Bilinear RGBA fetch from a texture's first level. ``tex_id`` [N]
-    integer (-1 = none), ``uv`` [N, 2]. Returns [N, 4]."""
+    integer (-1 = none), ``uv`` [N, 2]. Returns [N, 4]. The quad-row path
+    where the atlas has ``texels_quad`` (the renderer's), else the
+    four-corner path (raw atlases in the tests)."""
     has = tex_id >= 0
     li = atlas["tex_level_base"][torch.clamp(tex_id, min=0).to(torch.int64)]
     w = atlas["level_w"][li]

@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import tempfile
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -539,9 +540,11 @@ def cornell_lights(resolution: Tuple[int, int] = (320, 320),
     """The Cornell box with a point, a spot and an IES light beside its area
     light (``cornell_lights_declarations``), 1224 triangles, brute force;
     system settings as ``cornell_box``'s. The IES profile is written into
-    ``directory`` (a new temporary directory when None), the scene's
-    search path."""
-    directory = directory or _scene_directory()
+    ``directory``, the scene's search path; when None, into a temporary
+    directory that is removed once the scene has read it."""
+    if directory is None:
+        with tempfile.TemporaryDirectory(prefix="nrc_scene_") as directory:
+            return cornell_lights(resolution, directory)
     models, materials, cam, lights = cornell_lights_declarations(directory)
     return _cornell_scene(models, materials, cam, resolution, lights, (directory,))
 
@@ -661,17 +664,14 @@ def env_textured(resolution: Tuple[int, int] = (320, 320), env: str = "equirect"
                  directory: Optional[str] = None,
                  env_size: Tuple[int, int] = ENV_SIZE) -> tuple[Scene, SystemConfig]:
     """The open textured scene (``env_textured_declarations``), brute force;
-    system settings as ``cornell_box``'s. Its files go into ``directory`` (a
-    new temporary directory when None), the scene's search path."""
-    directory = directory or _scene_directory()
+    system settings as ``cornell_box``'s. Its files go into ``directory``,
+    the scene's search path; when None, into a temporary directory that is
+    removed once the scene has read them."""
+    if directory is None:
+        with tempfile.TemporaryDirectory(prefix="nrc_scene_") as directory:
+            return env_textured(resolution, env, directory, env_size)
     models, materials, cam, lights = env_textured_declarations(directory, env, env_size)
     return _cornell_scene(models, materials, cam, resolution, lights, (directory,))
-
-
-def _scene_directory() -> str:
-    import tempfile
-
-    return tempfile.mkdtemp(prefix="nrc_scene_")
 
 
 SCENES = {
@@ -684,13 +684,5 @@ SCENES = {
 
 
 def named_scene(name: str, resolution: Tuple[int, int], **kwargs) -> tuple[Scene, SystemConfig]:
-    """A built-in scene by its name in ``SCENES``. A scene that loads files
-    (``cornell_lights``, ``env_textured``) writes them into a temporary
-    directory that is removed once they are loaded: the scene holds what it
-    read."""
-    if name in ("cornell_lights", "env_textured"):
-        import tempfile
-
-        with tempfile.TemporaryDirectory(prefix="nrc_scene_") as directory:
-            return SCENES[name](resolution, directory=directory, **kwargs)
+    """A built-in scene by its name in ``SCENES``."""
     return SCENES[name](resolution, **kwargs)

@@ -28,8 +28,13 @@ in units of its largest entry, the rows of K4's dX with an entry far off and
 the flipped ReLU mask bits that explain each of them (``explain_off_rows``),
 and K6's state by tensor. The survey reports and asserts nothing;
 ``check_backward``, ``check_train_grad`` and ``check_train_state`` are what
-``chip_smoke.py`` and ``tests/test_torch_cuda.py`` assert with. The last
-line is one JSON object with the card's name and power limit.
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` assert with. Where a
+frame's batch repeats a few records, one activation that K6 and the plain
+version round to neighbouring bf16 values moves a tenth of the batch, and
+``check_train_state`` cannot hold; ``check_train_decisions`` (phase 6f of
+``chip_smoke.py``) then holds K6 step by step to the plain step fed the
+card's forward, and each such rounding decision to its rounding interval.
+The last line is one JSON object with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -150,6 +155,11 @@ CARD_LIMITS = dict(
     k6_mean=2e-5,                   # absolute, per state tensor; reads 3.68e-6 at most
     k6_far_at=1e-4, k6_far=1e-2,    # share of a tensor's entries beyond 1e-4: reads 1.46e-3 at most
 )
+# K6 held step by step to the plain version fed the card's forward
+# (check_train_decisions): a frame's state on the card against the CPU's
+# (chip_smoke.py phase 9) for the state and the loss; a decision's reach
+# (rounding_decisions), in units of the product's sum of |a w|
+DECISION_LIMITS = dict(state_max=1e-5, state_mean=1e-7, loss=1e-5, decision_reach=1e-5)
 TAIL_ROWS = 16  # a warp's rows: the ragged end of a batch is held with no row off
 
 
@@ -314,6 +324,123 @@ def check_train_state(got, ref) -> str:
     if not (mean <= lim["k6_mean"] and far <= lim["k6_far"]):
         raise AssertionError(f"K6's state disagrees with its plain version: {text}")
     return text
+
+
+# ---------------------------------------------------------------------------
+# rounding decisions: K6 on a batch of few records
+# ---------------------------------------------------------------------------
+
+def card_activations(w_in, w_h, x) -> list:
+    """The card's bf16 activations of every layer on rows ``x`` (CUDA
+    tensors), [H + 1] tensors [B, 64]: layer l read by K3 on the layers up to
+    l with columns 16c..16c+15 of an identity as its output layer. K5 and K6
+    recompute the forward with the same products in the same order
+    (``csrc/mlp_grad.cuh``), so these are their activations too."""
+    eye = torch.eye(MC.WIDTH, device=x.device)
+    return [torch.cat([MC.fused_forward_cuda(w_in, w_h[:layer].contiguous(),
+                                             eye[:, c:c + MC.OUT_PAD].contiguous(), x)
+                       for c in range(0, MC.WIDTH, MC.OUT_PAD)], dim=1)
+            for layer in range(w_h.shape[0] + 1)]
+
+
+def _rounding_interval(c: torch.Tensor):
+    """The f32 values that round (ReLU, then bf16) to each bf16 value ``c``:
+    (lo, hi), lo = -inf for 0."""
+    bits = c.contiguous().view(torch.int32)
+    up = (bits + 0x10000).view(torch.float32)
+    down = (bits - 0x10000).view(torch.float32)
+    lo = torch.where(c > 0, 0.5 * (c + down), torch.full_like(c, -float("inf")))
+    return lo, torch.where(c > 0, 0.5 * (c + up), torch.zeros_like(c))
+
+
+def rounding_decisions(w_in, w_h, x, card) -> list:
+    """Where the card's forward rounds apart from the plain one. Layer by
+    layer on rows ``x``, the plain pre-activations are computed from the
+    card's activations ``card`` of the layer before, so a decision upstream
+    is not counted again downstream. Each activation where the plain
+    bf16(ReLU(z)) differs from the card's value c is (layer, row, unit, z, c,
+    reach): z the plain f32 pre-activation and reach its distance from the
+    rounding interval of c, in units of the sum of |a w| over the product
+    (the scale of an f32 sum's rounding error). A ReLU mask bit flips where
+    z > 0 and c > 0 disagree."""
+    out = []
+    a = MC._bf16(x)
+    for layer, w in enumerate([w_in, *w_h]):
+        wb = MC._bf16(w)
+        z = a @ wb
+        c = card[layer]
+        apart = (MC._bf16(torch.relu(z)) != c).nonzero().tolist()
+        if apart:
+            scale = a.abs() @ wb.abs()
+            lo, hi = _rounding_interval(c)
+            reach = torch.maximum(lo - z, z - hi).clamp(min=0.0) / scale.clamp(min=1e-30)
+            out += [(layer, row, unit, z[row, unit].item(), c[row, unit].item(), reach[row, unit].item())
+                    for row, unit in apart]
+        a = c
+    return out
+
+
+def train_step_from_acts(w, mu, nu, ema, step, x, t, lr, hyper, acts):
+    """One step of K6's function on rows ``x``, targets ``t`` with the
+    forward's activations given (``acts``: the card's, read by
+    ``card_activations``), the loss, gradients and L2 + Adam + EMA plain.
+    Returns (loss, the new weights, moments and EMA as one flat list)."""
+    loss, *grads = MC.train_grad_from_acts(*w, MC._bf16(x), acts, t)
+    tt = step.to(torch.float32) + 1.0
+    new = [MC.adam_ema(w[i], g, mu[i], nu[i], ema[i], tt, lr, hyper) for i, g in enumerate(grads)]
+    return loss, [new[i][j] for j in range(4) for i in range(3)]
+
+
+def check_train_decisions(start, step, x4, t4, lr, n, hyper) -> str:
+    """K6 against its plain version on a batch that they round apart. For
+    each of K6's steps, from K6's own state after the steps before (one
+    launch a step; the four such launches must equal one launch of four
+    steps bit for bit): K6's step is held to ``train_step_from_acts`` on the
+    same state, fed the card's forward, under ``DECISION_LIMITS``; and each
+    rounding decision of the step's forward (``rounding_decisions``, on the
+    distinct rows of the batch) must lie within ``decision_reach``.
+    ``start`` holds the (w, mu, nu, ema) triples, the rest is K6's arguments,
+    all on the CPU. Returns the readings as text and the state of the
+    four-step launch (one flat list on the CPU); raises AssertionError beyond
+    a limit."""
+    dev = torch.device("cuda")
+    lim = DECISION_LIMITS
+
+    def k6(state, s, x, t):
+        g = [[v.to(dev).clone() for v in group] for group in state]
+        losses = MC.fused_train4_cuda(*g, s.to(dev).clone(), x.to(dev), t.to(dev), lr.to(dev), n.to(dev), hyper)
+        return [[v.cpu() for v in group] for group in g], losses.cpu()
+
+    four, _ = k6(start, step, x4, t4)
+    state, texts, ok = start, [], True
+    for k in range(x4.shape[0]):
+        nxt, loss = k6(state, step + k, x4[k:k + 1], t4[k:k + 1])
+        w = state[0]
+        acts = [a.cpu() for a in card_activations(*(v.to(dev) for v in w[:2]), x4[k].to(dev))]
+        ref_loss, ref = train_step_from_acts(*state, step + k, x4[k], t4[k], lr, hyper, acts)
+        d = [(a - b).abs() for a, b in zip([v for group in nxt for v in group], ref)]
+        largest, mean = max(v.max().item() for v in d), max(v.mean().item() for v in d)
+        loss_rel = abs(loss[0].item() / ref_loss.item() - 1.0)
+        rows, inverse, count = torch.unique(x4[k], dim=0, return_inverse=True, return_counts=True)
+        first = torch.empty(rows.shape[0], dtype=torch.int64).scatter_(0, inverse, torch.arange(inverse.shape[0]))
+        decisions = rounding_decisions(w[0], w[1], rows, [a[first] for a in acts])
+        reach = max((dec[5] for dec in decisions), default=0.0)
+        flips = sum((z > 0) != (c > 0) for _, _, _, z, c, _ in decisions)
+        texts.append(
+            f"step {k}: {len(decisions)} rounding decisions ({flips} ReLU mask bits) on {rows.shape[0]} distinct "
+            "rows (" + ", ".join(f"layer {layer} row {row} ({int(count[row])} in the batch) unit {unit}: z {z:.9g}, "
+                                 f"card {c:.9g}, reach {r:.3g}" for layer, row, unit, z, c, r in decisions)
+            + f"); largest reach {reach:.3g} (limit {lim['decision_reach']:g}); K6's step against the plain one "
+            f"with them: largest |diff| {largest:.3g} (limit {lim['state_max']:g}), largest mean {mean:.3g} "
+            f"(limit {lim['state_mean']:g}), loss {loss_rel:.3g} relative (limit {lim['loss']:g})")
+        ok = ok and reach <= lim["decision_reach"] and largest <= lim["state_max"] and mean <= lim["state_mean"] \
+            and loss_rel <= lim["loss"]
+        state = nxt
+    same = all(torch.equal(a, b) for ga, gb in zip(four, state) for a, b in zip(ga, gb))
+    text = "; ".join(texts) + f"; four one-step launches {'equal' if same else 'DIFFER from'} one four-step launch"
+    if not (ok and same):
+        raise AssertionError(f"K6 disagrees with its plain version beyond its rounding decisions: {text}")
+    return text, [v for group in four for v in group]
 
 
 # ---------------------------------------------------------------------------

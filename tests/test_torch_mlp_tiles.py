@@ -316,6 +316,61 @@ def test_k6_composed_from_k5_is_the_plain_k6_on_the_cpu(b):
     assert all(torch.equal(a, c) for a, c in zip(got, [t for g in groups for t in g]))
 
 
+def _tiled_acts(w_in, w_h, x):
+    """The forward's bf16 activations of every layer in the kernels' order
+    of summation."""
+    acts, a = [], MC._bf16(x)
+    for w in [w_in, *w_h]:
+        a = MC._bf16(torch.relu(_mm16(a, MC._bf16(w))))
+        acts.append(a)
+    return acts
+
+
+def test_another_order_rounds_apart_only_at_rounding_boundaries():
+    """``bench_mlp.rounding_decisions`` on the forward in the kernels' order:
+    each activation it rounds apart from the plain forward lies within the
+    decision limit of its rounding interval (reads 0 to a few 1e-8). A value
+    two bf16 steps off, and a ReLU that passed a negative sum on, read far
+    beyond it."""
+    st, x4, _ = _inputs(5, 4096)
+    w_in, w_h, _ = [t.detach() for t in st.params.tensors()]
+    x = x4[0]
+    acts = _tiled_acts(w_in, w_h, x)
+    decisions = BM.rounding_decisions(w_in, w_h, x, acts)
+    reach = BM.DECISION_LIMITS["decision_reach"]
+    assert decisions and max(d[5] for d in decisions) <= reach / 10, decisions
+    _, _, zs = MC._forward_acts(w_in, w_h, x)
+    up = [a.clone() for a in acts]
+    row, unit = (acts[2] > 0.1).nonzero()[0].tolist()
+    up[2][row, unit] = (up[2][row, unit].view(torch.int32) + 0x20000).view(torch.float32)
+    negative = [a.clone() for a in acts]
+    row_n, unit_n = (zs[1] < -0.1).nonzero()[0].tolist()
+    negative[1][row_n, unit_n] = MC._bf16(-zs[1][row_n, unit_n])
+    for faulty, at in ((up, (2, row, unit)), (negative, (1, row_n, unit_n))):
+        found = {d[:3]: d[5] for d in BM.rounding_decisions(w_in, w_h, x, faulty)}
+        assert found[at] > 100 * reach, found[at]
+
+
+@pytest.mark.parametrize("b", [129, 1000])
+def test_the_step_fed_the_plain_forward_is_the_plain_k6_step(b):
+    """``bench_mlp.train_step_from_acts``, the step the card's K6 is held to
+    where the two round apart, is one step of the plain K6 bit for bit when
+    fed the plain forward's activations, and leaves its arguments as they
+    were."""
+    cfg = NetworkConfig()
+    lr, hyper = torch.tensor(cfg.learning_rate), N.adam_hyper(cfg)
+    st, x4, t4 = _inputs(6, b)
+    groups = [[t.detach() for t in m.tensors()] for m in (st.params, st.opt.mu, st.opt.nu, st.ema)]
+    before = [t.clone() for g in groups for t in g]
+    _, acts, _ = MC._forward_acts(*groups[0][:2], x4[0])
+    loss, got = BM.train_step_from_acts(*groups, st.opt.step, x4[0], t4[0], lr, hyper, acts)
+    assert all(torch.equal(a, c) for a, c in zip(before, [t for g in groups for t in g]))
+    ref = [[t.clone() for t in g] for g in groups]
+    ref_loss = MC.fused_train4_plain(*ref, st.opt.step.clone(), x4[:1], t4[:1], lr, torch.tensor(b), hyper)
+    assert torch.equal(loss, ref_loss[0])
+    assert all(torch.equal(a, c) for a, c in zip(got, [t for g in ref for t in g]))
+
+
 @pytest.mark.parametrize("b,sms,grid", [(16384, 132, 128), (2000, 8, 8), (129, 132, 2), (1, 132, 1)])
 def test_k6_is_one_launch_on_a_grid_of_one_cta_an_sm(b, sms, grid, monkeypatch):
     """K6's persistent kernel runs one CTA an SM and no more CTAs than

@@ -50,6 +50,7 @@ import nrc_tpu.models.network as jax_network
 import nrc_tpu.render.frame as jax_frame
 import nrc_tpu.render.integrator as jax_integrator
 import nrc_tpu_torch.models.network as port_network
+import nrc_tpu_torch.ops.texture as port_texture
 import nrc_tpu_torch.render.frame as port_frame
 import nrc_tpu_torch.render.integrator as port_integrator
 from nrc_tpu.ops import intersect_pallas as JP
@@ -199,16 +200,48 @@ def _ulps(a, b):
     return np.abs(ia - ib)
 
 
+# the port's bilinear fetch at the JAX uv against the JAX value, where a
+# texture lookup moved: float32 rounding of the same sums (reads 6e-8)
+SAMPLER_ATOL = 1e-6
+
+
+def _texture_moved(j, p):
+    """The rays whose texture lookup the two sides' uv moved apart by more
+    than the query bound, or that looked up different textures (a ray whose
+    hit flipped to another material). j = (tex ids, uv, rgba) of the JAX
+    lookup, p the port's and its atlas; where the texture is the same, the
+    port's sampler at the JAX uv must give the JAX value within
+    ``SAMPLER_ATOL``."""
+    (tex_j, uv_j, rgba_j), (tex_p, _, rgba_p, atlas) = j, p
+    same = tex_j == tex_p
+    moved = same & (np.abs(rgba_j - rgba_p).max(axis=-1) > LIMITS["query_abs"])
+    at_jax_uv = port_texture.sample_bilinear(atlas, torch.tensor(tex_j, dtype=torch.int64),
+                                             torch.tensor(uv_j)).numpy()
+    off = np.abs(at_jax_uv - rgba_j)[moved].max(initial=0.0)
+    assert off <= SAMPLER_ATOL, f"the port's sampler at the JAX uv is {off} off the JAX value"
+    return moved | ~same
+
+
+def ray_flips(tag, j, p):
+    """The rays that one logged call of the JAX side (j) and the port (p)
+    flips: a closest-hit or shadow ray that both sides cast but that found
+    another triangle or occlusion (closest: tmax, direction, t, prim;
+    shadow: tmax, occluded), an escaping ray's env texel read apart (env:
+    missed, pdf), or a texture lookup moved apart (tex: ``_texture_moved``).
+    A ray that one side cast and the other did not is no flip: the decision
+    to cast it must agree."""
+    if tag == "tex":
+        return _texture_moved(j, p)
+    return (j[0] > 0.0) & (p[0] > 0.0) & (j[-1] != p[-1])
+
+
 def _flipped_rays(jax_calls, port_calls):
-    """Rays that both sides cast, closest-hit or shadow, but that found a
-    different triangle or a different occlusion. A ray that one side cast and
-    the other did not is no flip: the decision to cast it must agree."""
+    """The rays of a frame that any logged call flips (``ray_flips``)."""
     tags = ([tag for tag, _ in jax_calls], [tag for tag, _ in port_calls])
     assert tags[0] == tags[1], f"the two sides traced different bounces: {tags}"
     flipped = np.zeros(RES[0] * RES[1], bool)
-    for (_, j), (_, p) in zip(jax_calls, port_calls):
-        # closest: (tmax, direction, t, prim); shadow: (tmax, occluded)
-        flipped |= (j[0] > 0.0) & (p[0] > 0.0) & (j[-1] != p[-1])
+    for (tag, j), (_, p) in zip(jax_calls, port_calls):
+        flipped |= ray_flips(tag, j, p)
     return flipped
 
 

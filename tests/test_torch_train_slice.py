@@ -40,6 +40,7 @@ from test_torch_slice import (
     _interpret_plane_intersectors,
     _recording_port_intersectors,
     _ulps,
+    ray_flips,
 )
 
 RES = (32, 32)
@@ -109,14 +110,15 @@ def setup():
 
 
 def _flipped(calls_jax, calls_port, n):
-    """Rays of an n-ray wavefront that both sides cast but that found another
-    triangle or another occlusion (the calls of other wavefronts are skipped)."""
+    """Rays of an n-ray wavefront that a logged call flips
+    (``test_torch_slice.ray_flips``; the calls of other wavefronts are
+    skipped)."""
     calls_jax = [c for c in calls_jax if c[1][0].shape[0] == n]
     calls_port = [c for c in calls_port if c[1][0].shape[0] == n]
     assert [t for t, _ in calls_jax] == [t for t, _ in calls_port], "different bounces traced"
     flipped = np.zeros(n, bool)
-    for (_, j), (_, p) in zip(calls_jax, calls_port):
-        flipped |= (j[0] > 0.0) & (p[0] > 0.0) & (j[-1] != p[-1])
+    for (tag, j), (_, p) in zip(calls_jax, calls_port):
+        flipped |= ray_flips(tag, j, p)
     return flipped
 
 
