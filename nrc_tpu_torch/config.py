@@ -7,11 +7,8 @@ that the port never imports the JAX package:
 - per-frame system data: ``nrc/shaders/system_data.h`` (SystemDataPerFrame)
 - compile-time switches: ``nrc/shaders/config.h``
 
-The ``FrameConfig`` flags select the transport features a frame runs. The
-port runs ``reflectance_factoring``, ``nee_rr_tau``, ``archetype_set``
-and every lens and render mode, and raises on the flags of the features it
-has not ported yet: volumes, textures, cutouts, layered, measured and noise
-materials (``render/integrator.py::check_frame_config``).
+The ``FrameConfig`` flags select the transport features a frame runs; the
+port runs every one of them and every lens and render mode.
 """
 
 from __future__ import annotations

@@ -3,9 +3,9 @@
 Port of ``nrc_tpu/ops/bsdf.py``: the lobe families the archetypes 0-8 use,
 diffuse (reflection and transmission), GGX microfacet (reflect, transmit,
 both by Fresnel choice) and ideal specular (the same three), and
-``NULL_BSDF`` (emission-only; it absorbs). ``HAIR`` and ``MEASURED`` are
-not ported: ``render/scene_device.upload_scene`` refuses scenes with them,
-and here they absorb.
+``NULL_BSDF`` (emission-only; it absorbs). ``MEASURED`` lanes absorb here
+and take ``ops/mbsdf.py``'s lobe in the bounce; ``HAIR`` is not ported
+(``render/scene_device.upload_scene`` refuses scenes with it).
 
 Conventions (the reference's MDL usage): ``wo`` points toward the observer,
 ``ns``/``ng`` are the shading/geometric normals as stored; ``eta_i`` and
@@ -50,8 +50,8 @@ BSDF_EVENT_SPECULAR_REFLECTION = BSDF_EVENT_SPECULAR | BSDF_EVENT_REFLECTION
 BSDF_EVENT_SPECULAR_TRANSMISSION = BSDF_EVENT_SPECULAR | BSDF_EVENT_TRANSMISSION
 BSDF_EVENT_NON_DIRAC = BSDF_EVENT_DIFFUSE | BSDF_EVENT_GLOSSY
 
-# archetypes 0-8: every one but HAIR and MEASURED
-SUPPORTED_ARCHETYPES = frozenset(range(int(Archetype.NULL_BSDF) + 1))
+# archetypes 0-8 and MEASURED: every one but HAIR
+SUPPORTED_ARCHETYPES = frozenset(range(int(Archetype.NULL_BSDF) + 1)) | {int(Archetype.MEASURED)}
 
 
 class MaterialParams(NamedTuple):

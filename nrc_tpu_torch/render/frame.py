@@ -44,7 +44,7 @@ from ..models import network as N
 from ..scene.camera import generate_primary_rays
 from ..utils import rng as R
 from ..utils.tonemap import time_view_ramp
-from .integrator import check_frame_config, trace_wavefront
+from .integrator import trace_wavefront
 from .scene_device import DeviceScene
 
 
@@ -186,7 +186,6 @@ def frame_step(
 ) -> tuple[torch.Tensor, FrameStats]:
     """One frame (1 spp). Returns (image', stats); with ``cfg.train`` the
     network state is trained in place."""
-    check_frame_config(cfg)
     mode = cfg.render_mode
     dev = image.device
     n_pixels = cfg.num_pixels

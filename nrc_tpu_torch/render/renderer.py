@@ -64,7 +64,7 @@ from ..scene.scene_builder import Scene
 from ..utils.image_io import write_hdr, write_png
 from ..utils.tonemap import tonemap_to_u8
 from .frame import CameraArrays, FrameStats, frame_step
-from .scene_device import DeviceScene, patch_materials, scene_archetypes, scene_texture_flags, upload_scene
+from .scene_device import DeviceScene, patch_materials, scene_flags, upload_scene
 
 MAX_GRAPHS = 16  # as the JAX package bounds its compile cache
 
@@ -133,10 +133,12 @@ class Renderer:
             scene_epsilon=system.scene_epsilon,
             walk_length=system.walk_length,
             position_scale=0.1 / max(extent, 1e-6),
-            # the lobe families this scene's archetypes use
-            archetype_set=scene_archetypes(scene),
             reflectance_factoring=reflectance_factoring,
-            **scene_texture_flags(scene),
+            # the lobe families the scene's archetypes use and the transport
+            # features its materials switch on (nrc_tpu/render/renderer.py:
+            # 88-120; its NRC_DIAG_OFF profiling knob, which makes results
+            # wrong, is not ported)
+            **scene_flags(scene),
         )
         self._net_state: Optional[N.NetworkState] = None
         self.reset_cache()
@@ -255,23 +257,27 @@ class Renderer:
         reference GUI's material editors -> ``Device::updateMaterial``,
         ``Device.cpp:1700-1722``): ``changes`` are ``Material`` field
         overrides of material ``index``. Geometry and BVH stay, and the
-        texture atlas too: the table is rebuilt on it, so a texture it holds
-        is not decoded again. The material, light and texture tables are
-        re-derived; an edit of values (a colour, a roughness) copies them
-        into the tensors the captured graphs read, and the next frame
-        replays its graph. An edit that changes their shapes (a texture the
-        atlas lacks) replaces them and drops the graphs, and one that
-        changes the archetype set or the texture switches selects another
-        graph (a fresh renderer on the edited scene would compile the same).
-        The accumulation restarts."""
+        texture atlas and the loaded measurements too: the table is rebuilt
+        on them, so no texture is decoded and no measurement read again.
+        The material, light, texture and measurement tables are re-derived;
+        an edit of values (a colour, a roughness, a volume coefficient)
+        copies them into the tensors the captured graphs read, and the next
+        frame replays its graph. An edit that changes their shapes (a
+        texture the atlas lacks, another measurement) replaces them and
+        drops the graphs. The frame's switches are re-derived from the
+        edited scene (``scene_flags``): an edit that turns a feature on or
+        off (a volume, a layer, a measurement, noise, the archetype set, the
+        textures) selects another graph, captured at the next frame, as a
+        fresh renderer on the edited scene would compile the same; nothing
+        raises. The accumulation restarts."""
         rows = self.scene.material_rows
         rows[index] = dataclasses.replace(rows[index], **changes)
-        self.scene.materials = MaterialTable.build(rows, atlas=self.scene.materials.atlas)
+        mt = self.scene.materials
+        self.scene.materials = MaterialTable.build(rows, atlas=mt.atlas, measurements=mt.measurements)
         patched = patch_materials(self.device_scene, self.scene)
         if patched is not self.device_scene:
             self.device_scene = patched  # drops the graphs
-        self.cfg = dataclasses.replace(self.cfg, archetype_set=scene_archetypes(self.scene),
-                                       **scene_texture_flags(self.scene))
+        self.cfg = dataclasses.replace(self.cfg, **scene_flags(self.scene))
         self.restart_accumulation()
 
     def set_render_mode(self, mode: RenderMode) -> None:

@@ -9,11 +9,15 @@ brute-force kernels instead. The texture atlas goes up as tensors
 (``scene/texture.py::TextureAtlas.device_arrays``: the 16-wide quad rows and
 the level descriptors), and so does each light's row of the textured
 mesh-light EDF ([L, 7]: emission texture id, uv transform;
-``nrc_tpu/render/integrator.py:242-256``). It refuses scenes that need what
-is not ported yet: curves, volumes, layered/measured/noise materials and
-the hair and measured archetypes. ``patch_materials`` re-derives the
-material tables after a live material edit, in place where their shapes
-hold (a captured frame reads them by address).
+``nrc_tpu/render/integrator.py:242-256``), and the scene's measured-BSDF
+stack as the row tables of ``ops/mbsdf.py`` (``MBSDFTables``; a scene
+without a measurement gets the one-entry tables of
+``MBSDFTableHost.build([])``, as the JAX package does,
+``nrc_tpu/render/scene_device.py:139-142, 262-270``). It refuses scenes
+that need what is not ported yet: curves and the hair archetype.
+``patch_materials`` re-derives the material tables after a live material
+edit, in place where their shapes hold (a captured frame reads them by
+address).
 
 The bounce body fetches per-hit data with row gathers
 (``ops/gather_cuda.py::gather_rows`` over ``tri_shade`` and ``mat_row``);
@@ -36,6 +40,8 @@ from ..ops.intersect import BVH_THRESHOLD, TriSoA
 from ..ops.intersect_cuda import build_plane_table
 from ..ops.intersect_wide import WideBVH, upload_wide_bvh
 from ..ops.light_sampling import DeviceLights, upload_lights
+from ..ops.mbsdf import MBSDFTables, row_tables
+from ..ops.mbsdf import to_device as mbsdf_to_device
 from ..scene.materials import EmissionMode
 
 
@@ -88,6 +94,8 @@ class DeviceScene(NamedTuple):
     atlas: Optional[dict] = None
     # [L, 7] per light: emission texture id (-1 = none) as f32 | uv transform
     nee_tex: Optional[torch.Tensor] = None
+    # the measured-BSDF stack as row tables (ops/mbsdf.py)
+    mbsdf: Optional[MBSDFTables] = None
 
     @property
     def num_triangles(self) -> int:
@@ -166,7 +174,8 @@ def _material_arrays(scene) -> dict:
     # the lookups read the quad rows, not the texels
     atlas = {k: v for k, v in mt.atlas.device_arrays().items() if k != "texels"}
     return dict(mat_row=mat_row, emission_radiance=emission_radiance,
-                light_radiance=lr, curve_k=k_curve, nee_tex=nee_tex, atlas=atlas)
+                light_radiance=lr, curve_k=k_curve, nee_tex=nee_tex, atlas=atlas,
+                mbsdf=row_tables(mt.mbsdf))
 
 
 def _atlas_tensors(atlas: dict, device) -> dict:
@@ -177,19 +186,12 @@ def _atlas_tensors(atlas: dict, device) -> dict:
 
 
 def check_supported(scene) -> None:
-    """Raise ``NotImplementedError`` naming the first unported feature."""
+    """Raise ``NotImplementedError`` naming the first unported feature:
+    curves, or the hair archetype on either lobe."""
     mt = scene.materials
     unported = {
         "curves": getattr(scene, "curves", None) is not None,
-        "the hair or measured archetype": bool(
-            set(np.unique(mt.archetype).tolist()) - SUPPORTED_ARCHETYPES
-        ),
-        "layered materials": bool(np.any(mt.blend_mode != 0) or np.any(mt.mod_mode != 0)),
-        "volumes": bool(np.max(mt.sigma_a) + np.max(mt.sigma_s) > 0.0),
-        "measured BSDFs": bool(np.max(mt.mbsdf_index) >= 0),
-        "procedural noise": bool(
-            np.max(mt.noise_mode) > 0 or np.max(np.abs(mt.noise_bump_factor)) > 0
-        ),
+        "the hair archetype": bool(set(scene_archetypes(scene)) - SUPPORTED_ARCHETYPES),
     }
     for feature, present in unported.items():
         if present:
@@ -204,15 +206,27 @@ def scene_archetypes(scene) -> frozenset:
     return frozenset(np.unique(mt.archetype).tolist() + np.unique(mt.archetype2).tolist())
 
 
-def scene_texture_flags(scene) -> dict:
-    """``FrameConfig.has_textures`` and ``has_cutout`` of a scene, as
-    ``nrc_tpu/render/renderer.py:95-104`` sets them: textures when the atlas
-    holds any, cutout when a material's opacity is below 1 or it binds a
-    cutout texture."""
+def scene_flags(scene) -> dict:
+    """The ``FrameConfig`` switches a scene's materials set, as
+    ``nrc_tpu/render/renderer.py:88-120`` sets them: the archetype set of
+    both lobes; textures when the atlas holds any; cutout when a material's
+    opacity is below 1 or it binds a cutout texture; volumes when a
+    material has volume coefficients; layered when one blends or modifies
+    its lobes; measured when one binds a measurement; noise when one has a
+    noise mode, the bump when one has a bump factor; and the fBm's octave
+    count, the largest of any material's (static: the octave loop unrolls
+    once)."""
     mt = scene.materials
     return dict(
+        archetype_set=scene_archetypes(scene),
         has_textures=mt.atlas.num_textures > 0,
         has_cutout=bool(np.min(mt.cutout_opacity) < 1.0 or np.max(mt.cutout_tex) >= 0),
+        has_volumes=bool(np.max(mt.sigma_a) + np.max(mt.sigma_s) > 0.0),
+        has_layered=bool(np.any(mt.blend_mode != 0) or np.any(mt.mod_mode != 0)),
+        has_measured=bool(np.max(mt.mbsdf_index) >= 0),
+        has_noise=bool(np.max(mt.noise_mode) > 0),
+        has_noise_bump=bool(np.max(np.abs(mt.noise_bump_factor)) > 0),
+        noise_levels_static=int(np.max(mt.noise_levels, initial=1)),
     )
 
 
@@ -235,13 +249,15 @@ def patch_materials(dev: DeviceScene, scene) -> DeviceScene:
     lights = upload_lights(scene.lights, mats["light_radiance"], cpu)
     atlas = _atlas_tensors(mats["atlas"], cpu)
 
-    def tensors(mat_row, nee_tex, lights, atlas):
+    mbsdf = mbsdf_to_device(mats["mbsdf"], cpu)
+
+    def tensors(mat_row, nee_tex, lights, atlas, mbsdf):
         return [mat_row, nee_tex] + [getattr(lights, f.name) for f in dataclasses.fields(lights)
                                      if isinstance(getattr(lights, f.name), torch.Tensor)] + [
-            atlas[k] for k in sorted(atlas)]
+            atlas[k] for k in sorted(atlas)] + list(mbsdf[:4])
 
-    old = tensors(dev.mat_row, dev.nee_tex, dev.lights, dev.atlas)
-    new = tensors(torch.from_numpy(mats["mat_row"]), torch.from_numpy(mats["nee_tex"]), lights, atlas)
+    old = tensors(dev.mat_row, dev.nee_tex, dev.lights, dev.atlas, dev.mbsdf)
+    new = tensors(torch.from_numpy(mats["mat_row"]), torch.from_numpy(mats["nee_tex"]), lights, atlas, mbsdf)
     statics = ("types_static", "env_is_cube", "env_shape")
     if sorted(atlas) == sorted(dev.atlas) and all(
             getattr(lights, k) == getattr(dev.lights, k) for k in statics) and all(
@@ -254,6 +270,7 @@ def patch_materials(dev: DeviceScene, scene) -> DeviceScene:
         nee_tex=new[1].to(device),
         lights=upload_lights(scene.lights, mats["light_radiance"], device),
         atlas=_atlas_tensors(mats["atlas"], device),
+        mbsdf=mbsdf_to_device(mats["mbsdf"], device),
     )
 
 
@@ -299,4 +316,5 @@ def upload_scene(scene, device: torch.device, use_bvh: Optional[bool] = None) ->
         bvh=bvh,
         atlas=_atlas_tensors(mats["atlas"], device),
         nee_tex=dev(mats["nee_tex"]),
+        mbsdf=mbsdf_to_device(mats["mbsdf"], device),
     )

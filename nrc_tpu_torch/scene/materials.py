@@ -6,9 +6,14 @@ Port of ``nrc_tpu/scene/materials.py:24-311``: the BSDF archetype enum, one
 table, so ``render/scene_device.py`` assembles the same merged material row.
 
 ``build`` resolves the three texture paths of a row into ids of the
-table's ``TextureAtlas`` (``scene/texture.py``). Measured BSDFs are not
-ported yet: ``build`` raises on a measurement path, and the table carries no
-measurement stack.
+table's ``TextureAtlas`` (``scene/texture.py``), and loads each distinct
+measured-BSDF path once (``scene/mbsdf.py::load_measurement``), stacking
+the measurements into the table's ``MBSDFTableHost`` in the order of first
+use, as the JAX package does (``nrc_tpu/scene/materials.py:232-244``); a
+material's ``mbsdf_index`` is its measurement's place there, -1 without
+one. The loaded measurements stay in the table by path
+(``measurements``), so that a live edit that passes them on reads no file
+again, as it decodes no texture again.
 """
 
 from __future__ import annotations
@@ -16,10 +21,11 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from .mbsdf import Measurement, MBSDFTableHost, load_measurement
 from .texture import TextureAtlas
 
 # resampled measured-curve resolution (``nrc_tpu/ops/layered.py:53``)
@@ -75,7 +81,7 @@ class Material:
     hair_absorption: Tuple[float, float, float] = (0.02, 0.3, 0.6)
     hair_cuticle_angle: float = 0.0524
     hair_diffuse_weight: float = 0.0
-    # measured BSDF (not ported: a non-empty path raises in build)
+    # measured BSDF (df::measured_bsdf): an .npz or MERL .binary file
     mbsdf_path: str = ""
     mbsdf_multiplier: float = 1.0
     # 2D textures: albedo and emission tints, cutout opacity (its RGB mean)
@@ -155,7 +161,7 @@ class MaterialTable:
     mod_a: np.ndarray               # [M, 3]
     mod_b: np.ndarray               # [M, 3]
     mod_exp: np.ndarray             # [M]
-    mbsdf_index: np.ndarray         # [M] int32 (always -1 here)
+    mbsdf_index: np.ndarray         # [M] int32 (-1 = none)
     mbsdf_multiplier: np.ndarray    # [M] f32
     noise_mode: np.ndarray          # [M] int32
     noise_color1: np.ndarray        # [M, 3]
@@ -168,18 +174,19 @@ class MaterialTable:
     noise_target: np.ndarray        # [M] int32
     noise_bump_factor: np.ndarray   # [M] f32
     atlas: TextureAtlas = None      # the decoded textures the ids index
+    mbsdf: MBSDFTableHost = None    # the stacked measurements mbsdf_index indexes
+    measurements: Optional[Dict[str, Measurement]] = None  # loaded, by path
 
     @staticmethod
-    def build(materials: list[Material], atlas: Optional[TextureAtlas] = None) -> "MaterialTable":
+    def build(materials: list[Material], atlas: Optional[TextureAtlas] = None,
+              measurements: Optional[Dict[str, Measurement]] = None) -> "MaterialTable":
         """The table of ``materials``. ``atlas``: an existing atlas to add the
         textures to (its (path, sRGB) dedup makes a texture it holds free),
-        as a live edit passes so that no image is decoded again
+        and ``measurements``: measurements already loaded, by path, as a
+        live edit passes them so that no image or measurement is read again
         (``nrc_tpu/scene/materials.py:185-270``)."""
         if not materials:
             materials = [Material()]
-        for m in materials:
-            if m.mbsdf_path:
-                raise NotImplementedError(f"material {m.name!r}: measured BSDFs are not ported")
         if atlas is None:
             atlas = TextureAtlas.empty()
 
@@ -192,7 +199,6 @@ class MaterialTable:
         def iarr(field):
             return np.asarray([int(getattr(m, field)) for m in materials], np.int32)
 
-        none = np.full(len(materials), -1, np.int32)
         uv_xf = np.asarray(
             [
                 [
@@ -212,6 +218,19 @@ class MaterialTable:
                 x_dst = np.linspace(0.0, 1.0, CURVE_RES)
                 for c in range(3):
                     curve[i, :, c] = np.interp(x_dst, x_src, cv[:, c])
+
+        # measured BSDFs: dedup by path, stacked into one table set
+        measurements = dict(measurements or {})
+        paths: list[str] = []
+        mbsdf_index = np.full(len(materials), -1, np.int32)
+        for i, m in enumerate(materials):
+            if m.mbsdf_path:
+                if m.mbsdf_path not in paths:
+                    paths.append(m.mbsdf_path)
+                mbsdf_index[i] = paths.index(m.mbsdf_path)
+        for path in paths:
+            if path not in measurements:
+                measurements[path] = load_measurement(path)
 
         f32 = np.float32
         return MaterialTable(
@@ -247,7 +266,7 @@ class MaterialTable:
             mod_a=arr("mod_a", f32),
             mod_b=arr("mod_b", f32),
             mod_exp=arr("mod_exp", f32),
-            mbsdf_index=none.copy(),
+            mbsdf_index=mbsdf_index,
             mbsdf_multiplier=arr("mbsdf_multiplier", f32),
             noise_mode=iarr("noise_mode"),
             noise_color1=arr("noise_color1", f32),
@@ -262,4 +281,6 @@ class MaterialTable:
             noise_target=iarr("noise_target"),
             noise_bump_factor=arr("noise_bump_factor", f32),
             atlas=atlas,
+            mbsdf=MBSDFTableHost.build([measurements[p] for p in paths]),
+            measurements={p: measurements[p] for p in paths},
         )

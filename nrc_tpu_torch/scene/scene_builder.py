@@ -14,9 +14,12 @@ torus, about 132 K triangles, the large-scene path), ``cornell_glass()``
 lobes and the IOR stack), ``cornell_lights()`` (the box's area light with a
 point, a spot and an IES light) and ``env_textured()`` (an open scene under
 an equirect or constant environment with textured albedo, a cutout panel
-and a textured emitter). The last two write their files (an LM-63 profile,
-PNG textures, an RLE ``.hdr`` map) into a directory the caller gives and
-load them back through the file path every scene takes.
+and a textured emitter), ``cornell_materials()`` (layered, modified,
+measured and procedural-noise surfaces) and ``cornell_volume()`` (a
+scattering and an absorbing medium). ``cornell_lights``, ``env_textured``
+and ``cornell_materials`` write their files (an LM-63 profile, PNG
+textures, an RLE ``.hdr`` map, a baked measurement) into a directory the
+caller gives and load them back through the file path every scene takes.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from .lights import (
     empty_light_table,
 )
 from .materials import Archetype, EmissionMode, Material, MaterialTable
+from .mbsdf import bake_ggx
 
 
 @dataclasses.dataclass
@@ -674,12 +678,125 @@ def env_textured(resolution: Tuple[int, int] = (320, 320), env: str = "equirect"
     return _cornell_scene(models, materials, cam, resolution, lights, (directory,))
 
 
+# ---------------------------------------------------------------------------
+# Layered, measured and noise materials; homogeneous media
+# ---------------------------------------------------------------------------
+
+MEASUREMENT = "ggx.npz"  # cornell_materials' baked measurement
+
+
+def cornell_materials_declarations(directory: str) -> tuple[List[ModelDecl], Dict[str, Material], dict]:
+    """The Cornell box (its ceiling area light kept) whose surfaces between
+    them carry every blend mode, every modifier mode, a measured BSDF and
+    both uses of procedural noise (``ops/layered.py``, ``ops/noise.py``):
+
+    - floor: ``BLEND_FIXED``, a GGX-reflect layer (roughness 0.15, weight
+      0.3) over a diffuse base (weight 0.7), ``MOD_DIRECTIONAL`` from white
+      at normal incidence to a cool grazing tint, exponent 3;
+    - ceiling: ``BLEND_CURVE``, GGX (roughness 0.3) over diffuse, the layer
+      weight 0.4 times a 6-point curve from 0.5 at normal incidence to 1 at
+      grazing (resampled to ``CURVE_RES``), and ``MOD_CURVE`` on the same
+      curve;
+    - tall block: ``BLEND_FRESNEL`` (``blend_ior`` 1.5), GGX (roughness
+      0.1) over an orange diffuse base, ``MOD_THIN_FILM`` (400 nm, film
+      IOR 1.4);
+    - back wall: one GGX-reflect lobe (roughness 0.2) under
+      ``MOD_FRESNEL_COND`` with gold's n, k at 650, 510 and 440 nm;
+    - short block: ``MEASURED``, ``bake_ggx(alpha=0.3)`` (32 x 64) written
+      to ``<directory>/ggx.npz``, multiplier 1;
+    - left wall: ``NOISE_PERLIN`` tint, 3 octaves, red to orange;
+    - right wall: ``NOISE_WORLEY`` tint, dark to light green, with a bump
+      of factor 0.3.
+
+    1224 triangles, brute force. ``directory`` is made if it does not exist."""
+    models, materials, cam = cornell_box_declarations()
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, MEASUREMENT)
+    np.savez(path, reflection=bake_ggx(alpha=0.3).reflection)
+    ggx, diffuse = Archetype.GGX_REFLECT, Archetype.DIFFUSE_REFLECTION
+    curve = ((0.5, 0.5, 0.55), (0.55, 0.55, 0.6), (0.62, 0.6, 0.66), (0.72, 0.7, 0.75), (0.85, 0.83, 0.88),
+             (1.0, 1.0, 1.0))
+    mats = {
+        "floor": Material(name="floor", archetype=ggx, albedo=(0.9, 0.9, 0.9), roughness=(0.15, 0.15),
+                          archetype2=diffuse, albedo2=(0.8, 0.75, 0.7), blend_mode=1, blend_w1=(0.3, 0.3, 0.3),
+                          blend_w2=(0.7, 0.7, 0.7), mod_mode=1, mod_a=(1.0, 1.0, 1.0), mod_b=(0.6, 0.7, 0.9),
+                          mod_exp=3.0),
+        "ceiling": Material(name="ceiling", archetype=ggx, albedo=(0.9, 0.9, 0.9), roughness=(0.3, 0.3),
+                            archetype2=diffuse, albedo2=(0.8, 0.8, 0.8), blend_mode=3, blend_w1=(0.4, 0.4, 0.4),
+                            curve_values=curve, mod_mode=4),
+        "light": materials["light"],
+        "back": Material(name="back", archetype=ggx, albedo=(1.0, 1.0, 1.0), roughness=(0.2, 0.2), mod_mode=2,
+                         mod_a=(0.143, 0.374, 1.442), mod_b=(3.983, 2.385, 1.603)),
+        "left": Material(name="left", albedo=(0.8, 0.05, 0.05), noise_mode=1, noise_color1=(0.8, 0.1, 0.05),
+                         noise_color2=(0.9, 0.6, 0.2), noise_scale=(0.4, 0.4, 0.4), noise_levels=3),
+        "right": Material(name="right", albedo=(0.05, 0.8, 0.05), noise_mode=3, noise_color1=(0.05, 0.3, 0.05),
+                          noise_color2=(0.3, 0.8, 0.3), noise_scale=(0.5, 0.5, 0.5), noise_bump_factor=0.3),
+        "tall": Material(name="tall", archetype=ggx, albedo=(1.0, 1.0, 1.0), roughness=(0.1, 0.1),
+                         archetype2=diffuse, albedo2=(0.7, 0.45, 0.2), blend_mode=2, blend_ior=1.5,
+                         mod_mode=3, mod_a=(1.4, 1.4, 1.4), mod_exp=400.0),
+        "short": Material(name="short", archetype=Archetype.MEASURED, albedo=(1.0, 1.0, 1.0), mbsdf_path=path,
+                          mbsdf_multiplier=1.0),
+    }
+    surfaces = ("floor", "ceiling", "light", "back", "left", "right", "tall", "short")
+    models = [dataclasses.replace(m, material=name) for m, name in zip(models, surfaces)]
+    return models, mats, cam
+
+
+def cornell_materials(resolution: Tuple[int, int] = (320, 320),
+                      directory: Optional[str] = None) -> tuple[Scene, SystemConfig]:
+    """The Cornell box of layered, modified, measured and noise materials
+    (``cornell_materials_declarations``); system settings as
+    ``cornell_box``'s. The measurement is written into ``directory``; when
+    None, into a temporary directory that is removed once the scene has
+    read it (the table keeps the loaded measurement)."""
+    if directory is None:
+        with tempfile.TemporaryDirectory(prefix="nrc_scene_") as directory:
+            return cornell_materials(resolution, directory)
+    return _cornell_scene(*cornell_materials_declarations(directory), resolution, (), (directory,))
+
+
+def cornell_volume_declarations() -> tuple[List[ModelDecl], Dict[str, Material], dict]:
+    """The Cornell box's walls and light with two media in its blocks:
+
+    - the tall block (6 units across) a scattering medium behind a
+      dielectric boundary (``SPECULAR_REFLECT_TRANSMIT``, IOR 1.33):
+      sigma_s (0.95, 0.8, 0.6), sigma_a (0.02, 0.03, 0.05): mean free paths
+      1 / sigma_t of 1.03, 1.20 and 1.54 units (1.22 at the channels' mean
+      sigma_t), about a fifth of its width; Henyey-Greenstein g 0.6
+      (``volume_bias``), forward scattering: a subsurface-like glow;
+    - the short block an absorbing medium only (IOR 1.5): sigma_a (0.03,
+      0.12, 0.25), sigma_s 0: coloured glass, Beer-Lambert alone.
+
+    The walk length is ``SystemConfig``'s default. 1224 triangles, brute
+    force."""
+    models, materials, cam = cornell_box_declarations()
+    glass = Archetype.SPECULAR_REFLECT_TRANSMIT
+    materials = dict(
+        materials,
+        fog=Material(name="fog", archetype=glass, albedo=(1.0, 1.0, 1.0), ior=1.33, sigma_a=(0.02, 0.03, 0.05),
+                     sigma_s=(0.95, 0.8, 0.6), volume_bias=0.6),
+        tinted=Material(name="tinted", archetype=glass, albedo=(1.0, 1.0, 1.0), ior=1.5,
+                        sigma_a=(0.03, 0.12, 0.25)),
+    )
+    models = models[:6] + [dataclasses.replace(models[6], material="fog"),
+                           dataclasses.replace(models[7], material="tinted")]
+    return models, materials, cam
+
+
+def cornell_volume(resolution: Tuple[int, int] = (320, 320)) -> tuple[Scene, SystemConfig]:
+    """The Cornell box with a scattering and an absorbing medium
+    (``cornell_volume_declarations``); system settings as ``cornell_box``'s."""
+    return _cornell_scene(*cornell_volume_declarations(), resolution)
+
+
 SCENES = {
     "cornell_box": cornell_box,
     "cornell_objects": cornell_objects,
     "cornell_glass": cornell_glass,
     "cornell_lights": cornell_lights,
     "env_textured": env_textured,
+    "cornell_materials": cornell_materials,
+    "cornell_volume": cornell_volume,
 }
 
 

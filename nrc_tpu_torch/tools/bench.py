@@ -3,7 +3,8 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 -m nrc_tpu_torch.tools.bench [--encoding frequency|hash]
-        [--scene cornell_box|cornell_objects|cornell_lights|env_textured]
+        [--scene cornell_box|cornell_objects|cornell_lights|env_textured|
+                 cornell_materials|cornell_volume]
 
 The configuration of the JAX package's ``bench.py:82-89``: the Cornell box
 (``cornell_box``, 1224 triangles) at 320x320, FULL render mode with online
@@ -18,7 +19,10 @@ BVH is built on the host before the warm-up); ``--scene cornell_lights``
 on the box with a point, a spot and an IES light beside its area light, and
 ``--scene env_textured`` on the open scene under a 1024 x 512 equirect sky
 with textured albedo, a cutout panel and a textured emitter (their files
-are written and read in a temporary directory before the warm-up).
+are written and read in a temporary directory before the warm-up);
+``--scene cornell_materials`` on the box of layered, measured and noise
+materials, and ``--scene cornell_volume`` on the box with a scattering and
+an absorbing medium.
 
 Per rep: host ms/frame (the host clock around the rep, which ends in a
 synchronise), device ms/frame (CUDA events around the rep's replays on the
@@ -53,7 +57,8 @@ from ..render.renderer import Renderer
 from ..scene.scene_builder import named_scene
 
 RES = 320
-SCENES = ("cornell_box", "cornell_objects", "cornell_lights", "env_textured")
+SCENES = ("cornell_box", "cornell_objects", "cornell_lights", "env_textured", "cornell_materials",
+          "cornell_volume")
 TILE = (4, 4)
 WARMUP = 3
 FRAMES = 32

@@ -17,10 +17,12 @@ IOR stack) FULL + train with reflectance factoring and shadow-ray Russian
 roulette at tau = 0.5, likewise settled. On ``cornell_lights`` (a point, a
 spot and an IES light beside the area light) and on ``env_textured`` (an
 open scene under a 1024 x 512 equirect sky, textured albedo, a cutout
-panel, a textured emitter): FULL and NO_CACHE serving and FULL + train,
-likewise settled. ``--only NAME ...`` runs some of them (``full``,
-``no_cache``, ``train``, ``hash``, ``objects``, ``glass``, ``lights``,
-``env``).
+panel, a textured emitter), on ``cornell_materials`` (layered, measured
+and noise materials) and on ``cornell_volume`` (a scattering and an
+absorbing medium): FULL and NO_CACHE serving and FULL + train, likewise
+settled. ``--only NAME ...`` runs some of them (``full``, ``no_cache``,
+``train``, ``hash``, ``objects``, ``glass``, ``lights``, ``env``,
+``materials``, ``volume``).
 
 Each configuration runs twice from the same renderer: eagerly
 (``Renderer.capture = False``; every kernel issued from Python) and
@@ -268,7 +270,7 @@ def profile_scene(name: str, dev: torch.device) -> list:
 
 
 def main(argv=None) -> int:
-    configs = ("full", "no_cache", "train", "hash", "objects", "glass", "lights", "env")
+    configs = ("full", "no_cache", "train", "hash", "objects", "glass", "lights", "env", "materials", "volume")
     ap = argparse.ArgumentParser(description="where a frame's time goes on the card")
     ap.add_argument("--only", nargs="+", choices=configs, default=configs)
     args = ap.parse_args(argv)
@@ -301,7 +303,8 @@ def main(argv=None) -> int:
         r.cfg = dataclasses.replace(r.cfg, nee_rr_tau=0.5)
         r.render(8)
         results.append(profile_both(r, "cornell_glass FULL + train (factoring, shadow-ray roulette 0.5)"))
-    for name, label in (("lights", "cornell_lights"), ("env", "env_textured")):
+    for name, label in (("lights", "cornell_lights"), ("env", "env_textured"), ("materials", "cornell_materials"),
+                        ("volume", "cornell_volume")):
         if name in args.only:
             results += profile_scene(label, dev)
     smi = subprocess.run(

@@ -117,9 +117,11 @@ class TestHostTables:
     def test_material_table_equal(self, scenes):
         scene, _, jscene = scenes
         for f in dataclasses.fields(scene.materials):
+            if f.name == "measurements":  # the port's cache of the loaded files
+                continue
             a, b = getattr(scene.materials, f.name), getattr(jscene.materials, f.name)
-            if f.name == "atlas":  # the texture atlas: its arrays
-                a, b = a.device_arrays(), b.device_arrays()
+            if f.name in ("atlas", "mbsdf"):  # the texture atlas, the measurement stack: their arrays
+                a, b = (a.device_arrays(), b.device_arrays()) if f.name == "atlas" else (vars(a), vars(b))
                 assert sorted(a) == sorted(b)
                 for k in a:
                     np.testing.assert_array_equal(a[k], b[k], err_msg=k)
@@ -180,6 +182,25 @@ class TestUpload:
         "change",
         [
             dict(archetype=Archetype.HAIR),
+            dict(archetype=Archetype.HAIR, archetype2=Archetype.MEASURED),
+            dict(archetype2=Archetype.HAIR, blend_mode=1),
+            dict(archetype=Archetype.HAIR, sigma_a=(0.1, 0.1, 0.1)),
+            dict(archetype2=Archetype.HAIR, mod_mode=2),
+            dict(archetype=Archetype.HAIR, noise_mode=1, noise_bump_factor=0.5),
+        ],
+    )
+    def test_unported_materials_raise(self, change):
+        """The hair archetype, on either lobe and whatever else the material
+        carries, is the one material the port refuses."""
+        models, materials, cam = cornell_box_declarations()
+        materials["white"] = dataclasses.replace(materials["white"], **change)
+        scene = assemble_scene(models, materials, Camera(**cam))
+        with pytest.raises(NotImplementedError, match="hair"):
+            upload_scene(scene, CPU)
+
+    @pytest.mark.parametrize(
+        "change",
+        [
             dict(archetype=Archetype.MEASURED),
             dict(noise_bump_factor=0.5),
             dict(sigma_a=(0.1, 0.1, 0.1)),
@@ -187,18 +208,25 @@ class TestUpload:
             dict(noise_mode=1),
         ],
     )
-    def test_unported_materials_raise(self, change):
+    def test_ported_materials_upload_as_the_jax_package_does(self, change):
+        """The materials refused before this slice (a measured archetype,
+        noise, a volume, a blend) upload, with the JAX upload's material row
+        bit for bit."""
         models, materials, cam = cornell_box_declarations()
         materials["white"] = dataclasses.replace(materials["white"], **change)
         scene = assemble_scene(models, materials, Camera(**cam))
-        with pytest.raises(NotImplementedError):
-            upload_scene(scene, CPU)
+        dev = upload_scene(scene, CPU)
+        jtable = JMaterialTable.build([JMaterial(**dataclasses.asdict(m)) for m in materials.values()])
+        jrow = jax_upload_scene(dataclasses.replace(scene, materials=jtable)).mat_row
+        assert torch.equal(dev.mat_row.view(torch.int32), torch.from_numpy(np.asarray(jrow)).view(torch.int32))
 
     def test_unported_lights_and_textures_raise(self, tmp_path):
         """What of the lights and textures is not ported: DDS files (an
-        environment or a texture; Queue 1 item 4) and measured BSDFs. The
-        constant environment and textures, refused before, are ported
-        (tests/test_torch_lights.py, test_torch_textures.py)."""
+        environment or a texture; Queue 1 item 4). The constant environment
+        and textures, refused before, are ported (tests/test_torch_lights.py,
+        test_torch_textures.py), and so are measured BSDFs, whose loader
+        refuses a container it does not know as the JAX package's does
+        (tests/test_torch_mbsdf.py)."""
         (tmp_path / "sky.dds").write_bytes(b"DDS ")
         models, materials, cam = cornell_box_declarations()
         env = LightDecl("env", np.eye(4), (1.0, 1.0, 1.0), 1.0, texture="sky.dds")
@@ -206,5 +234,5 @@ class TestUpload:
             assemble_scene(models, materials, Camera(**cam), [env], (str(tmp_path),))
         with pytest.raises(NotImplementedError, match="DDS"):
             MaterialTable.build([Material(albedo_tex_path=str(tmp_path / "sky.dds"))])
-        with pytest.raises(NotImplementedError, match="measured"):
+        with pytest.raises(ValueError, match="measured"):
             MaterialTable.build([Material(mbsdf_path="paint.mbsdf")])

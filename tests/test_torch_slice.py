@@ -57,7 +57,7 @@ from nrc_tpu.ops import intersect_pallas as JP
 from nrc_tpu.render.renderer import Renderer as JRenderer
 from nrc_tpu_torch.config import RenderMode
 from nrc_tpu_torch.models.network import state_from_numpy
-from nrc_tpu_torch.render.frame import frame_step
+from nrc_tpu_torch.ops.noise import bump_fields, noise_bump_normal
 from nrc_tpu_torch.render.renderer import Renderer
 from nrc_tpu_torch.scene.scene_builder import cornell_box
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
@@ -222,16 +222,46 @@ def _texture_moved(j, p):
     return moved | ~same
 
 
+# the port's noise bump at the JAX inputs against the JAX frame's normal:
+# reads 1.3e-5 (cornell_materials, subframe 0), where the port equals the
+# JAX function called alone on those inputs to 9e-7; the JAX frame's fused
+# program rounds the field otherwise, and the bump's forward differences
+# (step 0.01) scale a field's ulp by 50
+BUMP_ATOL = 2e-5
+
+
+def _bump_moved(j, p):
+    """The rays whose bumped shading normal (``noise_bump_normal``) the two
+    sides' hit points moved apart by more than the query bound, among the
+    rays that hit on both sides. j = (hit, the JAX call's inputs, normal),
+    p = (hit, normal); the port's bump at the JAX inputs must give the JAX
+    normal within ``BUMP_ATOL``, so that the move is the hit point's and
+    not the function's. Near a Worley cell border the field's gradient
+    jumps, and the forward differences (step 0.01) turn a hit point's
+    1e-5 into a normal's 1e-4."""
+    (hit_j, *args, out_j), (hit_p, out_p) = j, p
+    moved = hit_j & hit_p & (np.abs(out_j - out_p).max(axis=-1) > LIMITS["query_abs"])
+    levels = args.pop(4)  # (mode, pos, ns, scale, levels, absolute, thresholds, marble, factor)
+    mode, pos, ns, scale, *field, factor = (torch.tensor(a) for a in args)
+    at_jax = noise_bump_normal(ns, scale, factor, bump_fields(mode, pos, scale, levels, *field)).numpy()
+    off = np.abs(at_jax - out_j)[moved].max(initial=0.0)
+    assert off <= BUMP_ATOL, f"the port's bump at the JAX inputs is {off} off the JAX normal"
+    return moved
+
+
 def ray_flips(tag, j, p):
     """The rays that one logged call of the JAX side (j) and the port (p)
     flips: a closest-hit or shadow ray that both sides cast but that found
     another triangle or occlusion (closest: tmax, direction, t, prim;
     shadow: tmax, occluded), an escaping ray's env texel read apart (env:
-    missed, pdf), or a texture lookup moved apart (tex: ``_texture_moved``).
-    A ray that one side cast and the other did not is no flip: the decision
-    to cast it must agree."""
+    missed, pdf), a texture lookup moved apart (tex: ``_texture_moved``) or
+    a noise bump moved apart (bump: ``_bump_moved``). A ray that one side
+    cast and the other did not is no flip: the decision to cast it must
+    agree."""
     if tag == "tex":
         return _texture_moved(j, p)
+    if tag == "bump":
+        return _bump_moved(j, p)
     return (j[0] > 0.0) & (p[0] > 0.0) & (j[-1] != p[-1])
 
 
@@ -355,18 +385,17 @@ def test_accumulation_and_benchmark(setup):
 
 
 def test_unported_paths_raise(setup):
-    """What the port still refuses: volumes and layered materials (their
-    frame switches, and a scene with a volume at the upload). Textures,
-    cutouts and environment lights, refused before, are ported
-    (``test_torch_lights_slice.py``), as are DEBUG_TIME_VIEW and shadow-ray
-    Russian roulette (``test_torch_glass_slice.py``)."""
+    """What the port still refuses: curves and the hair archetype, on
+    either lobe, at the upload. Volumes and layered, measured and noise
+    materials, refused before, are ported (``test_torch_materials_slice.py``),
+    as are textures, cutouts and environment lights
+    (``test_torch_lights_slice.py``), DEBUG_TIME_VIEW and shadow-ray Russian
+    roulette (``test_torch_glass_slice.py``)."""
     scene, system, _ = setup
-    r = Renderer(scene, system, device="cpu")
-    for flag in ("has_volumes", "has_layered"):
-        with pytest.raises(NotImplementedError):
-            frame_step(r.device_scene, r.net_state, r.image, r._camera_arrays(), 0, 0,
-                       dataclasses.replace(r.cfg, **{flag: True}), r.net_cfg)
-    fog = dataclasses.replace(scene)
-    fog.materials = dataclasses.replace(scene.materials, sigma_s=np.full_like(scene.materials.sigma_s, 0.1))
-    with pytest.raises(NotImplementedError, match="volumes"):
-        Renderer(fog, system, device="cpu")
+    hair = dataclasses.replace(scene)
+    hair.materials = dataclasses.replace(scene.materials, archetype2=np.full_like(scene.materials.archetype2, 9))
+    with pytest.raises(NotImplementedError, match="hair"):
+        Renderer(hair, system, device="cpu")
+    strands = dataclasses.replace(scene, curves=object())
+    with pytest.raises(NotImplementedError, match="curves"):
+        Renderer(strands, system, device="cpu")
