@@ -6,7 +6,7 @@ CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or on ``PATH``) and no network.
 
 Phases, each of which raises on failure (non-zero exit):
 1. device: the card's name and power limit as ``nvidia-smi`` reports them;
-2. build: compile every kernel (K1-K9, W1, W2, H1, H2) from ``csrc/``, one
+2. build: compile every kernel (K1-K9, W1, W2, C1, C2, H1, H2) from ``csrc/``, one
    ``nvcc`` per source file, all started together, and the native host
    library; the ``nvcc`` release is printed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -37,9 +37,9 @@ Phases, each of which raises on failure (non-zero exit):
    ``bench_hash.HASH_LIMITS``;
 5. serving slice: ``Renderer`` on the 1224-triangle Cornell box at 320x320,
    FULL then NO_CACHE, ``train=False``, frequency encoding 64x5 from a seeded
-   init, 8 timed frames each, each frame one CUDA graph replay;
+   init, ``TIMED_FRAMES`` (4) timed frames each, each frame one CUDA graph replay;
 6. training slice: FULL + train at 320x320 (the main path), replayed: frames
-   until the adaptive tile size settles, then 8 timed frames, then 4 frames
+   until the adaptive tile size settles, then 4 timed frames, then 4 frames
    whose launches per replayed frame the kernels line reports (the counts
    each graph recorded at its capture, added at each replay): K6 once, K5
    never (K6 is one persistent kernel); the same
@@ -60,7 +60,7 @@ Phases, each of which raises on failure (non-zero exit):
    EMA, step and stats must be equal bit for bit. On the Cornell box (12
    frames) and on ``cornell_objects`` (8 frames);
 6d. the hash encoding: FULL + train at 320x320 through ``set_encoding``,
-   replayed, until the tile size settles, then 8 timed frames and 4 counted:
+   replayed, until the tile size settles, then 4 timed frames and 4 counted:
    H1 five launches a replayed frame (inference and four steps), H2 and K4
    four, K6 none; eagerly and replayed under the profiler; then renderers
    from one start (eager, replayed, eager again, and replayed with one
@@ -118,8 +118,26 @@ Phases, each of which raises on failure (non-zero exit):
    their captured graphs; 32x32 FULL + train and NO_CACHE frames on the card
    against the CPU under phase 9's bounds, ``cornell_materials``' training
    state through K6's rounding decisions (``_card_vs_cpu_decisions``);
+6h. curves and hair: ``cornell_hair`` (16,384 strands, 262,144 round cones
+   on the Cornell box's short block; the Chiang hair BSDF) at 320x320: the
+   host build of the curve BVH timed and its depth held to the walk's stack;
+   the share of camera rays that hit a fibre (at least a tenth); C1/C2
+   (the wide walk with the round-cone leaf) against the plain walk with the
+   cone leaf on all-live sets (camera rays, random rays from their hits,
+   shadow rays): C1's t bit for bit, its winners equal but at equal-t ties,
+   C2's occlusion exact; timed beside their bounds; FULL + train replayed
+   (K1, K2, K3, K6, K7, C1 and C2 launched, W1/W2 not; launches per
+   replayed frame; profiled), then every C1 and C2 launch of one eager
+   frame recorded and held likewise (``bench_walk.measure``): their
+   frame-weighted times and bounds; K7 on the curve row table bit for bit
+   and timed beside ``index_select`` (and the table padded to 24 words); a
+   ``hair_absorption`` edit replayed on its graph; FULL and NO_CACHE
+   serving (launches, profiles) and 2 frames each replayed against eager
+   bit for bit; 4 FULL + train frames replayed against eager bit for bit;
+   32x32 frames with 300 strands on the card against the CPU, phase 9's
+   bounds read and printed (``_hair_card_vs_cpu``);
 7. large scene: FULL + train at 320x320 on ``cornell_objects`` (the wide
-   BVH path), replayed: frames until the tile size settles, then 8 timed
+   BVH path), replayed: frames until the tile size settles, then 4 timed
    frames and 4 more counted; W1, W2 and the path's gather must run, K1 and
    K2 must not; then every W1 and W2 launch of one eager frame recorded,
    held against the plain walk and timed by ``bench_walk.measure`` (the
@@ -173,6 +191,13 @@ import time
 from pathlib import Path
 
 
+# Frames timed by Renderer.benchmark in each 320x320 run, and frames traced
+# and timed by profile_frame.profile_mode (8 and (4, 10) until PR 14; cut so
+# that the run stays near 240 s with phase 6h)
+TIMED_FRAMES = 4
+PROFILED_FRAMES = (2, 6)
+
+
 def _time_ms(fn, iters=20, warmup=3):
     import torch
 
@@ -215,22 +240,25 @@ def _bound(nbytes, ops, ops_per_s):
 
 
 def _plain_walk(o, d, bvh, tmin, tmax, any_hit):
-    """The plain walk -> (t, prim, rows fetched, distinct rows fetched)."""
+    """The plain walk with the table's leaf test -> (t, prim, rows fetched,
+    distinct rows fetched)."""
     import torch
 
     from nrc_tpu_torch.ops import intersect_wide as IW
 
     seen = torch.zeros(bvh.rows.shape[0], dtype=torch.bool, device=o.device)
-    t, prim, fetched = IW.wide_traverse_plain(o, d, bvh, tmin, tmax, any_hit, rows_seen=seen)
+    t, prim, fetched = IW.wide_traverse_plain(o, d, bvh, tmin, tmax, any_hit, rows_seen=seen, leaf=bvh.kind)
     return t, prim, fetched, int(seen.sum())
 
 
-def _walk_bound(fetched, distinct, row_bytes, n_rays):
+def _walk_bound(fetched, distinct, row_bytes, n_rays, per_row=16, ops_each=45):
     """A walk launch's bound: each distinct table row it fetches read once
     (the walk's table stays in the L2 for a launch), 32 bytes of ray read
-    and 8 of result written a ray; or about 45 float32 operations per
-    triangle or child box of every row it fetches."""
-    return _bound(distinct * row_bytes + n_rays * (32 + 8), fetched * 16 * 45, F32_OPS_PER_S)
+    and 8 of result written a ray; or ``ops_each`` float32 operations per
+    primitive or child box (``per_row`` of them a row) of every row it
+    fetches: about 45 for a triangle or a box (W1/W2, 16 a row), about 80
+    for a round cone (C1/C2, 8 a row)."""
+    return _bound(distinct * row_bytes + n_rays * (32 + 8), fetched * per_row * ops_each, F32_OPS_PER_S)
 
 
 def _counted(kernels, names, fn):
@@ -255,7 +283,11 @@ def _ptxas(log):
                 name = "gather_warp_kernel" + ("<uint4" if "I5uint4" in m.group(1) else "<u32") + (", resident>" if "Lb1EE" in m.group(1)
                                                                               else ">")
             else:
-                for code, arg in (("ILb1E", "<true>"), ("ILb0E", "<false>"), ("I5uint4", "<uint4>"), ("IjE", "<u32>")):
+                codes = (("ILb1E", "<true>"), ("ILb0E", "<false>"), ("I5uint4", "<uint4>"), ("IjE", "<u32>"))
+                if "wbvh_kernel" in name:  # <branch, any hit, leaf>
+                    codes = (("ILi8E", "<8"), ("ILi16E", "<16"), ("Lb0E", ", closest"), ("Lb1E", ", any"),
+                             ("TriLeaf", ", tri>"), ("ConeLeaf", ", cone>"))
+                for code, arg in codes:
                     if code in m.group(1):
                         name += arg
         elif "spill stores" in ln:
@@ -284,10 +316,10 @@ def _print_eager_and_replayed(PF, r, label):
     rows = {}
     for capture in (False, True):
         r.capture = capture
-        rows["replayed" if capture else "eager"] = PF.profile_mode(r, 4, 10, stacks=False)
+        rows["replayed" if capture else "eager"] = PF.profile_mode(r, *PROFILED_FRAMES, stacks=False)
     r.capture = True
     for kind, row in rows.items():
-        print(f"{label} {kind}: {row['ms_per_frame_median']:.3f} ms/frame median of 10 "
+        print(f"{label} {kind}: {row['ms_per_frame_median']:.3f} ms/frame median of {PROFILED_FRAMES[1]} "
               f"({row['ms_per_frame_min']:.3f}-{row['ms_per_frame_max']:.3f}), device busy "
               f"{row['device_busy_ms_per_frame']:.3f} ms/frame, idle {100 * row['device_idle_share']:.1f} %, "
               f"{row['kernel_launches_per_frame']:.0f} kernels and {row['host_syncs_and_copies_per_frame']:.1f} "
@@ -299,8 +331,8 @@ def _print_eager_and_replayed(PF, r, label):
 
 def _print_replayed(PF, r, label):
     """Replayed frames under the profiler (profile_frame's replayed column)."""
-    row = PF.profile_mode(r, 4, 10, stacks=False)
-    print(f"{label} replayed: {row['ms_per_frame_median']:.3f} ms/frame median of 10 "
+    row = PF.profile_mode(r, *PROFILED_FRAMES, stacks=False)
+    print(f"{label} replayed: {row['ms_per_frame_median']:.3f} ms/frame median of {PROFILED_FRAMES[1]} "
           f"({row['ms_per_frame_min']:.3f}-{row['ms_per_frame_max']:.3f}), device busy "
           f"{row['device_busy_ms_per_frame']:.3f} ms/frame, idle {100 * row['device_idle_share']:.1f} %, "
           f"{row['kernel_launches_per_frame']:.0f} kernels a frame; by group {row['device_ms_per_frame_by_group']}")
@@ -452,7 +484,7 @@ def _hash_frame(scene, system, kernels, dev, PF, BI):
     rh = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
     rh.set_encoding(InputEncoding.HASH)
     sizes = BI.settle_tiles(rh)
-    trained, counts = _counted(kernels, kernels, lambda: rh.benchmark(8))
+    trained, counts = _counted(kernels, kernels, lambda: rh.benchmark(TIMED_FRAMES))
     rh.flush_stats()
     _check(bool(torch.isfinite(rh.image).all()) and rh.image.std().item() > 0.0, "hash FULL + train image bad")
     _check(math.isfinite(trained["loss"]), "hash FULL + train loss not finite")
@@ -578,7 +610,7 @@ GLASS_TAU = 0.5  # the glass slice's shadow-ray Russian roulette threshold
 
 def _glass_slice(kernels, dev, BI, path_gather):
     """cornell_glass FULL + train at 320x320 with reflectance factoring and
-    shadow-ray Russian roulette, replayed: until the tile size settles, 8
+    shadow-ray Russian roulette, replayed: until the tile size settles, 4
     timed frames (K1, K2, K3, K6 and K7 launched, a finite image, the loss
     curve), 4 counted; returns the launches per replayed frame."""
     import torch
@@ -591,7 +623,7 @@ def _glass_slice(kernels, dev, BI, path_gather):
     rg = Renderer(glass, glass_sys, render_mode=RenderMode.FULL, device=dev, reflectance_factoring=True)
     rg.cfg = dataclasses.replace(rg.cfg, nee_rr_tau=GLASS_TAU)
     sizes = BI.settle_tiles(rg)
-    trained, counts = _counted(kernels, kernels, lambda: rg.benchmark(8))
+    trained, counts = _counted(kernels, kernels, lambda: rg.benchmark(TIMED_FRAMES))
     rg.flush_stats()
     for name in ("intersect_planes", "occluded_planes", "fused_forward", "fused_train4", path_gather):
         _check(counts[name] > 0, f"{name} was not launched by the cornell_glass FULL + train run")
@@ -712,7 +744,7 @@ def _lights_slice(kernels, dev, BI, PF, path_gather):
         r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
         renderers[name] = r
         sizes = BI.settle_tiles(r)
-        trained, counts = _counted(kernels, kernels, lambda: r.benchmark(8))
+        trained, counts = _counted(kernels, kernels, lambda: r.benchmark(TIMED_FRAMES))
         r.flush_stats()
         for k in ("intersect_planes", "fused_forward", "fused_train4", path_gather):
             _check(counts[k] > 0, f"{k} was not launched by the {name} FULL + train run")
@@ -734,7 +766,7 @@ def _lights_slice(kernels, dev, BI, PF, path_gather):
         _print_replayed(PF, r, f"{name} FULL + train")
         for mode in (RenderMode.FULL, RenderMode.NO_CACHE):
             rs = Renderer(scene, system, render_mode=mode, train=False, device=dev)
-            served, counts = _counted(kernels, kernels, lambda: rs.benchmark(8))
+            served, counts = _counted(kernels, kernels, lambda: rs.benchmark(TIMED_FRAMES))
             for k in ("intersect_planes", path_gather) + (() if rs.cfg.has_cutout else ("occluded_planes",)):
                 _check(counts[k] > 0, f"{k} was not launched by the {name} {mode.name} run")
             _check(bool(torch.isfinite(rs.image).all()) and rs.image.std().item() > 0.0, f"{name} {mode.name} bad")
@@ -846,7 +878,7 @@ def _materials_slice(kernels, dev, BI, path_gather, report):
         r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
         renderers[name] = r
         sizes = BI.settle_tiles(r)
-        trained, counts = _counted(kernels, kernels, lambda: r.benchmark(8))
+        trained, counts = _counted(kernels, kernels, lambda: r.benchmark(TIMED_FRAMES))
         r.flush_stats()
         for k in ("intersect_planes", "occluded_planes", "fused_forward", "fused_train4", path_gather):
             _check(counts[k] > 0, f"{k} was not launched by the {name} FULL + train run")
@@ -865,7 +897,7 @@ def _materials_slice(kernels, dev, BI, path_gather, report):
         print(f"{name} loss curve (per frame): {[round(v, 4) for v in r.loss_history]}")
         for mode in (RenderMode.FULL, RenderMode.NO_CACHE):
             rs = Renderer(scene, system, render_mode=mode, train=False, device=dev)
-            served, counts = _counted(kernels, kernels, lambda: rs.benchmark(8))
+            served, counts = _counted(kernels, kernels, lambda: rs.benchmark(TIMED_FRAMES))
             for k in ("intersect_planes", "occluded_planes", path_gather):
                 _check(counts[k] > 0, f"{k} was not launched by the {name} {mode.name} run")
             _check(bool(torch.isfinite(rs.image).all()) and rs.image.std().item() > 0.0, f"{name} {mode.name} bad")
@@ -943,6 +975,252 @@ def _materials_slice(kernels, dev, BI, path_gather, report):
     del renderers
     _materials_card_vs_cpu(dev, small)
     print(f"materials slice: {time.perf_counter() - t0:.1f} s")
+
+
+# cornell_hair's strands in the 32x32 frames on the card against the CPU,
+# whose plain walk steps in Python
+HAIR_SMALL_STRANDS = 300
+
+
+def _hair_slice(kernels, dev, BI, PF, path_gather, report, launches):
+    """cornell_hair at 320x320, phase 6h of the module's docstring: the host
+    build, the share of camera rays that hit a fibre, C1/C2 against the plain
+    walk with the cone leaf on all-live sets and on every launch of one
+    recorded FULL + train frame (t bit for bit, winners but for equal-t ties,
+    occlusion exact) with their times and bounds, K7 on the curve row table,
+    FULL + train, FULL and NO_CACHE replayed (launches, profiles), replayed
+    against eager frames bit for bit, a hair_absorption edit on its graph,
+    and 32x32 frames on the card against the CPU."""
+    import torch
+
+    from nrc_tpu_torch.config import RenderMode
+    from nrc_tpu_torch.ops import curve_intersect as CI
+    from nrc_tpu_torch.ops import gather_cuda as GC
+    from nrc_tpu_torch.ops import intersect_cuda as IC
+    from nrc_tpu_torch.ops import intersect_wide_cuda as WC
+    from nrc_tpu_torch.ops.intersect import RT_MAX
+    from nrc_tpu_torch.render.renderer import Renderer
+    from nrc_tpu_torch.scene.scene_builder import cornell_hair
+    from nrc_tpu_torch.tools import bench_gather
+    from nrc_tpu_torch.tools import bench_walk as BW
+
+    t0 = time.perf_counter()
+    scene, system = cornell_hair((320, 320))
+    t_scene = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    CI.build_wide_curve_bvh(scene.curves)
+    t_bvh = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
+    torch.cuda.synchronize()
+    t_renderer = time.perf_counter() - t1
+    ds = r.device_scene
+    cb = ds.curve_bvh
+    WC.check_walkable(cb)  # a tree too deep for the kernels' stack raises
+    print(f"cornell_hair: {scene.curves.num} round cones, {scene.num_triangles} triangles (brute force); strands "
+          f"tessellated on the host in {t_scene:.2f} s, the curve BVH (binned SAH + wide collapse) in {t_bvh:.2f} s, "
+          f"Renderer (that build again and the uploads) {t_renderer:.2f} s; curve BVH W = {cb.num_nodes} node rows, "
+          f"L = {cb.rows.shape[0] - cb.num_nodes} leaf rows of {cb.rows.shape[1]} words, D = {cb.depth} levels "
+          f"(stack {(cb.branch - 1) * cb.depth + 1} of {WC.MAX_STACK} entries), table {cb.rows.numel() * 4} bytes; "
+          f"curve row table {tuple(ds.curves.shape)}")
+    _check(ds.planes is not None and ds.bvh is None, "cornell_hair's triangles are not brute-forced")
+
+    # ---- camera rays: the share that hits a fibre first; the all-live sets ----
+    def first_t(o, d, tn, tf):
+        return torch.minimum(IC.closest_cuda(o, d, ds.planes, tn, tf)[0],
+                             WC.wide_traverse_cuda(o, d, cb, tn, tf, False, leaf="cone")[0])
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    sets = BI.ray_sets(r, first_t, gen)
+    org, d, zeros, far = sets["closest"][0]
+    tri_t = IC.closest_cuda(org, d, ds.planes, zeros, far)[0]
+    c_t, c_p = WC.wide_traverse_cuda(org, d, cb, zeros, far, False, leaf="cone")
+    share = ((c_p >= 0) & (c_t < tri_t)).float().mean().item()
+    print(f"cornell_hair: {share:.4f} of the 320x320 camera rays hit a fibre first (need >= 0.10)")
+    _check(share >= 0.10, "under a tenth of cornell_hair's camera rays hit a fibre")
+    row_bytes = cb.rows.shape[1] * 4
+    n = org.shape[0]
+    for name, any_hit, cases in (("wbvh_curves_closest", False, sets["closest"]),
+                                 ("wbvh_curves_any", True, sets["any"])):
+        err, readings = 0.0, []
+        for o, dd, tn, tf in cases:
+            tk, pk = WC.wide_traverse_cuda(o, dd, cb, tn, tf, any_hit, leaf="cone")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            tp, pp, fetched, distinct = _plain_walk(o, dd, cb, tn, tf, any_hit)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t2)
+            if any_hit:
+                agree = bool(((pk >= 0) == (pp >= 0)).all())
+                print(f"C2 vs plain walk: occlusion equal on {((pk >= 0) == (pp >= 0)).float().mean().item():.6f} "
+                      f"of rays (need all), occluded share {(pk >= 0).float().mean().item():.4f}, {fetched} rows "
+                      f"fetched ({distinct} distinct)")
+                _check(agree, "C2 disagrees with the plain walk")
+            else:
+                same = pk == pp
+                ties = bool(((pk >= 0) & (pp >= 0))[~same].all())
+                bits = bool(torch.equal(tk, tp))
+                print(f"C1 vs plain walk: t bit for bit {bits}, winners equal on {same.float().mean().item():.6f} "
+                      f"of rays, the others equal-t ties {ties} ({int((~same).sum())}), hit share "
+                      f"{(pk >= 0).float().mean().item():.4f}, {fetched} rows fetched ({distinct} distinct)")
+                _check(bits and ties, "C1 disagrees with the plain walk")
+                err = max(err, (tk - tp).abs().max().item())
+            readings.append((o, dd, tn, tf, plain_ms, fetched, distinct))
+        o, dd, tn, tf, plain_ms, fetched, distinct = readings[0]
+        walk = functools.partial(WC.wide_traverse_cuda, o, dd, cb, tn, tf, any_hit, "cone")
+        report[name] = dict(
+            max_abs_err=err, ms=_time_ms(walk), device_ms=BI.device_ms(walk), plain_ms=plain_ms,
+            **_walk_bound(fetched, distinct, row_bytes, n, per_row=cb.branch, ops_each=80), library_ms=None,
+        )
+        x = report[name]
+        print(f"{name} on the all-live set ({'shadow rays to the light' if any_hit else 'camera rays'}, {n} rays): "
+              f"{x['ms']:.4f} ms eager, device time {x['device_ms']:.4f} ms, plain walk {plain_ms:.0f} ms, bound "
+              f"{x['bound_ms']:.4f} ms ({x['bound_by']})")
+
+    # ---- FULL + train, replayed; then C1/C2 over one recorded frame -----------
+    sizes = BI.settle_tiles(r)
+    print(f"hair slice: host build, camera share and all-live sets done at {time.perf_counter() - t0:.1f} s")
+    trained, counts = _counted(kernels, kernels, lambda: r.benchmark(TIMED_FRAMES))
+    r.flush_stats()
+    for k in ("intersect_planes", "occluded_planes", "fused_forward", "fused_train4", path_gather,
+              "wbvh_curves_closest", "wbvh_curves_any"):
+        _check(counts[k] > 0, f"{k} was not launched by the cornell_hair FULL + train run")
+    for k in ("wbvh_closest", "wbvh_any"):
+        _check(counts[k] == 0, f"{k} was launched by the cornell_hair run (its triangles are brute-forced)")
+    _check(bool(torch.isfinite(r.image).all()) and r.image.std().item() > 0.0, "cornell_hair image bad")
+    _check(math.isfinite(trained["loss"]) and int(r.last_stats.num_train_records) > 0, "cornell_hair training bad")
+    per_frame = _replayed_launches(r, kernels)
+    _check(per_frame["fused_train4"] == 1, f"a replayed cornell_hair frame launched K6 {per_frame['fused_train4']} times")
+    launches.update({k: per_frame[k] for k in ("wbvh_curves_closest", "wbvh_curves_any")})
+    print(f"cornell_hair FULL + train 320x320: tile sizes {sizes}, {trained['ms_per_frame']:.3f} ms/frame, "
+          f"{trained['mrays_per_s']:.2f} traced Mrays/s, {trained['traced_rays_per_frame']:.0f} rays/frame, "
+          f"{int(r.last_stats.num_train_records)} records in the last frame, loss {trained['loss']:.4f}, image mean "
+          f"{r.image.mean().item():.4f}; launches per replayed frame { {k: v for k, v in per_frame.items() if v} }")
+    print(f"cornell_hair loss curve (per frame): {[round(v, 4) for v in r.loss_history]}")
+    _print_replayed(PF, r, "cornell_hair FULL + train")
+    wframe = {w: dict(launches=0, lanes=0, live=0, fetched=0, distinct=0, ms=0.0, bound=0.0) for w in ("C1", "C2")}
+    for i, (kind, rays) in enumerate(BW.record_curve_launches(r)):
+        row = BW.measure(kind, rays, cb, BW.curve_builds())
+        got = row["builds"]["shipped"]
+        _check(got["ok"], f"a frame's {kind} launch disagrees with the plain walk: {got}")
+        tot = wframe[kind]
+        tot["launches"] += 1
+        for key in ("lanes", "live", "fetched", "distinct"):
+            tot[key] += row[key]
+        tot["ms"] += got["ms"]
+        tot["bound"] += _walk_bound(row["fetched"], row["distinct"], row_bytes, row["live"], per_row=cb.branch,
+                                    ops_each=80)["bound_ms"]
+        f = row["fetches"]
+        print(f"{kind} launch {i}: {row['lanes']} lanes, {row['live']} live rays, rows fetched a live ray by the "
+              f"plain walk: mean {f['mean']:.2f}, p99 {f['p99']:.0f}, max {f['max']}; {got['ms']:.4f} ms"
+              + (f", {got['ties']} equal-t ties" if kind == "C1" else ""))
+    for kind, name in (("C1", "wbvh_curves_closest"), ("C2", "wbvh_curves_any")):
+        tot = wframe[kind]
+        _check(tot["launches"] > 0, f"the recorded cornell_hair frame launched no {kind}")
+        report[name].update(frame_ms=tot["ms"], frame_bound_ms=tot["bound"], frame_launches=tot["launches"])
+        print(f"{kind} over one cornell_hair FULL + train frame: {tot['launches']} launches, {tot['lanes']} lanes, "
+              f"{tot['live']} live, {tot['fetched']} rows fetched by the plain walk, {tot['distinct']} distinct in "
+              f"their launches; frame-weighted {tot['ms']:.4f} ms, bound {tot['bound']:.4f} ms "
+              f"({100 * tot['bound'] / tot['ms']:.1f} % of it)")
+
+    print(f"hair slice: FULL + train and its recorded frame done at {time.perf_counter() - t0:.1f} s")
+    # ---- K7 on the curve row table at the frame's N, and padded to 24 words ----
+    table = ds.curves
+    m = 320 * 320
+    index_sets = [torch.randint(0, table.shape[0], (m,), generator=gen, device=dev) for _ in range(10)]
+    bad = 0
+    for idx in index_sets[:2]:
+        got = GC.gather_rows_cuda(GC.GATHER_KERNEL, table, idx).view(torch.int32)
+        bad += int((got != GC.gather_rows_plain(table, idx).view(torch.int32)).sum())
+    _check(bad == 0, f"K7 on the curve row table: {bad} words differ from the plain gather")
+    padded = torch.cat([table, torch.zeros((table.shape[0], 3), device=dev)], dim=1).contiguous()
+    rows = {}
+    for label, t_ in (("curve_table", table), ("curve_table_padded_24", padded)):
+        ms = bench_gather.time_ms(lambda idx: GC.gather_rows_cuda(GC.GATHER_KERNEL, t_, idx), index_sets)
+        lib = bench_gather.time_ms(lambda idx: torch.index_select(t_, 0, idx), index_sets)
+        unique = sum(bench_gather.unique_rows(idx) for idx in index_sets) / len(index_sets)
+        bound = bench_gather.bound_ms(unique, m, t_.shape[1])
+        rows[label] = dict(shape=list(t_.shape), ms=ms, library_ms=lib, bound_ms=bound, max_abs_err=float(bad))
+        print(f"K7 on the {label} {tuple(t_.shape)} at N = {m}: bit for bit; {ms:.4f} ms, index_select {lib:.4f} ms, "
+              f"bound {bound:.4f} ms" + ("; K7 LOSES to index_select" if ms > lib else ""))
+    report[path_gather]["curve_tables"] = rows
+
+    # ---- a hair_absorption edit on the captured graph --------------------------
+    index = [mat.name for mat in r.scene.material_rows].index("hair")
+    graphs, replays, mat_row = len(r.graphs), r.replays, r.device_scene.mat_row.data_ptr()
+    before = r.image.mean().item()
+    r.update_material(index, hair_absorption=(1.5, 0.4, 0.1))
+    r.render(2)
+    _check(len(r.graphs) == graphs and r.replays == replays + 2 and r.device_scene.mat_row.data_ptr() == mat_row,
+           "the hair_absorption edit did not replay the captured graph")
+    print(f"cornell_hair live edit hair_absorption (1.5, 0.4, 0.1): {r.replays - replays} replays of the captured "
+          f"graph, {len(r.graphs)} graphs; image mean {before:.4f} -> {r.image.mean().item():.4f}")
+    del r
+
+    # ---- serving, FULL and NO_CACHE; replayed against eager ----------------------
+    for mode in (RenderMode.FULL, RenderMode.NO_CACHE):
+        rs = Renderer(scene, system, render_mode=mode, train=False, device=dev)
+        served, counts = _counted(kernels, kernels, lambda: rs.benchmark(TIMED_FRAMES))
+        for k in ("intersect_planes", "occluded_planes", path_gather, "wbvh_curves_closest", "wbvh_curves_any"):
+            _check(counts[k] > 0, f"{k} was not launched by the cornell_hair {mode.name} run")
+        _check(bool(torch.isfinite(rs.image).all()) and rs.image.std().item() > 0.0, f"cornell_hair {mode.name} bad")
+        per_frame = _replayed_launches(rs, kernels)
+        print(f"cornell_hair {mode.name} 320x320 (train=False): {served['ms_per_frame']:.3f} ms/frame, "
+              f"{served['mrays_per_s']:.2f} traced Mrays/s, {served['traced_rays_per_frame']:.0f} traced rays/frame, "
+              f"image mean {rs.image.mean().item():.4f}; launches per replayed frame "
+              f"{ {k: v for k, v in per_frame.items() if v} } (their profile: profile_frame --only hair)")
+        del rs
+        _serving_replay_matches_eager(scene, system, dev, mode, 2, "cornell_hair")
+    _replay_matches_eager(scene, _with_tiles(system, (4, 4)), dev, 4, "cornell_hair")
+    print(f"hair slice: serving and the replays against eager done at {time.perf_counter() - t0:.1f} s")
+
+    _hair_card_vs_cpu(dev)
+    print(f"hair slice: {time.perf_counter() - t0:.1f} s")
+
+
+def _hair_card_vs_cpu(dev):
+    """6h's 32x32 frames (300 strands, 8x8 tiles) on the card against the
+    CPU. The frames share the card's C1/C2 and the plain walk bit for bit
+    (phase 6h holds them), but a fibre's normal turns by its hit point's move
+    over its radius (0.006 at a tip) and the hair lobe's arcsines and
+    logarithms of h are ill-conditioned at a graze, so the card's and the
+    CPU's elementwise rounding (a few ulp apart) part the rays that meet a
+    fibre (tests/test_torch_hair_slice.py). Phase 9's bounds are read and
+    printed, met or UNMET; held: finite images, the records' count of the
+    training frame and the state before it bit for bit."""
+    import torch
+
+    from nrc_tpu_torch.config import RenderMode
+    from nrc_tpu_torch.render.renderer import Renderer
+    from nrc_tpu_torch.scene.scene_builder import cornell_hair
+
+    small, small_sys = cornell_hair((32, 32), strands=HAIR_SMALL_STRANDS)
+    small_sys = _with_tiles(small_sys, (8, 8))
+    for mode, train in ((RenderMode.FULL, True), (RenderMode.NO_CACHE, False)):
+        label = f"cornell_hair ({HAIR_SMALL_STRANDS} strands) {mode.name}{' + train' if train else ''}"
+        rg, rcpu = (Renderer(small, small_sys, render_mode=mode, train=train, device=dd) for dd in (dev, "cpu"))
+        before = [_state_tensors(r) for r in (rg, rcpu)]
+        _check(all(torch.equal(a.cpu(), b) for a, b in zip(*before)), f"{label}: the states before differ")
+        sg, sc = rg.render(1), rcpu.render(1)
+        _check(bool(torch.isfinite(rg.image).all()), f"{label}: the card's image is not finite")
+        close, mean_gap = _image_agreement(rg.image.cpu(), rcpu.image)
+        met = close >= 0.98 and mean_gap < 1e-3
+        line = f"32x32 {label} card vs CPU: {close:.4f} of pixels within 1e-3 (0.98), means {mean_gap:.2e} apart (1e-3)"
+        if train:
+            n_rec = (int(sg.num_train_records), int(sc.num_train_records))
+            direct = max((a.cpu() - b).abs().max().item() for a, b in zip(_state_tensors(rg), _state_tensors(rcpu)))
+            loss_gap = abs(float(sg.loss) / float(sc.loss) - 1.0)
+            met = met and direct <= 1e-5 and loss_gap <= 1e-5
+            line += (f"; records {n_rec[0]} vs {n_rec[1]} (held equal), loss {loss_gap:.2e} relative (1e-5), "
+                     f"weights, moments and EMA largest |diff| {direct:.3g} (1e-5)")
+            _check(n_rec[0] == n_rec[1] > 0, f"{label}: the card's record count differs from the CPU's")
+        print(line + ("; phase 9's bounds met" if met else "; UNMET, printed not held: rays that meet a fibre part "
+                                                          "at its conditioning"))
+
+
+def _state_tensors(r):
+    st = r.net_state
+    return [t.detach() for m in (st.params, st.opt.mu, st.opt.nu, st.ema) for t in m.tensors()]
 
 
 # cornell_materials' 32x32 FULL + train frame, card against CPU: the largest
@@ -1421,6 +1699,11 @@ def main() -> int:
                          "nrc_tpu/ops/intersect_wide.py:518 (intersect_wbvh; no Pallas kernel stood there)"),
         "wbvh_any": (WC.ANYHIT_KERNEL,
                      "nrc_tpu/ops/intersect_wide.py:528 (occluded_wbvh; no Pallas kernel stood there)"),
+        "wbvh_curves_closest": (WC.CURVE_CLOSEST_KERNEL,
+                                "nrc_tpu/ops/intersect_wide.py:533 (intersect_curves_wbvh; no Pallas kernel stood "
+                                "there)"),
+        "wbvh_curves_any": (WC.CURVE_ANYHIT_KERNEL,
+                            "nrc_tpu/ops/intersect_wide.py:541 (occluded_curves_wbvh; no Pallas kernel stood there)"),
         "hash_grid_lookup": (HC.LOOKUP_KERNEL,
                              "nrc_tpu/ops/encodings.py:320 (hash_grid_lookup: XLA gathers; no Pallas kernel stood "
                              "there)"),
@@ -1844,7 +2127,7 @@ def main() -> int:
     # ---- 5. serving slice --------------------------------------------------------
     r.render_frame()
     serving = ("intersect_planes", "occluded_planes", "fused_forward", path_gather)
-    full, counts = _counted(kernels, kernels, lambda: r.benchmark(8))
+    full, counts = _counted(kernels, kernels, lambda: r.benchmark(TIMED_FRAMES))
     img = r.image
     _check(img.shape == (n, 3) and bool(torch.isfinite(img).all()), "FULL image not finite")
     _check(img.std().item() > 0.0, "FULL image is flat")
@@ -1854,7 +2137,7 @@ def main() -> int:
           f"traced Mrays/s, {full['traced_rays_per_frame']:.0f} rays/frame, image mean "
           f"{img.mean().item():.4f}, launches {counts}")
     r.set_render_mode(RenderMode.NO_CACHE)
-    nocache = r.benchmark(8)
+    nocache = r.benchmark(TIMED_FRAMES)
     _check(bool(torch.isfinite(r.image).all()) and r.image.std().item() > 0.0, "NO_CACHE image bad")
     print(f"NO_CACHE 320x320: {nocache['ms_per_frame']:.3f} ms/frame, {nocache['mrays_per_s']:.2f} traced Mrays/s, "
           f"{nocache['traced_rays_per_frame']:.0f} rays/frame, image mean {r.image.mean().item():.4f}")
@@ -1863,7 +2146,7 @@ def main() -> int:
     # ---- 6. training slice: FULL + train, the main path ------------------------
     rt = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
     sizes = BI.settle_tiles(rt)
-    trained, counts = _counted(kernels, kernels, lambda: rt.benchmark(8))
+    trained, counts = _counted(kernels, kernels, lambda: rt.benchmark(TIMED_FRAMES))
     rt.flush_stats()
     for name in ("intersect_planes", "occluded_planes", "fused_forward", "fused_train4"):
         _check(counts[name] > 0, f"{name} was not launched by the FULL + train run")
@@ -1972,10 +2255,14 @@ def main() -> int:
     # ---- 6g. layered, measured and noise materials; homogeneous media -----------
     _materials_slice(kernels, dev, BI, path_gather, report)
 
+    phase_clock("6h")
+    # ---- 6h. curves and hair: cornell_hair, C1/C2 and the Chiang BSDF -----------
+    _hair_slice(kernels, dev, BI, PF, path_gather, report, launches)
+
     phase_clock("7")
     # ---- 7. the large scene: FULL + train through the wide BVH -------------------
     sizes = BI.settle_tiles(rb)
-    big, counts = _counted(kernels, kernels, lambda: rb.benchmark(8))
+    big, counts = _counted(kernels, kernels, lambda: rb.benchmark(TIMED_FRAMES))
     rb.flush_stats()
     for name in ("wbvh_closest", "wbvh_any", path_gather, "fused_forward", "fused_train4"):
         _check(counts[name] > 0, f"{name} was not launched by the large-scene run")

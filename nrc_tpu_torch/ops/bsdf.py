@@ -3,9 +3,10 @@
 Port of ``nrc_tpu/ops/bsdf.py``: the lobe families the archetypes 0-8 use,
 diffuse (reflection and transmission), GGX microfacet (reflect, transmit,
 both by Fresnel choice) and ideal specular (the same three), and
-``NULL_BSDF`` (emission-only; it absorbs). ``MEASURED`` lanes absorb here
-and take ``ops/mbsdf.py``'s lobe in the bounce; ``HAIR`` is not ported
-(``render/scene_device.upload_scene`` refuses scenes with it).
+``NULL_BSDF`` (emission-only; it absorbs). ``MEASURED`` and ``HAIR`` lanes
+absorb here, as in the JAX package, where no family takes them: the bounce
+gives a measured material ``ops/mbsdf.py``'s lobe and a hair material on a
+curve hit ``ops/hair_bsdf.py``'s; a hair material on a triangle absorbs.
 
 Conventions (the reference's MDL usage): ``wo`` points toward the observer,
 ``ns``/``ng`` are the shading/geometric normals as stored; ``eta_i`` and
@@ -50,8 +51,8 @@ BSDF_EVENT_SPECULAR_REFLECTION = BSDF_EVENT_SPECULAR | BSDF_EVENT_REFLECTION
 BSDF_EVENT_SPECULAR_TRANSMISSION = BSDF_EVENT_SPECULAR | BSDF_EVENT_TRANSMISSION
 BSDF_EVENT_NON_DIRAC = BSDF_EVENT_DIFFUSE | BSDF_EVENT_GLOSSY
 
-# archetypes 0-8 and MEASURED: every one but HAIR
-SUPPORTED_ARCHETYPES = frozenset(range(int(Archetype.NULL_BSDF) + 1)) | {int(Archetype.MEASURED)}
+# every archetype: 0-8 here, HAIR and MEASURED in the bounce
+SUPPORTED_ARCHETYPES = frozenset(int(a) for a in Archetype)
 
 
 class MaterialParams(NamedTuple):

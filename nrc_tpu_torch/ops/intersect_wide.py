@@ -1,26 +1,32 @@
 """Wide-BVH traversal: the device table, the plain lockstep walk and the
 dispatch to the walk kernels.
 
-Port of ``nrc_tpu/ops/intersect_wide.py`` for triangles: ``_leaf_tri_t``,
-``sort8_by_key``, the walk of ``_make_walk_parts`` and ``intersect_wbvh`` /
-``occluded_wbvh``. ``WideBVH`` is the uploaded form of the dictionary that
-``ops/bvh_wide.py::build_wide_bvh`` (or the JAX package's build, which has
-the same layout) returns: the unified node + leaf row table on the device
-and the build's sizes as plain Python values.
+Port of ``nrc_tpu/ops/intersect_wide.py``: the two leaf tests
+``_leaf_tri_t`` (triangles) and ``_leaf_cone_t`` (round-cone curve
+segments, ``:86-138``), ``sort8_by_key``, the walk of ``_make_walk_parts``,
+``intersect_wbvh`` / ``occluded_wbvh`` and ``intersect_curves_wbvh`` /
+``occluded_curves_wbvh`` (``:533-545``). ``WideBVH`` is the uploaded form of
+the dictionary that ``ops/bvh_wide.py::build_wide_bvh`` or
+``ops/curve_intersect.py::build_wide_curve_bvh`` (or the JAX package's
+builds, which have the same layout) returns: the unified node + leaf row
+table on the device, the build's sizes as plain Python values and the kind
+of primitive its leaf rows hold. Both kinds have 9 floats a primitive, so
+the rows alone cannot tell them apart: the kind is given at the upload, and
+every walk entry point raises when it is handed the other kind's table.
 
 The plain walk (``wide_traverse_plain``) advances all rays together, one
 row fetch per ray and step, exactly as the JAX walk does: a ray's pending
 row is a node (slab-test all children, sort them by entry distance, visit
 the nearest, keep the others on a per-ray stack of child sets) or a leaf
-(Möller-Trumbore over its ``leaf_size`` triangles). It is a Python ``while``
+(its leaf test over its ``leaf_size`` primitives). It is a Python ``while``
 over a state of tensors and reads ``done.all()`` on the host every step, so
 it serves the CPU path and the card's comparisons, not the card's frames:
-on CUDA tensors ``intersect_wbvh``/``occluded_wbvh`` launch the kernels of
-``ops/intersect_wide_cuda.py`` or raise.
+on CUDA tensors the entry points launch the kernels of
+``ops/intersect_wide_cuda.py`` (W1/W2 for triangles, C1/C2 for cones) or
+raise.
 
 Not ported: the refill driver, the coherence-sorted chunking (each ray's
-result does not depend on its neighbours), the split 16-bit tables, and the
-curve leaf test.
+result does not depend on its neighbours) and the split 16-bit tables.
 """
 
 from __future__ import annotations
@@ -47,16 +53,21 @@ class WideBVH(NamedTuple):
     num_nodes: int      # W; leaf i is row W + i
     depth: int          # D, the walk's stack bound in levels
     branch: int         # B, children per node
-    leaf_size: int      # triangles per leaf row
+    leaf_size: int      # primitives per leaf row
     root: Tuple[Tuple[float, float, float], Tuple[float, float, float]]  # AABB lo, hi
+    kind: str = "triangle"  # what the leaf rows hold: "triangle" or "cone"
 
 
-def upload_wide_bvh(wb: Dict[str, np.ndarray], device) -> WideBVH:
-    """Build dictionary (numpy, or anything ``np.asarray`` takes) -> ``WideBVH``."""
+def upload_wide_bvh(wb: Dict[str, np.ndarray], device, kind: str = "triangle") -> WideBVH:
+    """Build dictionary (numpy, or anything ``np.asarray`` takes) -> ``WideBVH``
+    whose leaf rows hold ``kind`` primitives (``LEAF_TESTS``)."""
+    if kind not in LEAF_TESTS:
+        raise ValueError(f"primitive kind {kind!r}: the walk has leaf tests for {sorted(LEAF_TESTS)}")
     rows = np.ascontiguousarray(np.asarray(wb["rows"]), np.float32)
     dims = wide_dims(wb)
     if dims.prim_row_w != TRI_ROW_W:
-        raise ValueError("only triangle leaf rows (9 floats per primitive) are ported")
+        raise ValueError(f"{dims.prim_row_w} floats a primitive: the walk reads 9, as triangle leaf rows "
+                         f"(p0 | e1 | e2) and cone leaf rows (pa | ba | ra, rb, m0) hold")
     if rows.shape[1] < max(7 * dims.branch, (TRI_ROW_W + 1) * dims.leaf_size):
         raise ValueError(f"row width {rows.shape[1]} too small for branch {dims.branch}, "
                          f"leaf {dims.leaf_size}")
@@ -69,7 +80,14 @@ def upload_wide_bvh(wb: Dict[str, np.ndarray], device) -> WideBVH:
         branch=dims.branch,
         leaf_size=dims.leaf_size,
         root=(tuple(map(float, root[0])), tuple(map(float, root[1]))),
+        kind=kind,
     )
+
+
+def check_kind(bvh: WideBVH, kind: str) -> None:
+    """Raise unless ``bvh``'s leaf rows hold ``kind`` primitives."""
+    if bvh.kind != kind:
+        raise ValueError(f"a wide BVH of {bvh.kind} leaf rows handed to the {kind} walk")
 
 
 def _leaf_tri_t(c, pid, org, direction, tmin, cap):
@@ -103,6 +121,60 @@ def _leaf_tri_t(c, pid, org, direction, tmin, cap):
         & (t > tmin[:, None]) & (t < cap[:, None])
     )
     return torch.where(ok, t, RT_MAX)
+
+
+def _leaf_cone_t(c, pid, org, direction, tmin, cap):
+    """Component-major round-cone test over a leaf's curve-segment columns
+    (``nrc_tpu/ops/intersect_wide.py:86-138``): the lateral surface's
+    quadratic and the two end spheres, the smallest t in (tmin, cap).
+
+    ``c``: 9 [N, ls] planes (pax..paz | bax..baz | ra | rb | m0), the rows of
+    ``ops/curve_intersect.py::build_wide_curve_bvh``. Returns t [N, ls] with
+    RT_MAX at invalid or missed slots. ``direction`` must be of unit length.
+    The operation order is the cone walk kernel's (``csrc/intersect_wide.cu``
+    ``cone_t``): sums of three products left to right."""
+    pax, pay, paz, bax, bay, baz, ra, rb, m0 = c
+    dx, dy, dz = direction[:, 0:1], direction[:, 1:2], direction[:, 2:3]
+    oax = org[:, 0:1] - pax
+    oay = org[:, 1:2] - pay
+    oaz = org[:, 2:3] - paz
+    obx = oax - bax
+    oby = oay - bay
+    obz = oaz - baz
+    rr = ra - rb
+    m1 = bax * oax + bay * oay + baz * oaz
+    m2 = bax * dx + bay * dy + baz * dz
+    m3 = dx * oax + dy * oay + dz * oaz
+    m5 = oax * oax + oay * oay + oaz * oaz
+    m6 = obx * dx + oby * dy + obz * dz
+    m7 = obx * obx + oby * oby + obz * obz
+
+    d2 = m0 - rr * rr
+    k2 = d2 - m2 * m2
+    k1 = d2 * m3 - m1 * m2 + m2 * rr * ra
+    k0 = d2 * m5 - m1 * m1 + m1 * rr * ra * 2.0 - m0 * ra * ra
+    h = k1 * k1 - k0 * k2
+    ok2 = torch.abs(k2) > 1e-20
+    t_body = (-torch.sqrt(torch.clamp(h, min=0.0)) - k1) / torch.where(ok2, k2, 1.0)
+    y = m1 - ra * rr + t_body * m2
+    tn = tmin[:, None]
+    tx = cap[:, None]
+    body_ok = (h >= 0.0) & ok2 & (y > 0.0) & (y < d2) & (t_body > tn) & (t_body < tx)
+    t_body = torch.where(body_ok, t_body, RT_MAX)
+
+    h1 = m3 * m3 - m5 + ra * ra
+    t_ca = -m3 - torch.sqrt(torch.clamp(h1, min=0.0))
+    t_ca = torch.where((h1 >= 0.0) & (t_ca > tn) & (t_ca < tx), t_ca, RT_MAX)
+    h2 = m6 * m6 - m7 + rb * rb
+    t_cb = -m6 - torch.sqrt(torch.clamp(h2, min=0.0))
+    t_cb = torch.where((h2 >= 0.0) & (t_cb > tn) & (t_cb < tx), t_cb, RT_MAX)
+
+    t = torch.minimum(t_body, torch.minimum(t_ca, t_cb))
+    return torch.where(pid >= 0, t, RT_MAX)
+
+
+# the leaf test of each primitive kind; both read 9 floats a primitive
+LEAF_TESTS = {"triangle": _leaf_tri_t, "cone": _leaf_cone_t}
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,8 +257,10 @@ def _slab_children(row, bvh: WideBVH, best_t, org, inv_d, tmin, tmax):
 
 
 def wide_traverse_plain(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool, rows_seen=None,
-                        ray_fetches=None):
-    """The plain lockstep walk -> (t [N] f32, prim [N] i64, rows fetched).
+                        ray_fetches=None, leaf: str = "triangle"):
+    """The plain lockstep walk with the leaf test of the primitive kind
+    ``leaf`` (``LEAF_TESTS``; raises unless ``bvh`` holds that kind) ->
+    (t [N] f32, prim [N] i64, rows fetched).
 
     ``t`` is RT_MAX and ``prim`` -1 on a miss; with ``any_hit`` a ray stops
     at its first hit. The third value counts the rows that live rays
@@ -196,6 +270,8 @@ def wide_traverse_plain(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool,
     its memory traffic when the table stays in the cache. ``ray_fetches``,
     an integer tensor [N], if given, gets each ray's own count of fetched
     rows added: the length of its chain of dependent fetches."""
+    check_kind(bvh, leaf)
+    leaf_test = LEAF_TESTS[leaf]
     n, dev = org.shape[0], org.device
     b, ls, w_nodes, depth_max = bvh.branch, bvh.leaf_size, bvh.num_nodes, bvh.depth
     ar = torch.arange(n, device=dev)
@@ -228,7 +304,7 @@ def wide_traverse_plain(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool,
         c = [row[:, k * ls: (k + 1) * ls] for k in range(TRI_ROW_W)]
         pid = row[:, TRI_ROW_W * ls: (TRI_ROW_W + 1) * ls].view(torch.int32)
         cap = torch.minimum(tmax, best_t)
-        t_ok = _leaf_tri_t(c, pid, org, direction, tmin, cap)
+        t_ok = leaf_test(c, pid, org, direction, tmin, cap)
         t_ok = torch.where(do_leaf[:, None], t_ok, RT_MAX)
         t_best, k_best = torch.min(t_ok, dim=1)          # first index on ties
         hit_any = t_best < cap
@@ -279,25 +355,38 @@ def wide_traverse_plain(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool,
     return best_t, best_prim.to(torch.int64), fetched
 
 
-def _traverse(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool):
+def _traverse(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool, leaf: str):
+    check_kind(bvh, leaf)
     if org.device.type == "cuda":
         from .intersect_wide_cuda import wide_traverse_cuda
 
-        return wide_traverse_cuda(org, direction, bvh, tmin, tmax, any_hit)
+        return wide_traverse_cuda(org, direction, bvh, tmin, tmax, any_hit, leaf=leaf)
     if org.device.type != "cpu":
         raise ValueError(f"unsupported device {org.device}")
-    t, prim, _ = wide_traverse_plain(org, direction, bvh, tmin, tmax, any_hit)
+    t, prim, _ = wide_traverse_plain(org, direction, bvh, tmin, tmax, any_hit, leaf=leaf)
     return t, prim
 
 
 def intersect_wbvh(org, direction, bvh: WideBVH, tris: TriSoA, tmin, tmax) -> Hit:
     """Closest hit over the wide BVH; the winner's barycentrics are
     re-derived by ``hit_from_t_prim``, as for the brute force."""
-    t, prim = _traverse(org, direction, bvh, tmin, tmax, any_hit=False)
+    t, prim = _traverse(org, direction, bvh, tmin, tmax, any_hit=False, leaf="triangle")
     return hit_from_t_prim(org, direction, tris, t, prim)
 
 
 def occluded_wbvh(org, direction, bvh: WideBVH, tmin, tmax) -> torch.Tensor:
     """Any-hit visibility over the wide BVH -> bool [N] (True = occluded)."""
-    _, prim = _traverse(org, direction, bvh, tmin, tmax, any_hit=True)
+    _, prim = _traverse(org, direction, bvh, tmin, tmax, any_hit=True, leaf="triangle")
+    return prim >= 0
+
+
+def intersect_curves_wbvh(org, direction, bvh: WideBVH, tmin, tmax):
+    """Closest hit over a wide BVH of curve segments -> (t [N] f32, prim [N]
+    i64; RT_MAX / -1 on a miss). ``direction`` must be of unit length."""
+    return _traverse(org, direction, bvh, tmin, tmax, any_hit=False, leaf="cone")
+
+
+def occluded_curves_wbvh(org, direction, bvh: WideBVH, tmin, tmax) -> torch.Tensor:
+    """Any-hit visibility over a wide BVH of curve segments -> bool [N]."""
+    _, prim = _traverse(org, direction, bvh, tmin, tmax, any_hit=True, leaf="cone")
     return prim >= 0

@@ -1,16 +1,20 @@
-"""The wide-BVH walk kernels W1/W2: wrappers of ``csrc/intersect_wide.cu``.
+"""The wide-BVH walk kernels W1/W2 and C1/C2: wrappers of ``csrc/intersect_wide.cu``.
 
 ``nrc_wbvh_closest`` (W1) and ``nrc_wbvh_any`` (W2) walk the unified row
-table of ``ops/bvh_wide.py``: a block compacts the live rays of its span of
-lanes, and a group of ``branch`` lanes walks one ray, with the group's
-stack in shared memory (the source's header says why). They stand where
-``nrc_tpu/ops/intersect_wide.py::intersect_wbvh`` and ``occluded_wbvh``
-stand; the JAX package has no hand kernel there (its walk is a traced
-while loop). Their plain version is
-``ops/intersect_wide.py::wide_traverse_plain``: the closest ``t`` agrees
-with it bit for bit (the same operations in the same order, built with
-``-fmad=false``), and the winner can differ only where two triangles give
-the same ``t``.
+table of ``ops/bvh_wide.py`` over triangles, ``nrc_wbvh_curves_closest``
+(C1) and ``nrc_wbvh_curves_any`` (C2) the same layout over round-cone curve
+segments (``ops/curve_intersect.py::build_wide_curve_bvh``): one walk
+instantiated with two leaf tests. A block compacts the live rays of its
+span of lanes, and a group of ``branch`` lanes walks one ray, with the
+group's stack in shared memory (the source's header says why). W1/W2 stand
+where ``nrc_tpu/ops/intersect_wide.py::intersect_wbvh`` and
+``occluded_wbvh`` stand, C1/C2 where ``intersect_curves_wbvh`` and
+``occluded_curves_wbvh`` stand; the JAX package has no hand kernel there
+(its walk is a traced while loop). Their plain version is
+``ops/intersect_wide.py::wide_traverse_plain`` with the same leaf test: the
+closest ``t`` agrees with it bit for bit (the same operations in the same
+order, built with ``-fmad=false``), and the winner can differ only where two
+primitives give the same ``t``.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import ctypes
 import torch
 
 from .cuda_build import CudaKernel, check_cuda_tensor, current_stream, ptr
-from .intersect_wide import TRI_ROW_W, WideBVH
+from .intersect_wide import TRI_ROW_W, WideBVH, check_kind
 
 MAX_STACK = 256    # csrc/intersect_wide.cu::kStack, entries a group
 MAX_LEAF = 64      # csrc/intersect_wide.cu::kMaxLeaf
@@ -33,6 +37,15 @@ CLOSEST_KERNEL = CudaKernel("intersect_wide.cu", "nrc_wbvh_closest", _ARGS,
                             extra_flags=("-fmad=false",))
 ANYHIT_KERNEL = CudaKernel("intersect_wide.cu", "nrc_wbvh_any", _ARGS,
                            extra_flags=("-fmad=false",))
+CURVE_CLOSEST_KERNEL = CudaKernel("intersect_wide.cu", "nrc_wbvh_curves_closest", _ARGS,
+                                  extra_flags=("-fmad=false",))
+CURVE_ANYHIT_KERNEL = CudaKernel("intersect_wide.cu", "nrc_wbvh_curves_any", _ARGS,
+                                 extra_flags=("-fmad=false",))
+# (leaf kind, any hit) -> the entry point that walks it
+WALK_KERNELS = {
+    ("triangle", False): CLOSEST_KERNEL, ("triangle", True): ANYHIT_KERNEL,
+    ("cone", False): CURVE_CLOSEST_KERNEL, ("cone", True): CURVE_ANYHIT_KERNEL,
+}
 
 
 def check_walkable(bvh: WideBVH) -> None:
@@ -52,10 +65,13 @@ def check_walkable(bvh: WideBVH) -> None:
         raise ValueError(f"{bvh.num_nodes} node rows in a table of {bvh.rows.shape[0]} rows")
 
 
-def wide_traverse_cuda(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool):
-    """W1 (closest) or W2 (any hit) on the card -> (t [N] f32, prim [N] i64);
-    RT_MAX / -1 on a miss. With ``any_hit`` the hit is the first one found."""
-    t, prim = launch_walk(ANYHIT_KERNEL if any_hit else CLOSEST_KERNEL, org, direction, bvh, tmin, tmax)
+def wide_traverse_cuda(org, direction, bvh: WideBVH, tmin, tmax, any_hit: bool, leaf: str = "triangle"):
+    """W1 (closest) or W2 (any hit) on the card, or with ``leaf="cone"`` C1
+    or C2 -> (t [N] f32, prim [N] i64); RT_MAX / -1 on a miss. With
+    ``any_hit`` the hit is the first one found. Raises unless ``bvh`` holds
+    ``leaf`` primitives."""
+    check_kind(bvh, leaf)
+    t, prim = launch_walk(WALK_KERNELS[leaf, any_hit], org, direction, bvh, tmin, tmax)
     return t, prim.long()
 
 

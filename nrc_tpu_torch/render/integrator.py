@@ -81,6 +81,21 @@ Each new uniform is drawn for every lane, live or not, in the JAX
 package's order, so the stream stays bit for bit: the free flight's two
 before the closest hit, the Henyey-Greenstein pair after the cutout's,
 the lobe pick after the BSDF's four.
+
+Curves and hair (``nrc_tpu/render/integrator.py:161-166, 371-412, 478-487,
+714-800, 888-893, 1012-1016``), compiled in only where the device scene
+has curve segments (``DeviceScene.curves``, as the JAX package's
+``has_curves``): a second closest-hit stream over the curve BVH (C1 on the
+card) runs on the same rays after the triangles', and a curve hit wins
+where its t is the smaller. On a curve hit the round cone's normal stands
+for both normals and the segment's material for the triangle's, from one
+row gather of the packed curve rows a bounce (K7); it takes no texture and
+no cutout. A hair material (``HAIR``) on a curve hit samples, evaluates
+and reports its aux with the Chiang BSDF (``ops/hair_bsdf.py``) in the
+fibre frame (tangent and the strand's azimuthal basis), on the bounce's
+four uniforms (no new draw), with the azimuthal offset h from the normal
+across the ray; a hair material on a triangle absorbs. Every shadow ray
+is also tested against the curves (C2 on the card) after the triangles.
 """
 
 from __future__ import annotations
@@ -92,6 +107,8 @@ import torch
 
 from ..config import FrameConfig, RenderMode
 from ..ops import bsdf as B
+from ..ops import curve_intersect as CI
+from ..ops import hair_bsdf as H
 from ..ops import layered as LY
 from ..ops import mbsdf as MB
 from ..ops import noise as NZ
@@ -231,6 +248,8 @@ def trace_wavefront(
     offs, _ = mat_row_layout(scene.mat_curve_k)
     has_tex, has_cutout = cfg.has_textures, cfg.has_cutout
     has_volumes, has_layered, has_measured = cfg.has_volumes, cfg.has_layered, cfg.has_measured
+    # the curve stream and the hair lobe, only where the scene has curves
+    has_curves = scene.curves is not None
 
     def mcol(row, name):
         a, b = offs[name]
@@ -342,7 +361,17 @@ def trace_wavefront(
             tmax = torch.where(can_step, torch.minimum(tmax, dist_sample), tmax)
 
         hit = closest_hit(s.pos, s.wi, tmin, tmax)
-        hit_valid = hit.valid & active
+        if has_curves:
+            # the curve stream on the same rays: a curve hit wins where its t
+            # is below the triangle's
+            c_hit = CI.intersect_curves_bvh(s.pos, s.wi, scene.curve_bvh, tmin, tmax)
+            tri_t = torch.where(hit.valid, hit.t, RT_MAX)
+            is_curve = c_hit.valid & (torch.where(c_hit.valid, c_hit.t, RT_MAX) < tri_t)
+            hit = hit._replace(t=torch.where(is_curve, c_hit.t, hit.t))
+            any_valid = hit.valid | is_curve
+            hit_valid = any_valid & active
+        else:
+            hit_valid = hit.valid & active
         tri = torch.clamp(hit.prim, min=0)
         w_bary = 1.0 - hit.u - hit.v
         p_hit = s.pos + hit.t[:, None] * s.wi
@@ -356,6 +385,12 @@ def trace_wavefront(
         )
         meta = tsr[:, 24:26].view(torch.int32).to(torch.int64)  # bit-cast columns
         mid, tri_light_id = meta[:, 0], meta[:, 1]
+        if has_curves:
+            # the round cone's frame and the segment's material: one row gather
+            cframe = CI.curve_shading_frame(scene.curves, c_hit.prim, p_hit)
+            ng = torch.where(is_curve[:, None], cframe.normal, ng)
+            ns = torch.where(is_curve[:, None], cframe.normal, ns)
+            mid = torch.where(is_curve, cframe.material_id, mid)
         mrow = gather_rows(scene.mat_row, mid)           # ONE material row gather
         albedo = mcol(mrow, "albedo")
         albedo2 = mcol(mrow, "albedo2") if has_layered else None
@@ -389,12 +424,17 @@ def trace_wavefront(
             # the texcoord from the triangle row, the material's uv transform
             uv_hit = apply_uv_transform(bary_uv(tsr[:, 18:24], hit.u, hit.v), mcol(mrow, "uv_xf"))
         if has_tex:
-            albedo = albedo * sample_bilinear(scene.atlas, tex_id(mrow, "albedo_tex"), uv_hit)[:, :3]
+            tex_rgb = sample_bilinear(scene.atlas, tex_id(mrow, "albedo_tex"), uv_hit)[:, :3]
+            if has_curves:  # a curve hit takes no texture
+                tex_rgb = torch.where(is_curve[:, None], 1.0, tex_rgb)
+            albedo = albedo * tex_rgb
         if has_cutout:
             rgba_cut = sample_bilinear(scene.atlas, tex_id(mrow, "cutout_tex"), uv_hit)
             opacity = mcol(mrow, "cutout_opacity") * rgba_cut[:, :3].mean(dim=-1)
             seed, u_cut = R.rng(seed)
             passthrough = hit_valid & (u_cut >= opacity)
+            if has_curves:  # nor a cutout
+                passthrough = passthrough & ~is_curve
             hit_valid = hit_valid & ~passthrough
         params = B.MaterialParams(
             archetype=mcol(mrow, "archetype").to(torch.int64),
@@ -446,7 +486,7 @@ def trace_wavefront(
             # the flight ended inside the medium: advance, reweight, and a
             # Henyey-Greenstein direction about the current one
             # (raygeneration.cu:74-104)
-            scatter_miss = can_step & ~hit.valid
+            scatter_miss = can_step & ~(any_valid if has_curves else hit.valid)
             pos_next = torch.where(scatter_miss[:, None], s.pos + s.wi * dist_sample[:, None], s.pos)
             trans_m = torch.exp(-sigma_t * dist_sample[:, None])
             pdf_m = (pdf_volume * sigma_t * trans_m).sum(dim=-1)
@@ -470,7 +510,8 @@ def trace_wavefront(
             s = s._replace(throughput=throughput)
 
         # ---- miss: environment ------------------------------------------
-        miss = active & ~hit.valid if scatter_miss is None else active & ~hit.valid & ~scatter_miss
+        surface = any_valid if has_curves else hit.valid  # a triangle or a curve hit
+        miss = active & ~surface if scatter_miss is None else active & ~surface & ~scatter_miss
         radiance = s.radiance
         env_em, env_pdf, has_env = env_radiance(lights, s.wi)
         if has_env:
@@ -571,6 +612,39 @@ def trace_wavefront(
                 pdf=torch.where(is_measured, pdf_m, sample.pdf),
                 event=torch.where(is_measured, ev_m, sample.event),
             )
+        if has_curves:
+            # the Chiang hair BSDF on hair materials' curve hits, in the fibre
+            # frame (bsdf_hair.mdl; tangent + the strand's azimuthal basis)
+            hair_r = mcol(mrow, "hair_roughness").reshape(n, 3, 2)
+            hpar = H.HairParams(
+                sigma_a=mcol(mrow, "hair_absorption"),
+                ior=params.ior,
+                beta_m=hair_r[..., 0],
+                beta_n=hair_r[..., 1],
+                cuticle_angle=mcol(mrow, "hair_cuticle"),
+                diffuse_weight=mcol(mrow, "hair_diffuse_weight"),
+                diffuse_tint=mcol(mrow, "albedo") * cframe.color,
+            )
+            ct, cb1, cb2 = cframe.tangent, cframe.b1, cframe.b2
+
+            def to_fiber(v):
+                return torch.stack([dot(v, ct), dot(v, cb1), dot(v, cb2)], dim=-1)
+
+            # h: the ray's azimuthal offset across the fibre
+            b_view = cross(s.wi, ct)
+            b_view = b_view / torch.clamp(torch.linalg.vector_norm(b_view, dim=-1, keepdim=True), min=1e-9)
+            h_fib = torch.clamp(dot(cframe.normal, b_view), -1.0, 1.0)
+            wo_l = to_fiber(wo)
+            wi_l, w_over_h, pdf_h = H.hair_sample(hpar, wo_l, h_fib, xi)
+            is_hair = is_curve & (params.archetype == int(Archetype.HAIR))
+            wi_h = wi_l[:, 0:1] * ct + wi_l[:, 1:2] * cb1 + wi_l[:, 2:3] * cb2
+            sample = B.BSDFSample(
+                wi=torch.where(is_hair[:, None], wi_h, sample.wi),
+                bsdf_over_pdf=torch.where(is_hair[:, None], w_over_h, sample.bsdf_over_pdf),
+                pdf=torch.where(is_hair, pdf_h, sample.pdf),
+                event=torch.where(is_hair & (pdf_h > 0.0), B.BSDF_EVENT_GLOSSY_REFLECTION,
+                                  torch.where(is_hair, B.BSDF_EVENT_ABSORB, sample.event)),
+            )
         # a cutout passthrough and a volume scatter step keep the previous
         # event for MIS (the ignored any-hit; stepVolume, miss.cu:62-79)
         keep_event = passthrough
@@ -595,6 +669,13 @@ def trace_wavefront(
                 albedo_diffuse=torch.where(is_measured[:, None], 0.0, aux.albedo_diffuse),
                 albedo_glossy=torch.where(is_measured[:, None], alb_m, aux.albedo_glossy),
                 roughness=torch.where(is_measured[:, None], 1.0, aux.roughness),
+            )
+        if has_curves:
+            aux = B.BSDFAux(
+                albedo_diffuse=torch.where(is_hair[:, None], hpar.diffuse_tint, aux.albedo_diffuse),
+                albedo_glossy=torch.where(is_hair[:, None], torch.exp(-hpar.sigma_a) * cframe.color,
+                                          aux.albedo_glossy),
+                roughness=torch.where(is_hair[:, None], mcol(mrow, "hair_roughness")[:, 0:2], aux.roughness),
             )
         query_here = make_query(p_hit, wo, ns_q, aux, cfg.position_scale)
         first_ns = hit_valid & ~s.recorded_first & ~event_specular
@@ -666,6 +747,10 @@ def trace_wavefront(
                 fcos_m, pdf_em = MB.measured_eval(scene.mbsdf, mb_idx, mb_mult, m_frame, ls.direction, nf_m)
                 ev = B.BSDFEval(bsdf=torch.where(is_measured[:, None], fcos_m, ev.bsdf),
                                 pdf=torch.where(is_measured, pdf_em, ev.pdf))
+            if has_curves:
+                f_h, pdf_eh = H.hair_eval(hpar, wo_l, to_fiber(ls.direction), h_fib)
+                ev = B.BSDFEval(bsdf=torch.where(is_hair[:, None], f_h, ev.bsdf),
+                                pdf=torch.where(is_hair, pdf_eh, ev.pdf))
             do_nee = alive & hit_valid & event_non_dirac
             valid_ls = (ls.pdf > 0.0) & (ev.bsdf.amax(dim=-1) > 0.0) & (ev.pdf > 0.0)
             w_mis_l = torch.where(ls.is_singular, 1.0, balance_heuristic(ls.pdf, ev.pdf))
@@ -712,6 +797,9 @@ def trace_wavefront(
             else:
                 occluded = any_hit(p_hit, ls.direction, torch.full_like(shadow_tmax, eps), shadow_tmax)
                 shadow_traced = (shadow_tmax > 0.0).to(torch.int64)
+            if has_curves:  # the curves occlude too (JAX :1012-1016)
+                occluded = occluded | CI.occluded_curves_bvh(
+                    p_hit, ls.direction, scene.curve_bvh, torch.full_like(shadow_tmax, eps), shadow_tmax)
             ok = do_nee & valid_ls & ~occluded
             if train:
                 # NEE into the record just written (hit.cu:1030-1056)

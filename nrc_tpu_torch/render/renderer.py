@@ -26,7 +26,12 @@ so does ``set_encoding``, whose state has other shapes and is bound anew. A capt
 raises; nothing falls back to eager frames. ``capture=False`` runs the same
 frames eagerly on the card, to compare with.
 
-A live material edit (``update_material``) copies the new material and
+A scene with curve segments (``Scene.curves``) uploads their BVH and
+shading rows with the rest; the frame compiles the curve stream and the
+hair lobe in where the device scene has them (``trace_wavefront``'s
+``has_curves``, as the JAX package derives it from its device scene), so
+no ``FrameConfig`` switch names them. A live material edit
+(``update_material``; a hair material's row too) copies the new material and
 light tables into the tensors the graphs read, and a render state
 (``models/checkpoint.py::load_render_state``) is copied into the state and
 image in place; where the shapes change, the graphs are dropped instead.

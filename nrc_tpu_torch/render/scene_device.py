@@ -13,11 +13,16 @@ mesh-light EDF ([L, 7]: emission texture id, uv transform;
 stack as the row tables of ``ops/mbsdf.py`` (``MBSDFTables``; a scene
 without a measurement gets the one-entry tables of
 ``MBSDFTableHost.build([])``, as the JAX package does,
-``nrc_tpu/render/scene_device.py:139-142, 262-270``). It refuses scenes
-that need what is not ported yet: curves and the hair archetype.
+``nrc_tpu/render/scene_device.py:139-142, 262-270``). A scene with curve
+segments (``scene/hair.py``) gets their wide BVH (``WideBVH`` of cones,
+``ops/curve_intersect.py::build_wide_curve_bvh``, walked by C1/C2 on the
+card at every segment count) and one packed row per segment for the
+shading fetch (``curve_row_table``, 21 words:
+``nrc_tpu/render/scene_device.py:312-328``). It refuses a scene whose
+materials name an archetype the port has no BSDF for.
 ``patch_materials`` re-derives the material tables after a live material
 edit, in place where their shapes hold (a captured frame reads them by
-address).
+address); the geometry and the curve tables stay.
 
 The bounce body fetches per-hit data with row gathers
 (``ops/gather_cuda.py::gather_rows`` over ``tri_shade`` and ``mat_row``);
@@ -36,6 +41,7 @@ import torch
 
 from ..ops.bsdf import SUPPORTED_ARCHETYPES
 from ..ops.bvh_wide import build_wide_bvh
+from ..ops.curve_intersect import CurveSoA, build_wide_curve_bvh, curve_row_table
 from ..ops.intersect import BVH_THRESHOLD, TriSoA
 from ..ops.intersect_cuda import build_plane_table
 from ..ops.intersect_wide import WideBVH, upload_wide_bvh
@@ -96,6 +102,10 @@ class DeviceScene(NamedTuple):
     nee_tex: Optional[torch.Tensor] = None
     # the measured-BSDF stack as row tables (ops/mbsdf.py)
     mbsdf: Optional[MBSDFTables] = None
+    # curve segments: their wide BVH (cone leaf rows) and [K, 21] packed
+    # shading rows (ops/curve_intersect.py::CURVE_ROW); None without curves
+    curve_bvh: Optional[WideBVH] = None
+    curves: Optional[torch.Tensor] = None
 
     @property
     def num_triangles(self) -> int:
@@ -186,16 +196,11 @@ def _atlas_tensors(atlas: dict, device) -> dict:
 
 
 def check_supported(scene) -> None:
-    """Raise ``NotImplementedError`` naming the first unported feature:
-    curves, or the hair archetype on either lobe."""
-    mt = scene.materials
-    unported = {
-        "curves": getattr(scene, "curves", None) is not None,
-        "the hair archetype": bool(set(scene_archetypes(scene)) - SUPPORTED_ARCHETYPES),
-    }
-    for feature, present in unported.items():
-        if present:
-            raise NotImplementedError(f"scene uses {feature}, which is not ported yet")
+    """Raise ``NotImplementedError`` naming the archetypes, on either lobe,
+    that the port has no BSDF for."""
+    unknown = set(scene_archetypes(scene)) - SUPPORTED_ARCHETYPES
+    if unknown:
+        raise NotImplementedError(f"scene uses archetypes {sorted(unknown)}, which have no BSDF in the port")
 
 
 def scene_archetypes(scene) -> frozenset:
@@ -304,6 +309,12 @@ def upload_scene(scene, device: torch.device, use_bvh: Optional[bool] = None) ->
          tri_meta.view(np.float32)],
         axis=-1, dtype=np.float32,
     )
+    curve_bvh = curves = None
+    if getattr(scene, "curves", None) is not None and scene.curves.num > 0:
+        # the JAX package's wide curve build (branch 8, leaf 8, max_leaf 4);
+        # its binary skip-link walk below 16,384 segments is not ported
+        curve_bvh = upload_wide_bvh(build_wide_curve_bvh(scene.curves), device, kind="cone")
+        curves = torch.from_numpy(curve_row_table(CurveSoA.build(scene.curves))).to(device)
     mats = _material_arrays(scene)
     return DeviceScene(
         tris=tris,
@@ -317,4 +328,6 @@ def upload_scene(scene, device: torch.device, use_bvh: Optional[bool] = None) ->
         atlas=_atlas_tensors(mats["atlas"], device),
         nee_tex=dev(mats["nee_tex"]),
         mbsdf=mbsdf_to_device(mats["mbsdf"], device),
+        curve_bvh=curve_bvh,
+        curves=curves,
     )

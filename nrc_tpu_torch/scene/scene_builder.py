@@ -15,8 +15,10 @@ lobes and the IOR stack), ``cornell_lights()`` (the box's area light with a
 point, a spot and an IES light) and ``env_textured()`` (an open scene under
 an equirect or constant environment with textured albedo, a cutout panel
 and a textured emitter), ``cornell_materials()`` (layered, modified,
-measured and procedural-noise surfaces) and ``cornell_volume()`` (a
-scattering and an absorbing medium). ``cornell_lights``, ``env_textured``
+measured and procedural-noise surfaces), ``cornell_volume()`` (a
+scattering and an absorbing medium) and ``cornell_hair()`` (a patch of
+fur on the short block: B-spline strands tessellated into round cones,
+``scene/hair.py``, under the Chiang hair BSDF). ``cornell_lights``, ``env_textured``
 and ``cornell_materials`` write their files (an LM-63 profile, PNG
 textures, an RLE ``.hdr`` map, a baked measurement) into a directory the
 caller gives and load them back through the file path every scene takes.
@@ -38,6 +40,7 @@ from ..utils.hdr_loader import load_radiance_hdr
 from ..utils.image_io import write_hdr_rle, write_png
 from . import geometry as geo
 from .camera import Camera
+from .hair import CurveSegments, HairFile, hair_to_segments, transform_segments
 from .ies import ies_to_texture, load_ies
 from .lights import (
     TYPE_LIGHT_ENV_CONST,
@@ -77,15 +80,26 @@ class Scene:
     lights: LightTable
     camera: Camera
     lens_shader: int = 0
-    curves: object = None  # curve primitives are not ported; always None
+    # curve primitives: hair strands as round-cone segments (scene/hair.py)
+    curves: Optional[CurveSegments] = None
 
     @property
     def num_triangles(self) -> int:
         return int(self.p0.shape[0])
 
     def aabb(self) -> tuple[np.ndarray, np.ndarray]:
+        """The triangles' box grown by the segments' start spheres
+        (``nrc_tpu/scene/scene_builder.py:82-90``, whose rule it keeps: the
+        query positions are scaled by this box's extent)."""
+        if self.num_triangles == 0 and self.curves is not None:
+            lo = (self.curves.pa - self.curves.ra[:, None]).min(0)
+            hi = (self.curves.pa + self.curves.ra[:, None]).max(0)
+            return lo.astype(np.float32), hi.astype(np.float32)
         lo = np.minimum(np.minimum(self.p0.min(0), self.p1.min(0)), self.p2.min(0))
         hi = np.maximum(np.maximum(self.p0.max(0), self.p1.max(0)), self.p2.max(0))
+        if self.curves is not None and self.curves.num:
+            lo = np.minimum(lo, (self.curves.pa - self.curves.ra[:, None]).min(0))
+            hi = np.maximum(hi, (self.curves.pa + self.curves.ra[:, None]).max(0))
         return lo, hi
 
 
@@ -789,6 +803,112 @@ def cornell_volume(resolution: Tuple[int, int] = (320, 320)) -> tuple[Scene, Sys
     return _cornell_scene(*cornell_volume_declarations(), resolution)
 
 
+# ---------------------------------------------------------------------------
+# Curves and hair
+# ---------------------------------------------------------------------------
+
+HAIR_SEGMENTS = 8      # control-polygon segments a strand: 9 points
+HAIR_SUBSEGMENTS = 2   # round cones a B-spline span
+
+
+@dataclasses.dataclass
+class HairDecl:
+    """A ``hair`` model of a scene: strands in object space, their material
+    and object-to-world matrix, and the cones a B-spline span becomes."""
+
+    hair: HairFile
+    material: str
+    matrix: np.ndarray  # [4, 4]
+    subsegments: int = HAIR_SUBSEGMENTS
+
+
+def fur_patch(strands: int, seed: int) -> HairFile:
+    """``strands`` wavy strands of ``HAIR_SEGMENTS`` segments, 3.2 long,
+    rooted on a jittered grid over [-2.7, 2.7]^2 of the plane y = 0, growing
+    along +y, as a ``HairFile`` made in code from ``seed``: each
+    strand leans by a random tilt and waves about its axis with a random
+    phase and amplitude, plus a small random jitter a point; the thickness
+    (a diameter, as in ``.hair`` files) tapers from 0.05 at the root to
+    0.015 at the tip, and the colour runs from a dark root to a light tip
+    with a per-strand shade, so that a segment's colour is interpolated
+    along it."""
+    rng = np.random.default_rng(seed)
+    half_extent, length = 2.7, 3.2
+    side = int(math.ceil(math.sqrt(strands)))
+    cell = 2.0 * half_extent / side
+    k = np.arange(strands)
+    roots = np.stack([(k % side + 0.5) * cell - half_extent, np.zeros(strands),
+                      (k // side + 0.5) * cell - half_extent], -1)
+    roots[:, [0, 2]] += rng.uniform(-0.4, 0.4, (strands, 2)) * cell
+    v = HAIR_SEGMENTS + 1
+    s = np.linspace(0.0, 1.0, v)                                    # [V] along the strand
+    tilt = rng.normal(0.0, 0.25, (strands, 2))
+    phase = rng.uniform(0.0, 2.0 * math.pi, (strands, 2))
+    amp = rng.uniform(0.05, 0.2, (strands, 1))
+    wave = amp[:, :, None] * np.sin(2.0 * math.pi * 1.5 * s[None, None, :] + phase[:, :, None])  # [S, 2, V]
+    pts = np.empty((strands, v, 3))
+    pts[..., 1] = length * s[None, :] * (1.0 - 0.15 * np.sum(tilt ** 2, -1, keepdims=True))
+    pts[..., 0] = length * s[None, :] * tilt[:, :1] + wave[:, 0] * s[None, :]
+    pts[..., 2] = length * s[None, :] * tilt[:, 1:] + wave[:, 1] * s[None, :]
+    pts += rng.normal(0.0, 0.01, pts.shape) * s[None, :, None]
+    pts += roots[:, None, :]
+    thickness = np.broadcast_to(0.05 + (0.015 - 0.05) * s, (strands, v))
+    shade = rng.uniform(0.8, 1.2, (strands, 1, 1))
+    root_c, tip_c = np.asarray([0.25, 0.13, 0.06]), np.asarray([0.85, 0.62, 0.38])
+    color = np.clip(shade * (root_c + (tip_c - root_c) * s[None, :, None]), 0.0, 1.0)
+    return HairFile(
+        num_strands=strands,
+        segments=np.full(strands, HAIR_SEGMENTS, np.uint16),
+        points=pts.reshape(-1, 3).astype(np.float32),
+        thickness=thickness.reshape(-1).astype(np.float32),
+        transparency=np.zeros(strands * v, np.float32),
+        color=color.reshape(-1, 3).astype(np.float32),
+    )
+
+
+def cornell_hair_declarations(strands: int = 16384, seed: int = 15) -> tuple[
+        List[ModelDecl], Dict[str, Material], dict, HairDecl]:
+    """The Cornell box (1224 triangles, brute force) with a patch of fur
+    on the top face of its short block, as (models, materials, camera
+    parameters, the hair model):
+
+    - ``fur_patch(strands, seed)`` rooted over the block's top face (2.7 of
+      its half-extent 3), turned and placed with the block: its matrix is
+      the block's translation to the face's centre (4, -4, 3) and its turn
+      of -20 degrees about y; ``HAIR_SEGMENTS`` segments a strand, two
+      round cones a B-spline span: 16 cones a strand, 262,144 at 16,384
+      strands;
+    - the material ``Archetype.HAIR`` with a brown absorption (0.42, 0.70,
+      1.37) (Chiang et al.'s table for a brown eumelanin concentration),
+      a diffuse weight of 0.2, albedo (0.9, 0.8, 0.7) as the diffuse tint
+      (times the strands' colour), and the default roughness and cuticle
+      angle;
+    - the box's camera angles (phi, theta) = (0.750781, 0.5), level with
+      the fur through the box's open front: centre (4, -2.4, 3), fov 40,
+      distance 14; 30.8 % of a 64 x 64 grid of pixel centres hit a fibre
+      first at 16,384 strands."""
+    models, materials, _ = cornell_box_declarations()
+    materials = dict(materials, hair=Material(
+        name="hair", archetype=Archetype.HAIR, albedo=(0.9, 0.8, 0.7),
+        hair_absorption=(0.42, 0.70, 1.37), hair_diffuse_weight=0.2))
+    matrix = _translate(4, -4, 3) @ _rotate(1, -20)
+    hair = HairDecl(fur_patch(strands, seed), "hair", matrix)
+    camera = dict(center=(4.0, -2.4, 3.0), phi=0.750781, theta=0.5, fov=40.0, distance=14.0)
+    return models, materials, camera, hair
+
+
+def cornell_hair(resolution: Tuple[int, int] = (320, 320), strands: int = 16384,
+                 seed: int = 15) -> tuple[Scene, SystemConfig]:
+    """The Cornell box with a fur patch on its short block
+    (``cornell_hair_declarations``); system settings as ``cornell_box``'s."""
+    models, materials, cam, hair = cornell_hair_declarations(strands, seed)
+    scene, system = _cornell_scene(models, materials, cam, resolution)
+    # the B-spline tessellation, then the model's transform
+    seg = hair_to_segments(hair.hair, material_id=list(materials).index(hair.material), subsegments=hair.subsegments)
+    scene.curves = transform_segments(seg, hair.matrix)
+    return scene, system
+
+
 SCENES = {
     "cornell_box": cornell_box,
     "cornell_objects": cornell_objects,
@@ -797,6 +917,7 @@ SCENES = {
     "env_textured": env_textured,
     "cornell_materials": cornell_materials,
     "cornell_volume": cornell_volume,
+    "cornell_hair": cornell_hair,
 }
 
 

@@ -4,7 +4,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 -m nrc_tpu_torch.tools.bench [--encoding frequency|hash]
         [--scene cornell_box|cornell_objects|cornell_lights|env_textured|
-                 cornell_materials|cornell_volume]
+                 cornell_materials|cornell_volume|cornell_hair]
 
 The configuration of the JAX package's ``bench.py:82-89``: the Cornell box
 (``cornell_box``, 1224 triangles) at 320x320, FULL render mode with online
@@ -21,8 +21,10 @@ on the box with a point, a spot and an IES light beside its area light, and
 with textured albedo, a cutout panel and a textured emitter (their files
 are written and read in a temporary directory before the warm-up);
 ``--scene cornell_materials`` on the box of layered, measured and noise
-materials, and ``--scene cornell_volume`` on the box with a scattering and
-an absorbing medium.
+materials, ``--scene cornell_volume`` on the box with a scattering and
+an absorbing medium, and ``--scene cornell_hair`` on the box with a patch
+of 16,384 strands (262,144 round cones: the curve walks C1/C2 and the
+Chiang hair BSDF; the curve BVH is built on the host before the warm-up).
 
 Per rep: host ms/frame (the host clock around the rep, which ends in a
 synchronise), device ms/frame (CUDA events around the rep's replays on the
@@ -58,7 +60,7 @@ from ..scene.scene_builder import named_scene
 
 RES = 320
 SCENES = ("cornell_box", "cornell_objects", "cornell_lights", "env_textured", "cornell_materials",
-          "cornell_volume")
+          "cornell_volume", "cornell_hair")
 TILE = (4, 4)
 WARMUP = 3
 FRAMES = 32

@@ -18,11 +18,12 @@ roulette at tau = 0.5, likewise settled. On ``cornell_lights`` (a point, a
 spot and an IES light beside the area light) and on ``env_textured`` (an
 open scene under a 1024 x 512 equirect sky, textured albedo, a cutout
 panel, a textured emitter), on ``cornell_materials`` (layered, measured
-and noise materials) and on ``cornell_volume`` (a scattering and an
-absorbing medium): FULL and NO_CACHE serving and FULL + train, likewise
-settled. ``--only NAME ...`` runs some of them (``full``, ``no_cache``,
-``train``, ``hash``, ``objects``, ``glass``, ``lights``, ``env``,
-``materials``, ``volume``).
+and noise materials), on ``cornell_volume`` (a scattering and an
+absorbing medium) and on ``cornell_hair`` (16,384 strands, 262,144 round
+cones: the curve walks C1/C2 and the Chiang hair BSDF): FULL and NO_CACHE
+serving and FULL + train, likewise settled. ``--only NAME ...`` runs some
+of them (``full``, ``no_cache``, ``train``, ``hash``, ``objects``,
+``glass``, ``lights``, ``env``, ``materials``, ``volume``, ``hair``).
 
 Each configuration runs twice from the same renderer: eagerly
 (``Renderer.capture = False``; every kernel issued from Python) and
@@ -82,8 +83,10 @@ STACK_FRAMES = 2
 # (label, substrings that a kernel's name must all hold)
 GROUPS = (("K1 nrc_planes_closest", ("planes_kernel<false>",)),
           ("K2 nrc_planes_any", ("planes_kernel<true>",)),
-          ("W1 nrc_wbvh_closest", ("wbvh_kernel<", "false>")),
-          ("W2 nrc_wbvh_any", ("wbvh_kernel<", "true>")),
+          ("W1 nrc_wbvh_closest", ("wbvh_kernel<", "false", "TriLeaf>")),
+          ("W2 nrc_wbvh_any", ("wbvh_kernel<", "true", "TriLeaf>")),
+          ("C1 nrc_wbvh_curves_closest", ("wbvh_kernel<", "false", "ConeLeaf>")),
+          ("C2 nrc_wbvh_curves_any", ("wbvh_kernel<", "true", "ConeLeaf>")),
           ("K7-K9 row gathers", ("gather_warp_kernel",)),
           ("K7-K9 row gathers", ("gather_bulk_kernel",)),
           ("K7-K9 row gathers", ("gather_block_kernel",)),
@@ -270,7 +273,8 @@ def profile_scene(name: str, dev: torch.device) -> list:
 
 
 def main(argv=None) -> int:
-    configs = ("full", "no_cache", "train", "hash", "objects", "glass", "lights", "env", "materials", "volume")
+    configs = ("full", "no_cache", "train", "hash", "objects", "glass", "lights", "env", "materials", "volume",
+               "hair")
     ap = argparse.ArgumentParser(description="where a frame's time goes on the card")
     ap.add_argument("--only", nargs="+", choices=configs, default=configs)
     args = ap.parse_args(argv)
@@ -304,7 +308,7 @@ def main(argv=None) -> int:
         r.render(8)
         results.append(profile_both(r, "cornell_glass FULL + train (factoring, shadow-ray roulette 0.5)"))
     for name, label in (("lights", "cornell_lights"), ("env", "env_textured"), ("materials", "cornell_materials"),
-                        ("volume", "cornell_volume")):
+                        ("volume", "cornell_volume"), ("hair", "cornell_hair")):
         if name in args.only:
             results += profile_scene(label, dev)
     smi = subprocess.run(

@@ -558,6 +558,39 @@ def test_walk_wrapper_refuses_what_the_kernel_was_not_built_for(cuda):
         WC.wide_traverse_cuda(org.double(), d, bvh, tmin, tmax, False)
 
 
+def test_c1_c2_match_plain_cone_walk(cuda):
+    """The curve walks on ``cornell_hair``'s fur (a few hundred strands)
+    against the plain walk with the cone leaf: C1's t bit for bit (the round
+    cone uses + - * / and sqrt alone, correctly rounded on both), the
+    winners equal but at equal-t ties, C2's occlusion exact; dead lanes
+    report no hit."""
+    from nrc_tpu_torch.ops.curve_intersect import build_wide_curve_bvh
+    from nrc_tpu_torch.scene.scene_builder import cornell_hair
+
+    scene, _ = cornell_hair((64, 64), strands=400)
+    bvh = IW.upload_wide_bvh(build_wide_curve_bvh(scene.curves), cuda, kind="cone")
+    rs = np.random.default_rng(15)
+    n = 5000
+    lo, hi = scene.curves.pa.min(0), scene.curves.pa.max(0)
+    org = torch.tensor(lo + rs.random((n, 3)) * (hi - lo), dtype=torch.float32, device=cuda)
+    d = torch.tensor(rs.normal(size=(n, 3)), dtype=torch.float32, device=cuda)
+    d = d / d.norm(dim=-1, keepdim=True)
+    tmin = torch.full((n,), 1e-4, device=cuda)
+    tmax = torch.full((n,), RT_MAX, device=cuda)
+    tmax[::13] = 0.0  # dead lanes
+    n1, n2 = WC.CURVE_CLOSEST_KERNEL.launches, WC.CURVE_ANYHIT_KERNEL.launches
+    tk, pk = WC.wide_traverse_cuda(org, d, bvh, tmin, tmax, False, leaf="cone")
+    _, ok = WC.wide_traverse_cuda(org, d, bvh, tmin, tmax, True, leaf="cone")
+    tp, pp, _ = IW.wide_traverse_plain(org, d, bvh, tmin, tmax, False, leaf="cone")
+    _, op, _ = IW.wide_traverse_plain(org, d, bvh, tmin, tmax, True, leaf="cone")
+    torch.cuda.synchronize()
+    assert WC.CURVE_CLOSEST_KERNEL.launches == n1 + 1 and WC.CURVE_ANYHIT_KERNEL.launches == n2 + 1
+    assert torch.equal(tk, tp) and torch.equal(pk >= 0, pp >= 0) and not (pk[::13] >= 0).any()
+    assert torch.equal(ok >= 0, op >= 0) and 0.05 < (pp >= 0).float().mean().item()
+    with pytest.raises(ValueError, match="cone leaf rows handed to the triangle walk"):
+        WC.wide_traverse_cuda(org, d, bvh, tmin, tmax, False)
+
+
 def test_renderer_with_a_bvh_goes_through_the_walk(cuda):
     """The small Cornell box with the BVH attached: W1, W2 and the path's
     gather are launched, K1 and K2 are not."""

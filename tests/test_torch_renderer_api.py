@@ -82,10 +82,16 @@ def test_update_material_equals_a_fresh_renderer(index, change):
 
 
 def test_update_material_to_an_unported_archetype_raises():
+    """An archetype the port has no BSDF for is refused; the hair archetype,
+    refused before the curves slice, is taken (on a triangle it absorbs)."""
     scene, system = _small()
     r = Renderer(scene, system, device="cpu")
     with pytest.raises(NotImplementedError):
-        r.update_material(0, archetype=Archetype.HAIR)
+        r.update_material(0, archetype=42)
+    scene, system = _small()
+    r = Renderer(scene, system, device="cpu")
+    r.update_material(0, archetype=Archetype.HAIR)
+    assert int(Archetype.HAIR) in r.cfg.archetype_set
 
 
 def test_image_files_are_the_jax_packages_bytes(tmp_path):

@@ -191,11 +191,20 @@ class TestUpload:
     )
     def test_unported_materials_raise(self, change):
         """The hair archetype, on either lobe and whatever else the material
-        carries, is the one material the port refuses."""
+        carries, refused before the curves slice, uploads with the JAX
+        upload's material row bit for bit; an archetype the port has no BSDF
+        for in its place, with the same other fields, is what it refuses."""
         models, materials, cam = cornell_box_declarations()
         materials["white"] = dataclasses.replace(materials["white"], **change)
         scene = assemble_scene(models, materials, Camera(**cam))
-        with pytest.raises(NotImplementedError, match="hair"):
+        dev = upload_scene(scene, CPU)
+        jtable = JMaterialTable.build([JMaterial(**dataclasses.asdict(m)) for m in materials.values()])
+        jrow = jax_upload_scene(dataclasses.replace(scene, materials=jtable)).mat_row
+        assert torch.equal(dev.mat_row.view(torch.int32), torch.from_numpy(np.asarray(jrow)).view(torch.int32))
+        unknown = {k: 42 if v == Archetype.HAIR else v for k, v in change.items()}
+        materials["white"] = dataclasses.replace(materials["white"], **unknown)
+        scene = assemble_scene(models, materials, Camera(**cam))
+        with pytest.raises(NotImplementedError, match=r"archetypes \[42\]"):
             upload_scene(scene, CPU)
 
     @pytest.mark.parametrize(

@@ -47,7 +47,7 @@ def _c_constant(name):
 
 THREADS, SPAN, STACK, MAX_LEAF = (_c_constant(name)
                                   for name in ("kThreads", "kSpan", "kStack", "kMaxLeaf"))
-GROUPS = tuple(sorted({int(b) for b in re.findall(r"wbvh_kernel<(\d+), kAnyHit><<<", SOURCE)}))
+GROUPS = tuple(sorted({int(b) for b in re.findall(r"wbvh_kernel<(\d+), kAnyHit, Leaf><<<", SOURCE)}))
 SHARED_BYTES_A_BLOCK = 48 * 1024   # static shared memory a block may declare
 SHARED_BYTES_AN_SM = 232448        # an H100 SM's shared memory for blocks
 THREADS_AN_SM = 2048
