@@ -136,6 +136,12 @@ Phases, each of which raises on failure (non-zero exit):
    bit for bit; 4 FULL + train frames replayed against eager bit for bit;
    32x32 frames with 300 strands on the card against the CPU, phase 9's
    bounds read and printed (``_hair_card_vs_cpu``);
+6i. scene files: the Cornell box written in the reference's formats
+   (system and scene files, five ``.mdl`` files, the back wall as an
+   ``assimp`` OBJ) and rendered by the batch CLI at 320x320, ``-m 1 --spp
+   8``: K1, K2, K3, K6 and K7 launched in that run, the PNG written, the
+   CLI's throughput line printed, and its frames' image bit for bit that of
+   a ``Renderer`` on ``cornell_box()`` from the same seed;
 7. large scene: FULL + train at 320x320 on ``cornell_objects`` (the wide
    BVH path), replayed: frames until the tile size settles, then 4 timed
    frames and 4 more counted; W1, W2 and the path's gather must run, K1 and
@@ -979,6 +985,60 @@ def _materials_slice(kernels, dev, BI, path_gather, report):
 
 # cornell_hair's strands in the 32x32 frames on the card against the CPU,
 # whose plain walk steps in Python
+SCENE_FILES_SPP = 8  # frames the CLI renders in phase 6i
+
+
+def _scene_files_slice(kernels, dev, path_gather):
+    """The scene-file entry point, phase 6i of the module's docstring: the
+    Cornell box written in the reference's formats (a system file, a scene
+    file, five ``.mdl`` files on a search path, the back wall as an
+    ``assimp`` OBJ) into a temporary directory, rendered by the batch CLI
+    (``nrc_tpu_torch.app.cli.main``) at 320x320, ``-m 1 --spp 8`` on the
+    card: K1, K2, K3, K6 and K7 launched in that run, the PNG written, the
+    CLI's lines printed (its throughput line among them), and the image of
+    its replayed frames, from the render state it saves, bit for bit that
+    of a ``Renderer`` on ``cornell_box()`` from the same seed (the loaded
+    triangles are the in-code ones bit for bit, and the emitter's albedo,
+    the one field that differs, enters no frame)."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from nrc_tpu_torch.app import cli
+    from nrc_tpu_torch.render.renderer import Renderer
+    from nrc_tpu_torch.scene.scene_builder import cornell_box, write_cornell_box_files
+
+    names = ("intersect_planes", "occluded_planes", "fused_forward", "fused_train4", path_gather)
+    with tempfile.TemporaryDirectory(prefix="nrc_scene_files_") as d:
+        system, scene = write_cornell_box_files(d, (320, 320))
+        prefix, state = os.path.join(d, "cornell"), os.path.join(d, "state.npz")
+        argv = ["-s", system, "-d", scene, "-m", "1", "--spp", str(SCENE_FILES_SPP), "--output", prefix,
+                "--checkpoint", state]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, counts = _counted(kernels, names, lambda: cli.main(argv))
+        for line in out.getvalue().splitlines():
+            print(f"scene files, cli: {line}")
+        print(f"scene files, cli launches over {SCENE_FILES_SPP} frames: {counts}")
+        _check(rc == 0, f"the CLI returned {rc}")
+        png = f"{prefix}_{SCENE_FILES_SPP}spp.png"
+        _check(os.path.isfile(png) and os.path.getsize(png) > 0, f"the CLI wrote no {png}")
+        _check(all(n > 0 for n in counts.values()), f"the CLI's run launched no {[k for k, n in counts.items() if not n]}")
+        with np.load(state) as z:
+            image = z["render.image"]
+            _check(int(z["render.iteration"]) == SCENE_FILES_SPP, "the CLI's render state has another iteration")
+    ref = Renderer(*cornell_box((320, 320)), device=dev)
+    ref.render(SCENE_FILES_SPP)
+    want = ref.image.cpu().numpy()
+    same = np.all(image == want, axis=-1).mean()
+    rel = np.abs(image - want) / np.maximum(np.abs(want), 1e-3)
+    print(f"scene files: the CLI's image against cornell_box()'s after {SCENE_FILES_SPP} replayed frames: "
+          f"{100 * same:.3f} % of pixels bit for bit, largest relative gap {rel.max():.3e}, "
+          f"means {image.mean():.6f} / {want.mean():.6f}")
+    _check(np.array_equal(image, want), "the frames on the loaded Cornell files are not cornell_box()'s bit for bit")
+
+
 HAIR_SMALL_STRANDS = 300
 
 
@@ -2258,6 +2318,10 @@ def main() -> int:
     phase_clock("6h")
     # ---- 6h. curves and hair: cornell_hair, C1/C2 and the Chiang BSDF -----------
     _hair_slice(kernels, dev, BI, PF, path_gather, report, launches)
+
+    phase_clock("6i")
+    # ---- 6i. the scene-file entry point: the CLI on the Cornell box's files -----
+    _scene_files_slice(kernels, dev, path_gather)
 
     phase_clock("7")
     # ---- 7. the large scene: FULL + train through the wide BVH -------------------

@@ -1,8 +1,8 @@
 """Procedural triangle geometry (NumPy): plane, box, sphere, torus, affine
-transform.
+transform, and the normals and tangents the mesh loaders generate.
 
-Port of the builders of ``nrc_tpu/scene/geometry.py`` that the built-in
-scenes use, with the reference's conventions:
+Port of ``nrc_tpu/scene/geometry.py`` (all but ``concat_meshes``, which
+nothing in the port calls), with the reference's conventions:
 - plane: [-1,1]^2 quad tessellated tessU x tessV, normal along upAxis
   (``nrc/src/Plane.cpp:35-120``)
 - box: unit cube [-1,1]^3, 12 triangles (``nrc/src/Box.cpp:35``)
@@ -161,3 +161,32 @@ def transform_mesh(mesh: Mesh, matrix: np.ndarray) -> Mesh:
         mesh.texcoords,
         mesh.indices,
     )
+
+
+def generate_normals(pos: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """Smooth area-weighted vertex normals from face geometry."""
+    acc = np.zeros_like(pos)
+    if indices.size:
+        fn = np.cross(
+            pos[indices[:, 1]] - pos[indices[:, 0]],
+            pos[indices[:, 2]] - pos[indices[:, 0]],
+        )
+        for c in range(3):
+            np.add.at(acc, indices[:, c], fn)
+    ln = np.linalg.norm(acc, axis=-1, keepdims=True)
+    out = acc / np.maximum(ln, 1e-20)
+    out[ln[:, 0] < 1e-20] = (0.0, 0.0, 1.0)
+    return out.astype(np.float32)
+
+
+def generate_tangents(pos: np.ndarray, nrm: np.ndarray, uv: np.ndarray,
+                      indices: np.ndarray) -> np.ndarray:
+    """Per-vertex tangents orthogonal to the normal (frame for anisotropy;
+    the reference computes these in ``Application::calculateTangents``)."""
+    t = np.zeros_like(nrm)
+    t[:, 0] = 1.0
+    dots = np.abs(np.sum(t * nrm, axis=-1))
+    t[dots > 0.9] = (0.0, 1.0, 0.0)
+    t = t - nrm * np.sum(t * nrm, axis=-1, keepdims=True)
+    t /= np.maximum(np.linalg.norm(t, axis=-1, keepdims=True), 1e-20)
+    return t.astype(np.float32)

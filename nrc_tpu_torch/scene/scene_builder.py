@@ -1,27 +1,36 @@
-"""Scene assembly: model declarations -> flat world-space SoA arrays (NumPy).
+"""Scene assembly: declarations -> flat world-space SoA arrays (NumPy).
 
-Port of the parts of ``nrc_tpu/scene/scene_builder.py`` the serving path
-uses: the ``Scene`` dataclass, the geometry flattening of ``build_scene``
-and ``_build_lights`` (``scene_builder.py:277-429``): declared lights (an
-environment first, constant or a Radiance ``.hdr`` map; point, spot and IES
-lights, an IES profile found on the search paths) and one implicit mesh
-light per emissive material (reference ``Application::createMeshLights``,
-``Application.cpp:2079-2238``). Loading the reference's ``.txt``/``.mdl``
-files is not ported yet; the scenes are built in code: ``cornell_box()``,
-``cornell_objects()`` (the same box around a finely tessellated sphere and
-torus, about 132 K triangles, the large-scene path), ``cornell_glass()``
-(dielectric blocks and a thin-walled translucent panel: the transmission
-lobes and the IOR stack), ``cornell_lights()`` (the box's area light with a
-point, a spot and an IES light) and ``env_textured()`` (an open scene under
-an equirect or constant environment with textured albedo, a cutout panel
-and a textured emitter), ``cornell_materials()`` (layered, modified,
-measured and procedural-noise surfaces), ``cornell_volume()`` (a
-scattering and an absorbing medium) and ``cornell_hair()`` (a patch of
-fur on the short block: B-spline strands tessellated into round cones,
-``scene/hair.py``, under the Chiang hair BSDF). ``cornell_lights``, ``env_textured``
-and ``cornell_materials`` write their files (an LM-63 profile, PNG
-textures, an RLE ``.hdr`` map, a baked measurement) into a directory the
-caller gives and load them back through the file path every scene takes.
+Port of ``nrc_tpu/scene/scene_builder.py``: the ``Scene`` dataclass,
+``load_scene`` / ``build_scene`` (a reference-format system and scene file
+pair: ``scene/parser.py``; materials from ``.mdl`` files through
+``scene/mdl.py::load_material`` with its load report; ``model plane | box |
+sphere | torus | hair | assimp``, the meshes of ``assimp`` read by
+extension through the OBJ, PLY, STL, glTF/GLB, COLLADA, FBX and 3DS
+loaders; the camera, lens and tonemapper overrides), the geometry
+flattening and ``_build_lights`` (``scene_builder.py:277-429``): declared
+lights (an environment first, constant, a Radiance ``.hdr`` map or a DDS
+map, whose cube faces are kept beside a lat-long proxy; point, spot and
+IES lights, an IES profile found on the search paths) and one implicit
+mesh light per emissive material (reference
+``Application::createMeshLights``, ``Application.cpp:2079-2238``).
+
+The built-in scenes declare their models and lights in code with the
+parser's ``ModelDecl`` and ``LightDecl`` and go through the same
+flattening (``flatten_models``): ``cornell_box()``, ``cornell_objects()``
+(the same box around a finely tessellated sphere and torus, about 132 K
+triangles, the large-scene path), ``cornell_glass()`` (dielectric blocks
+and a thin-walled translucent panel: the transmission lobes and the IOR
+stack), ``cornell_lights()`` (the box's area light with a point, a spot
+and an IES light) and ``env_textured()`` (an open scene under an
+equirect or constant environment with textured albedo, a cutout panel and
+a textured emitter), ``cornell_materials()`` (layered, modified, measured
+and procedural-noise surfaces), ``cornell_volume()`` (a scattering and an
+absorbing medium) and ``cornell_hair()`` (a patch of fur on the short
+block: B-spline strands tessellated into round cones, ``scene/hair.py``,
+under the Chiang hair BSDF). ``cornell_lights``, ``env_textured`` and
+``cornell_materials`` write their files (an LM-63 profile, PNG textures,
+an RLE ``.hdr`` map, a baked measurement) into a directory the caller
+gives and load them back through the file path every scene takes.
 """
 
 from __future__ import annotations
@@ -40,7 +49,11 @@ from ..utils.hdr_loader import load_radiance_hdr
 from ..utils.image_io import write_hdr_rle, write_png
 from . import geometry as geo
 from .camera import Camera
-from .hair import CurveSegments, HairFile, hair_to_segments, transform_segments
+from .dae_loader import load_dae
+from .dds_loader import load_dds
+from .fbx_loader import load_fbx
+from .gltf_loader import load_gltf
+from .hair import CurveSegments, HairFile, hair_to_segments, load_hair, transform_segments
 from .ies import ies_to_texture, load_ies
 from .lights import (
     TYPE_LIGHT_ENV_CONST,
@@ -57,6 +70,12 @@ from .lights import (
 )
 from .materials import Archetype, EmissionMode, Material, MaterialTable
 from .mbsdf import bake_ggx
+from .mdl import load_material
+from .obj_loader import load_obj
+from .parser import LightDecl, ModelDecl, SceneDescription, parse_scene_description, parse_system_description
+from .ply_loader import load_ply
+from .stl_loader import load_stl
+from .tds_loader import load_3ds
 
 
 @dataclasses.dataclass
@@ -82,6 +101,13 @@ class Scene:
     lens_shader: int = 0
     # curve primitives: hair strands as round-cone segments (scene/hair.py)
     curves: Optional[CurveSegments] = None
+    # per-material load report of a scene read from files
+    # (mdl.load_material): status, archetype and fallback reasons
+    material_report: Optional[List[dict]] = None
+
+    def material_load_warnings(self) -> List[dict]:
+        """The report's entries of materials that did not load."""
+        return [e for e in (self.material_report or []) if e["status"] != "ok"]
 
     @property
     def num_triangles(self) -> int:
@@ -103,20 +129,19 @@ class Scene:
         return lo, hi
 
 
-@dataclasses.dataclass(frozen=True)
-class ModelDecl:
-    """One ``model`` line of a scene: a procedural mesh, its object-to-world
-    matrix and the name of its material."""
-
-    kind: str                  # "plane", "box", "sphere" or "torus"
-    # plane: (tess_u, tess_v, up_axis); sphere: (tess_u, tess_v, max_theta / pi);
-    # torus: (tess_u, tess_v, inner_radius, outer_radius)
-    args: Tuple[float, ...]
-    matrix: np.ndarray         # [4, 4] float64
-    material: str
+# the mesh importers of ``model assimp`` by extension; any other is read as OBJ
+# (the stand-in for the reference's Assimp import, Assimp.cpp:54-239)
+MESH_LOADERS = {
+    ".ply": load_ply, ".gltf": load_gltf, ".glb": load_gltf, ".stl": load_stl,
+    ".fbx": load_fbx, ".dae": load_dae, ".3ds": load_3ds,
+}
 
 
 def make_mesh(decl: ModelDecl) -> geo.Mesh:
+    """A model's mesh in object space. ``args``: plane (tess_u, tess_v,
+    up_axis), sphere (tess_u, tess_v, max_theta / pi), torus (tess_u,
+    tess_v, inner_radius, outer_radius); ``assimp`` reads ``decl.path`` as
+    written (not on the search paths, as the JAX package reads it)."""
     if decl.kind == "plane":
         return geo.create_plane(*decl.args)
     if decl.kind == "box":
@@ -126,22 +151,19 @@ def make_mesh(decl: ModelDecl) -> geo.Mesh:
         return geo.create_sphere(tess_u, tess_v, 1.0, theta * np.pi)
     if decl.kind == "torus":
         return geo.create_torus(*decl.args)
-    raise NotImplementedError(f"model kind {decl.kind!r} is not ported")
+    if decl.kind == "assimp":
+        return MESH_LOADERS.get(os.path.splitext(decl.path)[1].lower(), load_obj)(decl.path)
+    raise ValueError(f"unsupported model kind {decl.kind!r}")
 
 
-@dataclasses.dataclass
-class LightDecl:
-    """One declared light of a scene (the fields of the JAX parser's
-    ``LightDecl``, ``nrc_tpu/scene/parser.py:164-172``)."""
-
-    light_type: str                         # env | point | spot | ies
-    matrix: np.ndarray                      # 4x4 object-to-world
-    emission: Tuple[float, float, float]
-    multiplier: float
-    texture: str = ""                       # env emission texture filename
-    profile: str = ""                       # IES profile filename
-    spot_angle: float = 45.0                # full cone angle, degrees
-    spot_exponent: float = 0.0
+def _find_file(search_paths: Sequence[str], name: str) -> Optional[str]:
+    """``name`` joined to the first search path where it is a file (an empty
+    path means ``name`` as it is)."""
+    for sp in search_paths:
+        path = os.path.join(sp, name) if sp else name
+        if os.path.isfile(path):
+            return path
+    return None
 
 
 def build_lights(
@@ -200,12 +222,10 @@ def build_lights(
             # emissionProfile -> goniometric candela texture
             # (Application.cpp:2042-2052 LoaderIES -> Picture::createIES)
             prof = -1
-            for sp in search_paths if ld.profile else ():
-                path = os.path.join(sp, ld.profile) if sp else ld.profile
-                if os.path.isfile(path):
-                    ies_textures.append(ies_to_texture(load_ies(path)))
-                    prof = len(ies_textures) - 1
-                    break
+            path = _find_file(search_paths, ld.profile) if ld.profile else None
+            if path is not None:
+                ies_textures.append(ies_to_texture(load_ies(path)))
+                prof = len(ies_textures) - 1
             add(TYPE_LIGHT_IES, ld.matrix, emission, ies=prof)
 
     light_id = np.full(material_id.shape[0], -1, np.int32)
@@ -258,22 +278,24 @@ def build_lights(
 def _load_env_texture(search_paths: Tuple[str, ...], filename: str):
     """An env map file -> (equirect [H, W, 3], cube [6, Hc, Wc, 3] or None),
     the first found on the search paths (``nrc_tpu/scene/scene_builder.py:
-    432-460``). A Radiance ``.hdr`` loads as the lat-long map; a file that
-    does not load gives (None, None), and the light becomes a constant
-    environment. DDS cube maps are not ported yet."""
-    for sp in search_paths + ("",):
-        path = os.path.join(sp, filename) if sp else filename
-        if not os.path.isfile(path):
-            continue
+    432-460``). A Radiance ``.hdr`` loads as the lat-long map, a 2D DDS
+    image as one too; a DDS cube map keeps its six faces, with a lat-long
+    proxy resampled from them for the importance tables. A file that does
+    not load gives (None, None), and the light becomes a constant
+    environment."""
+    path = _find_file(search_paths + ("",), filename)
+    if path is None:
+        return None, None
+    try:
         if path.lower().endswith(".dds"):
-            raise NotImplementedError(
-                f"{path}: DDS environment maps are not ported yet (ROADMAP Queue 1 item 4, dds_loader)"
-            )
-        try:
-            return load_radiance_hdr(path), None
-        except (OSError, ValueError):
-            return None, None
-    return None, None
+            img = load_dds(path)
+            if img.ndim == 4:  # a cube: [6, H, W, 4]
+                cube = np.ascontiguousarray(img[..., :3], dtype=np.float32)
+                return _equirect_from_cube(cube), cube
+            return np.ascontiguousarray(img[..., :3], np.float32), None
+        return load_radiance_hdr(path), None
+    except Exception:  # noqa: BLE001 - a constant environment, as in the JAX package
+        return None, None
 
 
 def _equirect_from_cube(cube: np.ndarray, height: int = 0) -> np.ndarray:
@@ -298,6 +320,79 @@ def _equirect_from_cube(cube: np.ndarray, height: int = 0) -> np.ndarray:
     return out.numpy().reshape(h, w, 3).astype(np.float32)
 
 
+TRIANGLE_FIELDS = ("p0", "p1", "p2", "n0", "n1", "n2", "uv0", "uv1", "uv2")
+
+
+def flatten_models(
+    models: Sequence[ModelDecl], mat_index: Dict[str, int], search_paths: Sequence[str],
+) -> tuple[Dict[str, np.ndarray], Optional[CurveSegments]]:
+    """Declared models -> one world-space triangle soup and the merged hair
+    segments (``nrc_tpu/scene/scene_builder.py:163-241``), for the scenes
+    read from files and those built in code alike. A model's material is
+    ``mat_index[material_ref]``, material 0 when the name is not declared.
+    A ``hair`` model reads its ``.hair`` file from the search paths and is
+    dropped when the file is on none of them; a model whose mesh does not
+    load (an unknown kind, a missing or malformed file) is dropped, as the
+    JAX package drops it. Returns ``{TRIANGLE_FIELDS..., "material_id"}``
+    and the curves (None without hair)."""
+    tri = {k: [] for k in TRIANGLE_FIELDS + ("material_id",)}
+    curve_parts: List[CurveSegments] = []
+    for decl in models:
+        mid = mat_index.get(decl.material_ref, 0)
+        if decl.kind == "hair":
+            # model hair <thickness_scale> <mat> "<file.hair>"
+            # (sg::Curves::createHair, Curves.cpp:104-315)
+            path = _find_file(search_paths, decl.path)
+            if path is None:
+                continue
+            seg = hair_to_segments(load_hair(path), material_id=mid,
+                                   thickness_scale=float(decl.args[0]) if decl.args else 1.0)
+            curve_parts.append(transform_segments(seg, decl.matrix))
+            continue
+        try:
+            mesh = make_mesh(decl)
+        except Exception:  # noqa: BLE001 - dropped, as the JAX build_scene drops it
+            continue
+        mesh = geo.transform_mesh(mesh, decl.matrix)
+        idx = mesh.indices.astype(np.int64)
+        for k in range(3):
+            tri[f"p{k}"].append(mesh.vertices[idx[:, k]])
+            tri[f"n{k}"].append(mesh.normals[idx[:, k]])
+            tri[f"uv{k}"].append(mesh.texcoords[idx[:, k]])
+        tri["material_id"].append(np.full(idx.shape[0], mid, np.int32))
+    if tri["material_id"]:
+        arrays = {k: np.concatenate(v) for k, v in tri.items()}
+    else:
+        arrays = {k: np.zeros((0, 2 if k.startswith("uv") else 3), np.float32) for k in TRIANGLE_FIELDS}
+        arrays["material_id"] = np.zeros((0,), np.int32)
+    curves = None
+    if curve_parts:
+        curves = CurveSegments(**{
+            f.name: np.concatenate([getattr(cp, f.name) for cp in curve_parts])
+            for f in dataclasses.fields(CurveSegments)
+        }) if len(curve_parts) > 1 else curve_parts[0]
+    return arrays, curves
+
+
+def _scene(models, mat_rows: List[Material], mat_index: Dict[str, int], lights, search_paths,
+           camera: Camera, lens_shader: int = 0, material_report=None) -> Scene:
+    arrays, curves = flatten_models(models, mat_index, search_paths)
+    light_table, light_id = build_lights(
+        lights, search_paths, mat_rows, *(arrays[k] for k in TRIANGLE_FIELDS), arrays["material_id"]
+    )
+    return Scene(
+        **arrays,
+        light_id=light_id,
+        materials=MaterialTable.build(mat_rows),
+        material_rows=mat_rows,
+        lights=light_table,
+        camera=camera,
+        lens_shader=lens_shader,
+        curves=curves,
+        material_report=material_report,
+    )
+
+
 def assemble_scene(
     models: Sequence[ModelDecl],
     materials: Dict[str, Material],
@@ -305,39 +400,50 @@ def assemble_scene(
     lights: Sequence[LightDecl] = (),
     search_paths: Sequence[str] = (),
 ) -> Scene:
-    """Flatten declared models into one world-space triangle soup, as
-    ``nrc_tpu/scene/scene_builder.py::build_scene`` does, and build the
-    light table: the declared ``lights`` (files found on ``search_paths``)
-    and the mesh lights. ``materials`` keeps its insertion order as
-    material ids."""
-    mat_rows = list(materials.values())
+    """A scene built in code: ``flatten_models`` and the light table of the
+    declared ``lights`` (files found on ``search_paths``) and the mesh
+    lights. ``materials`` keeps its insertion order as material ids."""
     mat_index = {name: i for i, name in enumerate(materials)}
-    tri = {k: [] for k in ("p0", "p1", "p2", "n0", "n1", "n2", "uv0", "uv1", "uv2", "mat")}
-    for decl in models:
-        mesh = geo.transform_mesh(make_mesh(decl), decl.matrix)
-        idx = mesh.indices.astype(np.int64)
-        for k in range(3):
-            tri[f"p{k}"].append(mesh.vertices[idx[:, k]])
-            tri[f"n{k}"].append(mesh.normals[idx[:, k]])
-            tri[f"uv{k}"].append(mesh.texcoords[idx[:, k]])
-        tri["mat"].append(np.full(idx.shape[0], mat_index[decl.material], np.int32))
-    arrays = {k: np.concatenate(v) for k, v in tri.items()}
-    p0, p1, p2 = arrays["p0"], arrays["p1"], arrays["p2"]
-    n0, n1, n2 = arrays["n0"], arrays["n1"], arrays["n2"]
-    uv0, uv1, uv2 = arrays["uv0"], arrays["uv1"], arrays["uv2"]
-    material_id = arrays["mat"]
-    light_table, light_id = build_lights(
-        lights, search_paths, mat_rows, p0, p1, p2, n0, n1, n2, uv0, uv1, uv2, material_id
-    )
-    return Scene(
-        p0=p0, p1=p1, p2=p2, n0=n0, n1=n1, n2=n2, uv0=uv0, uv1=uv1, uv2=uv2,
-        material_id=material_id,
-        light_id=light_id,
-        materials=MaterialTable.build(mat_rows),
-        material_rows=mat_rows,
-        lights=light_table,
-        camera=camera,
-    )
+    return _scene(models, list(materials.values()), mat_index, lights, tuple(search_paths), camera)
+
+
+def build_scene(desc: SceneDescription, system: SystemConfig, base_dir: str = "") -> Scene:
+    """A parsed scene description -> ``Scene`` (``nrc_tpu/scene/
+    scene_builder.py:140-274``). The search paths are the system's (each
+    joined to ``base_dir`` unless absolute; ``("",)`` when it names none)
+    and then ``base_dir``. Each ``mdl`` declaration becomes a material
+    through ``load_material``, a gray diffuse one with a report entry when
+    its file is missing or does not parse; a scene without materials gets
+    one default material. The scene's camera, centre and lens shader
+    override the system's."""
+    search_paths = tuple(
+        os.path.join(base_dir, sp) if not os.path.isabs(sp) else sp
+        for sp in (system.search_paths or ("",))
+    ) + (base_dir,)
+    mat_rows: List[Material] = []
+    mat_index: Dict[str, int] = {}
+    report: List[dict] = []
+    for mdecl in desc.materials:
+        mat_index[mdecl.reference] = len(mat_rows)
+        mat_rows.append(load_material(search_paths, mdecl.path, mdecl.reference, report=report))
+    if not mat_rows:
+        mat_rows.append(Material(name="default"))
+    center = desc.center if desc.center is not None else system.center
+    phi, theta, fov, distance = desc.camera if desc.camera is not None else system.camera
+    camera = Camera(center=tuple(center), phi=phi, theta=theta, fov=fov, distance=distance,
+                    aspect=system.resolution[0] / max(system.resolution[1], 1))
+    lens = desc.lens_shader if desc.lens_shader is not None else system.lens_shader
+    return _scene(desc.models, mat_rows, mat_index, desc.lights, search_paths, camera, lens, report)
+
+
+def load_scene(system_path: str, scene_path: str) -> tuple[Scene, SystemConfig]:
+    """Load a reference-format (system.txt, scene.txt) pair; the scene's
+    tonemapper, where it sets one, replaces the system's."""
+    system = parse_system_description(system_path)
+    desc = parse_scene_description(scene_path)
+    if desc.tonemapper is not None:
+        system.tonemapper = desc.tonemapper
+    return build_scene(desc, system, base_dir=os.path.dirname(scene_path)), system
 
 
 # ---------------------------------------------------------------------------
@@ -403,19 +509,14 @@ def cornell_box_declarations() -> tuple[
     }
     wall = _scale(10.0)
     models = [
-        ModelDecl("plane", (10, 10, 1), _translate(0, -10, 0) @ wall, "white"),  # floor
-        ModelDecl("plane", (10, 10, 1), _translate(0, 10, 0) @ _rotate(2, 180) @ wall,
-                  "white"),  # ceiling
-        ModelDecl("plane", (10, 10, 1), _translate(0, 9.9, 0) @ _rotate(2, 180) @ _scale(2.0),
-                  "light"),
-        ModelDecl("plane", (10, 10, 2), _translate(0, 0, -10) @ wall, "white"),  # back
-        ModelDecl("plane", (10, 10, 0), _translate(-10, 0, 0) @ wall, "red"),  # left
-        ModelDecl("plane", (10, 10, 0), _translate(10, 0, 0) @ _rotate(1, 180) @ wall,
-                  "green"),  # right
-        ModelDecl("box", (), _translate(-4, -4, -3) @ _rotate(1, 20) @ _scale(3, 6, 3),
-                  "white"),
-        ModelDecl("box", (), _translate(4, -7, 3) @ _rotate(1, -20) @ _scale(3.0),
-                  "glossy"),
+        ModelDecl("plane", _translate(0, -10, 0) @ wall, "white", (10, 10, 1)),  # floor
+        ModelDecl("plane", _translate(0, 10, 0) @ _rotate(2, 180) @ wall, "white", (10, 10, 1)),  # ceiling
+        ModelDecl("plane", _translate(0, 9.9, 0) @ _rotate(2, 180) @ _scale(2.0), "light", (10, 10, 1)),
+        ModelDecl("plane", _translate(0, 0, -10) @ wall, "white", (10, 10, 2)),  # back
+        ModelDecl("plane", _translate(-10, 0, 0) @ wall, "red", (10, 10, 0)),  # left
+        ModelDecl("plane", _translate(10, 0, 0) @ _rotate(1, 180) @ wall, "green", (10, 10, 0)),  # right
+        ModelDecl("box", _translate(-4, -4, -3) @ _rotate(1, 20) @ _scale(3, 6, 3), "white"),
+        ModelDecl("box", _translate(4, -7, 3) @ _rotate(1, -20) @ _scale(3.0), "glossy"),
     ]
     camera = dict(center=(0.0, 0.0, 15.0), phi=0.750781, theta=0.5, fov=55.0, distance=20.0)
     return models, materials, camera
@@ -442,6 +543,81 @@ def cornell_box(resolution: Tuple[int, int] = (320, 320)) -> tuple[Scene, System
     return _cornell_scene(*cornell_box_declarations(), resolution)
 
 
+# ---------------------------------------------------------------------------
+# The Cornell box as reference-format files
+# ---------------------------------------------------------------------------
+
+CORNELL_MDL = {
+    "white": "scattering: df::diffuse_reflection_bsdf(tint: color(0.8, 0.8, 0.8))",
+    "red": "scattering: df::diffuse_reflection_bsdf(tint: color(0.8, 0.05, 0.05))",
+    "green": "scattering: df::diffuse_reflection_bsdf(tint: color(0.05, 0.8, 0.05))",
+    "light": ("emission: material_emission(\n      emission: df::diffuse_edf(),\n"
+              "      intensity: color(100.0),\n      mode: intensity_radiant_exitance\n    )"),
+    "glossy": ("scattering: df::microfacet_ggx_smith_bsdf(\n      roughness_u: 0.1,\n"
+               "      roughness_v: 0.1,\n      tint: color(0.9, 0.9, 0.9),\n      mode: df::scatter_reflect\n    )"),
+}
+
+# the models of cornell_box_declarations() as scene-file statements, each
+# transform multiplied on the left of the ones before it; the back wall is
+# read from an OBJ file
+CORNELL_MODELS = (
+    ("scale 10 10 10", "translate 0 -10 0", "model plane 10 10 1 white"),
+    ("scale 10 10 10", "rotate 0 0 1 180", "translate 0 10 0", "model plane 10 10 1 white"),
+    ("scale 2 2 2", "rotate 0 0 1 180", "translate 0 9.9 0", "model plane 10 10 1 light"),
+    ("scale 10 10 10", "translate 0 0 -10", 'model assimp "{obj}" white'),
+    ("scale 10 10 10", "translate -10 0 0", "model plane 10 10 0 red"),
+    ("scale 10 10 10", "rotate 0 1 0 180", "translate 10 0 0", "model plane 10 10 0 green"),
+    ("scale 3 6 3", "rotate 0 1 0 20", "translate -4 -4 -3", "model box white"),
+    ("scale 3 3 3", "rotate 0 1 0 -20", "translate 4 -7 3", "model box glossy"),
+)
+
+
+def write_obj(path: str, mesh: geo.Mesh) -> None:
+    """A mesh as a Wavefront OBJ: positions, normals and texcoords written
+    so that they read back to the same float32 values, one ``f`` line a
+    triangle."""
+    def line(tag, row):
+        return tag + " " + " ".join(repr(float(x)) for x in row)
+
+    lines = [line("v", r) for r in mesh.vertices] + [line("vn", r) for r in mesh.normals]
+    lines += [line("vt", r) for r in mesh.texcoords]
+    lines += ["f " + " ".join(f"{i + 1}/{i + 1}/{i + 1}" for i in tri) for tri in mesh.indices.astype(np.int64)]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_cornell_box_files(directory: str, resolution: Tuple[int, int] = (320, 320)) -> tuple[str, str]:
+    """``cornell_box()`` in the reference's file formats, written into
+    ``directory`` (made if it does not exist): ``system_cornell.txt``
+    (the resolution, 16x16 tiles, path lengths 2-6, 1 spp a frame, the
+    camera, ``searchPath "mdl"``), ``scene_cornell.txt`` and five ``.mdl``
+    files under ``mdl/``; the back wall is ``back_wall.obj``, read through
+    ``model assimp`` by its absolute path. Returns (system path, scene
+    path). Loaded with ``load_scene``, it gives ``cornell_box()``'s
+    arrays but for the emitter's albedo: a material with no ``scattering``
+    reads as ``NULL_BSDF`` with the default albedo (1, 1, 1)."""
+    directory = os.path.abspath(directory)
+    os.makedirs(os.path.join(directory, "mdl"), exist_ok=True)
+    for name, body in CORNELL_MDL.items():
+        with open(os.path.join(directory, "mdl", f"{name}.mdl"), "w") as f:
+            f.write(f"mdl 1.4;\nimport ::df::*;\n\nexport material {name}() = material(\n"
+                    f"  surface: material_surface(\n    {body}\n  ),\n  ior: color(1.5)\n);\n")
+    obj = os.path.join(directory, "back_wall.obj")
+    write_obj(obj, geo.create_plane(10, 10, 2))
+    system = os.path.join(directory, "system_cornell.txt")
+    with open(system, "w") as f:
+        f.write(f"# the Cornell box of nrc_tpu_torch.scene.scene_builder.cornell_box()\n"
+                f"resolution {resolution[0]} {resolution[1]}\ntileSize 16 16\nsamplesSqrt 1\n"
+                f"pathLengths 2 6\ncenter 0 0 15\ncamera 0.750781 0.5 55 20\nsearchPath \"mdl\"\n")
+    scene = os.path.join(directory, "scene_cornell.txt")
+    lines = [f"mdl {name} {name} \"{name}.mdl\"" for name in CORNELL_MDL]
+    for statements in CORNELL_MODELS:
+        lines += ["push"] + [s.format(obj=obj) for s in statements] + ["pop"]
+    with open(scene, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return system, scene
+
+
 OBJECT_TESSELLATION = (256, 128)  # 2 x 256 x 128 = 65,536 triangles per object
 
 
@@ -456,8 +632,8 @@ def cornell_objects(resolution: Tuple[int, int] = (320, 320)) -> tuple[Scene, Sy
     models, materials, cam = cornell_box_declarations()
     tu, tv = OBJECT_TESSELLATION
     objects = [
-        ModelDecl("sphere", (tu, tv, 1.0), _translate(-4, -6, -3) @ _scale(4.0), "white"),
-        ModelDecl("torus", (tu, tv, 1.0, 3.0), _translate(4, -9, 3), "glossy"),
+        ModelDecl("sphere", _translate(-4, -6, -3) @ _scale(4.0), "white", (tu, tv, 1.0)),
+        ModelDecl("torus", _translate(4, -9, 3), "glossy", (tu, tv, 1.0, 3.0)),
     ]
     return _cornell_scene(models[:6] + objects, materials, cam, resolution)
 
@@ -482,10 +658,9 @@ def cornell_glass_declarations() -> tuple[List[ModelDecl], Dict[str, Material], 
     )
     tall, short = models[6], models[7]
     models = models[:6] + [
-        dataclasses.replace(tall, material="glass"),
-        dataclasses.replace(short, material="frosted"),
-        ModelDecl("plane", (4, 4, 2), _translate(6, -4.5, -6) @ _rotate(1, -30) @ _scale(2.5, 5, 1),
-                  "panel"),
+        dataclasses.replace(tall, material_ref="glass"),
+        dataclasses.replace(short, material_ref="frosted"),
+        ModelDecl("plane", _translate(6, -4.5, -6) @ _rotate(1, -30) @ _scale(2.5, 5, 1), "panel", (4, 4, 2)),
     ]
     return models, materials, cam
 
@@ -661,11 +836,11 @@ def env_textured_declarations(directory: str, env: str = "equirect",
                          emission_tex_path=tex["emitter"]),
     }
     models = [
-        ModelDecl("plane", (8, 8, 1), _translate(0, -10, 0) @ _scale(20.0), "floor"),
-        ModelDecl("box", (), _translate(-4, -4, -3) @ _rotate(1, 20) @ _scale(3, 6, 3), "white"),
-        ModelDecl("box", (), _translate(4, -7, 3) @ _rotate(1, -20) @ _scale(3.0), "glossy"),
-        ModelDecl("plane", (4, 4, 2), _translate(-9, -5, 5) @ _rotate(1, 30) @ _scale(3, 5, 1), "panel"),
-        ModelDecl("plane", (1, 1, 2), _translate(9, -5, -3) @ _rotate(1, -40) @ _scale(1.5), "lamp"),
+        ModelDecl("plane", _translate(0, -10, 0) @ _scale(20.0), "floor", (8, 8, 1)),
+        ModelDecl("box", _translate(-4, -4, -3) @ _rotate(1, 20) @ _scale(3, 6, 3), "white"),
+        ModelDecl("box", _translate(4, -7, 3) @ _rotate(1, -20) @ _scale(3.0), "glossy"),
+        ModelDecl("plane", _translate(-9, -5, 5) @ _rotate(1, 30) @ _scale(3, 5, 1), "panel", (4, 4, 2)),
+        ModelDecl("plane", _translate(9, -5, -3) @ _rotate(1, -40) @ _scale(1.5), "lamp", (1, 1, 2)),
     ]
     if env == "equirect":
         write_hdr_rle(os.path.join(directory, "env_textured_sky.hdr"), sky_map(*env_size))
@@ -752,7 +927,7 @@ def cornell_materials_declarations(directory: str) -> tuple[List[ModelDecl], Dic
                           mbsdf_multiplier=1.0),
     }
     surfaces = ("floor", "ceiling", "light", "back", "left", "right", "tall", "short")
-    models = [dataclasses.replace(m, material=name) for m, name in zip(models, surfaces)]
+    models = [dataclasses.replace(m, material_ref=name) for m, name in zip(models, surfaces)]
     return models, mats, cam
 
 
@@ -792,8 +967,8 @@ def cornell_volume_declarations() -> tuple[List[ModelDecl], Dict[str, Material],
         tinted=Material(name="tinted", archetype=glass, albedo=(1.0, 1.0, 1.0), ior=1.5,
                         sigma_a=(0.03, 0.12, 0.25)),
     )
-    models = models[:6] + [dataclasses.replace(models[6], material="fog"),
-                           dataclasses.replace(models[7], material="tinted")]
+    models = models[:6] + [dataclasses.replace(models[6], material_ref="fog"),
+                           dataclasses.replace(models[7], material_ref="tinted")]
     return models, materials, cam
 
 

@@ -12,9 +12,9 @@ bottom-up so that ``v = 0`` is the bottom scanline (the MDL texture
 runtime's convention, ``shaders/texture_lookup.h``).
 
 Images are read without an image library: PNG (8-bit RGB) through
-``utils/image_io.read_png`` and Radiance ``.hdr`` through
-``utils/hdr_loader.py``. DDS files are not ported yet (ROADMAP Queue 1
-item 4, ``dds_loader``).
+``utils/image_io.read_png``, Radiance ``.hdr`` through
+``utils/hdr_loader.py`` and DDS (block-compressed, mask and float formats,
+cube maps) through ``scene/dds_loader.py``.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import numpy as np
 
 from ..utils.hdr_loader import load_radiance_hdr
 from ..utils.image_io import read_png
+from .dds_loader import load_dds
 
 
 def _srgb_to_linear(c: np.ndarray) -> np.ndarray:
@@ -36,15 +37,18 @@ def _srgb_to_linear(c: np.ndarray) -> np.ndarray:
 def load_image_rgba(path: str) -> np.ndarray:
     """An image file -> float32 RGBA [H, W, 4], values as stored (no gamma
     conversion): PNG scaled by 1/255 with alpha 1, Radiance ``.hdr`` with
-    alpha 1. The JAX package reads PNGs through PIL where it is installed,
-    which gives the same floats for an 8-bit RGB file."""
+    alpha 1, DDS as decoded with its own alpha (a cube map's six faces
+    stacked as a vertical strip, as the JAX package stacks them). The JAX
+    package reads PNGs through PIL where it is installed, which gives the
+    same floats for an 8-bit RGB file."""
     ext = os.path.splitext(path)[1].lower()
+    if ext == ".dds":
+        img = load_dds(path)
+        if img.ndim == 4:  # a cube map in a 2D slot
+            img = img.reshape(-1, img.shape[2], 4)
+        return img.astype(np.float32)
     if ext == ".hdr":
         rgb = load_radiance_hdr(path).astype(np.float32)
-    elif ext == ".dds":
-        raise NotImplementedError(
-            f"{path}: DDS images are not ported yet (ROADMAP Queue 1 item 4, dds_loader)"
-        )
     else:
         rgb = read_png(path).astype(np.float32) / 255.0
     a = np.ones(rgb.shape[:2] + (1,), np.float32)

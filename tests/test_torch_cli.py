@@ -1,0 +1,94 @@
+"""The port's batch CLI against the JAX package's option set, and what it
+refuses.
+
+``nrc_tpu_torch/app/cli.py::build_parser`` must take the JAX CLI's options
+(``nrc_tpu/app/cli.py:27-87``), each with the same flags, destination,
+default, type, choices and requiredness, plus ``--device``; the same
+command line must parse to the same values. What the port does not run
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item before any
+frame: the viewer (``--present``, or ``present 1`` in the system file,
+with ``-m 0``), ``--devices`` above 1 and the orbax checkpoint container.
+``--device cuda`` (the default) raises without a card, as ``Renderer``
+does; the CPU is taken only when asked.
+"""
+
+import pytest
+import torch
+
+from nrc_tpu.app import cli as jcli
+from nrc_tpu_torch.app import cli
+from nrc_tpu_torch.scene.scene_builder import write_cornell_box_files
+
+
+def options(parser):
+    return {
+        a.dest: (tuple(a.option_strings), a.default, a.type, tuple(a.choices or ()), a.required, type(a).__name__)
+        for a in parser._actions
+    }
+
+
+def test_options_equal_jax_plus_device():
+    got, ref = options(cli.build_parser()), options(jcli.build_parser())
+    assert set(got) == set(ref) | {"device"}
+    for dest, spec in ref.items():
+        assert got[dest] == spec, dest
+    assert got["device"] == (("--device",), "cuda", None, ("cuda", "cpu"), False, "_StoreAction")
+
+
+@pytest.mark.parametrize("argv", [
+    ["-s", "sys.txt", "-d", "scene.txt"],
+    ["-s", "a", "-d", "b", "-m", "1", "-w", "64", "-h", "48", "--spp", "4", "--render-mode", "no_cache",
+     "--encoding", "hash", "--no-train", "--lr", "0.01", "--unbiased-ratio", "0.1", "--reflectance-factoring",
+     "--area-spread", "0.02", "--checkpoint", "c", "--checkpoint-every", "2", "--resume", "r", "--output", "o",
+     "--hdr", "--profile", "p", "--save-system", "s", "--stats-log", "l", "-o"],
+])
+def test_same_command_line_same_values(argv):
+    got = vars(cli.build_parser().parse_args(argv))
+    assert got.pop("device") == "cuda"
+    assert got == vars(jcli.build_parser().parse_args(argv))
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    return write_cornell_box_files(str(tmp_path_factory.mktemp("cornell")), (16, 16))
+
+
+@pytest.mark.parametrize("extra, item", [
+    (["--present"], "Queue 1 item 4"),
+    (["--devices", "2"], "Queue 1 item 5"),
+    (["--checkpoint-format", "orbax", "-m", "1"], "Do not port"),
+])
+def test_unported_options_raise(files, extra, item):
+    with pytest.raises(NotImplementedError, match=item):
+        cli.main(["-s", files[0], "-d", files[1], "--device", "cpu", "--spp", "1"] + extra)
+
+
+def test_present_in_the_system_file_raises_in_mode_0(files, tmp_path):
+    system = tmp_path / "system_present.txt"
+    system.write_text(open(files[0]).read() + "present 1\n")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        cli.main(["-s", str(system), "-d", files[1], "--device", "cpu", "--spp", "1"])
+    # the benchmark mode renders in batch, as the JAX CLI does
+    assert cli.main(["-s", str(system), "-d", files[1], "-m", "1", "--device", "cpu", "--spp", "1",
+                     "--no-train", "--output", str(tmp_path / "frame")]) == 0
+    assert (tmp_path / "frame_1spp.png").exists()
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="the card is there: cuda does not raise")
+def test_cuda_is_the_default_and_raises_without_a_card(files, tmp_path):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-s", files[0], "-d", files[1], "--spp", "1", "--output", str(tmp_path / "x")])
+    assert not (tmp_path / "x_1spp.png").exists()
+
+
+def test_mode_0_prints_progress_and_writes_files(files, tmp_path, capsys):
+    """Mode 0 prints the frame rate every 16 frames; ``--hdr``,
+    ``--save-system`` and ``--profile`` write their files."""
+    prefix = str(tmp_path / "out")
+    cli.main(["-s", files[0], "-d", files[1], "--device", "cpu", "--spp", "16", "-w", "8", "-h", "8",
+              "--render-mode", "no_cache", "--no-train", "--output", prefix, "--hdr",
+              "--save-system", str(tmp_path / "saved.txt"), "--profile", str(tmp_path / "trace")])
+    printed = capsys.readouterr().out
+    assert "[16/16] " in printed and (tmp_path / "out_16spp.hdr").exists()
+    assert "resolution 8 8" in (tmp_path / "saved.txt").read_text()
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0

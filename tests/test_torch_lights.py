@@ -18,6 +18,7 @@ everywhere else.
 
 import dataclasses
 import os
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -331,8 +332,13 @@ def test_radiance_hdr_bit_for_bit(tmp_path, fmt):
 
 
 def test_dds_environment_is_refused(tmp_path):
+    """A DDS environment that does not decode (a file cut after its magic)
+    is refused as a map: the light becomes a constant environment, as in
+    the JAX package (DDS maps that decode: tests/test_torch_dds.py)."""
     (tmp_path / "sky.dds").write_bytes(b"DDS ")
     decl = PSB.LightDecl("env", np.eye(4), (1.0, 1.0, 1.0), 1.0, texture="sky.dds")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        PSB.build_lights([decl], (str(tmp_path),), [], *([np.zeros((0, 3), np.float32)] * 6),
-                         *([np.zeros((0, 2), np.float32)] * 3), np.zeros(0, np.int32))
+    empty = [np.zeros((0, 3), np.float32)] * 6 + [np.zeros((0, 2), np.float32)] * 3 + [np.zeros(0, np.int32)]
+    table, _ = PSB.build_lights([decl], (str(tmp_path),), [], *empty)
+    jtable, _ = JSB._build_lights(types.SimpleNamespace(lights=[decl]), (str(tmp_path),), [], *empty)
+    assert table.type.tolist() == [PLT.TYPE_LIGHT_ENV_CONST] == np.asarray(jtable.type).tolist()
+    assert table.env_texture is None and jtable.env_texture is None

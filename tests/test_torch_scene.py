@@ -55,7 +55,7 @@ def jax_cornell_scene(resolution=(32, 32), declarations=cornell_box_declarations
             parts[f"p{k}"].append(mesh.vertices[idx[:, k]])
             parts[f"n{k}"].append(mesh.normals[idx[:, k]])
             parts[f"uv{k}"].append(mesh.texcoords[idx[:, k]])
-        parts["mat"].append(np.full(idx.shape[0], names.index(decl.material), np.int32))
+        parts["mat"].append(np.full(idx.shape[0], names.index(decl.material_ref), np.int32))
     a = {k: np.concatenate(v) for k, v in parts.items()}
     light_table, light_id = jax_build_lights(
         types.SimpleNamespace(lights=lights), tuple(search_paths), rows,
@@ -230,18 +230,26 @@ class TestUpload:
         assert torch.equal(dev.mat_row.view(torch.int32), torch.from_numpy(np.asarray(jrow)).view(torch.int32))
 
     def test_unported_lights_and_textures_raise(self, tmp_path):
-        """What of the lights and textures is not ported: DDS files (an
-        environment or a texture; Queue 1 item 4). The constant environment
-        and textures, refused before, are ported (tests/test_torch_lights.py,
-        test_torch_textures.py), and so are measured BSDFs, whose loader
-        refuses a container it does not know as the JAX package's does
-        (tests/test_torch_mbsdf.py)."""
+        """DDS files, refused before the scene-file slice, load as the JAX
+        package loads them (tests/test_torch_dds.py): a DDS environment
+        that does not decode (here a file cut after its magic) becomes a
+        constant environment in both packages, and such a texture raises
+        the JAX package's error. Measured BSDFs are ported too, whose
+        loader refuses a container it does not know as the JAX package's
+        does (tests/test_torch_mbsdf.py)."""
+        import struct
+
+        from nrc_tpu.scene.materials import MaterialTable as JTable
+        from nrc_tpu_torch.scene.lights import TYPE_LIGHT_ENV_CONST
+
         (tmp_path / "sky.dds").write_bytes(b"DDS ")
         models, materials, cam = cornell_box_declarations()
         env = LightDecl("env", np.eye(4), (1.0, 1.0, 1.0), 1.0, texture="sky.dds")
-        with pytest.raises(NotImplementedError, match="DDS"):
-            assemble_scene(models, materials, Camera(**cam), [env], (str(tmp_path),))
-        with pytest.raises(NotImplementedError, match="DDS"):
+        scene = assemble_scene(models, materials, Camera(**cam), [env], (str(tmp_path),))
+        assert scene.lights.type[0] == TYPE_LIGHT_ENV_CONST and scene.lights.env_texture is None
+        with pytest.raises(struct.error):
             MaterialTable.build([Material(albedo_tex_path=str(tmp_path / "sky.dds"))])
+        with pytest.raises(struct.error):
+            JTable.build([JMaterial(albedo_tex_path=str(tmp_path / "sky.dds"))])
         with pytest.raises(ValueError, match="measured"):
             MaterialTable.build([Material(mbsdf_path="paint.mbsdf")])

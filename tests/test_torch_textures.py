@@ -12,6 +12,7 @@ atlas's four corners (id -1 white),
 """
 
 import dataclasses
+import struct
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +23,7 @@ from nrc_tpu.ops import texture as JT
 from nrc_tpu.scene.materials import Material as JMaterial
 from nrc_tpu.scene.materials import MaterialTable as JMaterialTable
 from nrc_tpu.scene.texture import TextureAtlas as JAtlas
+from nrc_tpu.scene.texture import load_image_rgba as jax_load_image_rgba
 from nrc_tpu_torch.ops import texture as PT
 from nrc_tpu_torch.scene.materials import Material, MaterialTable
 from nrc_tpu_torch.scene.texture import TextureAtlas, load_image_rgba
@@ -71,9 +73,13 @@ def test_atlas_bit_for_bit(files):
 def test_image_loaders(files, tmp_path):
     rgba = load_image_rgba(files["b"])
     assert rgba.shape == (16, 16, 4) and rgba.dtype == np.float32 and (rgba[..., 3] == 1).all()
+    # DDS loads since the scene-file slice (tests/test_torch_dds.py); a file
+    # cut after its magic is refused by both packages' decoders alike
     (tmp_path / "x.dds").write_bytes(b"DDS ")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(struct.error):
         load_image_rgba(str(tmp_path / "x.dds"))
+    with pytest.raises(struct.error):
+        jax_load_image_rgba(str(tmp_path / "x.dds"))
 
 
 def test_material_table_texture_ids(files):
