@@ -122,15 +122,18 @@ Phases, each of which raises on failure (non-zero exit):
    on the Cornell box's short block; the Chiang hair BSDF) at 320x320: the
    host build of the curve BVH timed and its depth held to the walk's stack;
    the share of camera rays that hit a fibre (at least a tenth); C1/C2
-   (the wide walk with the round-cone leaf) against the plain walk with the
-   cone leaf on all-live sets (camera rays, random rays from their hits,
-   shadow rays): C1's t bit for bit, its winners equal but at equal-t ties,
-   C2's occlusion exact; timed beside their bounds; FULL + train replayed
-   (K1, K2, K3, K6, K7, C1 and C2 launched, W1/W2 not; launches per
-   replayed frame; profiled), then every C1 and C2 launch of one eager
-   frame recorded and held likewise (``bench_walk.measure``): their
-   frame-weighted times and bounds; K7 on the curve row table bit for bit
-   and timed beside ``index_select`` (and the table padded to 24 words); a
+   (``csrc/intersect_curves.cu``: the curve walks, 8 or 32 lanes a ray by
+   a span's live count) against the plain walk with the cone leaf on
+   all-live sets (camera rays, random rays from their hits, shadow rays):
+   C1's t bit for bit and its winners the plain walk's (it keeps the plain
+   walk's order at every width), C2's occlusion exact; timed beside their bounds; FULL + train replayed (K1,
+   K2, K3, K6, K7, C1 and C2 launched, W1/W2 not; launches per replayed
+   frame; profiled), then every C1 and C2 launch of one eager frame
+   recorded and held likewise (``bench_walk.measure``), each with its live
+   rays, the widths its spans take and the rows a live ray fetches in the
+   plain walk: their frame-weighted times and bounds; K7 on the curve row
+   table bit for bit and timed beside ``index_select`` (and the table
+   padded to 24 words); a
    ``hair_absorption`` edit replayed on its graph; FULL and NO_CACHE
    serving (launches, profiles) and 2 frames each replayed against eager
    bit for bit; 4 FULL + train frames replayed against eager bit for bit;
@@ -282,7 +285,8 @@ def _ptxas(log):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            short = re.search(r"(mlp_\w*?kernel|gather_\w*?kernel|\w*planes_kernel|\w*wbvh_kernel|reduce_partials)",
+            short = re.search(r"(mlp_\w*?kernel|gather_\w*?kernel|\w*planes_kernel|\w*wbvh_kernel|curves_kernel|"
+                              r"reduce_partials)",
                               m.group(1))
             name = short.group(1) if short else m.group(1)
             if "gather_warp_kernel" in name:  # <word, resident>
@@ -292,7 +296,9 @@ def _ptxas(log):
                 codes = (("ILb1E", "<true>"), ("ILb0E", "<false>"), ("I5uint4", "<uint4>"), ("IjE", "<u32>"))
                 if "wbvh_kernel" in name:  # <branch, any hit, leaf>
                     codes = (("ILi8E", "<8"), ("ILi16E", "<16"), ("Lb0E", ", closest"), ("Lb1E", ", any"),
-                             ("TriLeaf", ", tri>"), ("ConeLeaf", ", cone>"))
+                             ("TriLeaf", ", tri>"))
+                elif name == "curves_kernel":  # <any hit>
+                    codes = (("ILb0E", "<closest>"), ("ILb1E", "<any>"))
                 for code, arg in codes:
                     if code in m.group(1):
                         name += arg
@@ -1076,12 +1082,13 @@ def _hair_slice(kernels, dev, BI, PF, path_gather, report, launches):
     t_renderer = time.perf_counter() - t1
     ds = r.device_scene
     cb = ds.curve_bvh
-    WC.check_walkable(cb)  # a tree too deep for the kernels' stack raises
+    WC.check_curve_walkable(cb)  # a tree too deep for the kernels' stack raises
     print(f"cornell_hair: {scene.curves.num} round cones, {scene.num_triangles} triangles (brute force); strands "
           f"tessellated on the host in {t_scene:.2f} s, the curve BVH (binned SAH + wide collapse) in {t_bvh:.2f} s, "
           f"Renderer (that build again and the uploads) {t_renderer:.2f} s; curve BVH W = {cb.num_nodes} node rows, "
           f"L = {cb.rows.shape[0] - cb.num_nodes} leaf rows of {cb.rows.shape[1]} words, D = {cb.depth} levels "
-          f"(stack {(cb.branch - 1) * cb.depth + 1} of {WC.MAX_STACK} entries), table {cb.rows.numel() * 4} bytes; "
+          f"(narrow stack {(cb.branch - 1) * cb.depth + 1} of {WC.CURVE_STACK} entries), table "
+          f"{cb.rows.numel() * 4} bytes; "
           f"curve row table {tuple(ds.curves.shape)}")
     _check(ds.planes is not None and ds.bvh is None, "cornell_hair's triangles are not brute-forced")
 
@@ -1118,12 +1125,11 @@ def _hair_slice(kernels, dev, BI, PF, path_gather, report, launches):
                 _check(agree, "C2 disagrees with the plain walk")
             else:
                 same = pk == pp
-                ties = bool(((pk >= 0) & (pp >= 0))[~same].all())
                 bits = bool(torch.equal(tk, tp))
                 print(f"C1 vs plain walk: t bit for bit {bits}, winners equal on {same.float().mean().item():.6f} "
-                      f"of rays, the others equal-t ties {ties} ({int((~same).sum())}), hit share "
-                      f"{(pk >= 0).float().mean().item():.4f}, {fetched} rows fetched ({distinct} distinct)")
-                _check(bits and ties, "C1 disagrees with the plain walk")
+                      f"of rays (need all), hit share {(pk >= 0).float().mean().item():.4f}, {fetched} rows fetched "
+                      f"({distinct} distinct)")
+                _check(bits and bool(same.all()), "C1 disagrees with the plain walk")
                 err = max(err, (tk - tp).abs().max().item())
             readings.append((o, dd, tn, tf, plain_ms, fetched, distinct))
         o, dd, tn, tf, plain_ms, fetched, distinct = readings[0]
@@ -1162,7 +1168,7 @@ def _hair_slice(kernels, dev, BI, PF, path_gather, report, launches):
     for i, (kind, rays) in enumerate(BW.record_curve_launches(r)):
         row = BW.measure(kind, rays, cb, BW.curve_builds())
         got = row["builds"]["shipped"]
-        _check(got["ok"], f"a frame's {kind} launch disagrees with the plain walk: {got}")
+        _check(got["ok"] and got.get("ties", 0) == 0, f"a frame's {kind} launch disagrees with the plain walk: {got}")
         tot = wframe[kind]
         tot["launches"] += 1
         for key in ("lanes", "live", "fetched", "distinct"):
@@ -1170,9 +1176,10 @@ def _hair_slice(kernels, dev, BI, PF, path_gather, report, launches):
         tot["ms"] += got["ms"]
         tot["bound"] += _walk_bound(row["fetched"], row["distinct"], row_bytes, row["live"], per_row=cb.branch,
                                     ops_each=80)["bound_ms"]
-        f = row["fetches"]
-        print(f"{kind} launch {i}: {row['lanes']} lanes, {row['live']} live rays, rows fetched a live ray by the "
-              f"plain walk: mean {f['mean']:.2f}, p99 {f['p99']:.0f}, max {f['max']}; {got['ms']:.4f} ms"
+        f, sw = row["fetches"], row["span_widths"]
+        print(f"{kind} launch {i}: {row['lanes']} lanes, {row['live']} live rays, spans at E = 1/4 "
+              f"{sw[1]}/{sw[4]}, rows fetched a live ray by the plain walk: mean {f['mean']:.2f}, p99 "
+              f"{f['p99']:.0f}, max {f['max']}; {got['ms']:.4f} ms"
               + (f", {got['ties']} equal-t ties" if kind == "C1" else ""))
     for kind, name in (("C1", "wbvh_curves_closest"), ("C2", "wbvh_curves_any")):
         tot = wframe[kind]

@@ -1,13 +1,12 @@
 // Wide-BVH traversal: live rays compacted in the kernel, a group of B lanes
-// per ray (B = the tree's branch), the group's stack in shared memory. One
-// walk, instantiated with two leaf tests: triangles (W1/W2) and round-cone
-// curve segments (C1/C2).
+// per ray (B = the tree's branch), the group's stack in shared memory. The
+// walk is instantiated with the triangle leaf test (W1/W2); the curve walks
+// C1/C2 over round-cone segments have a design of their own
+// (csrc/intersect_curves.cu).
 //
 // Stands where the JAX package's lockstep walk stands:
 //   nrc_wbvh_closest        <- nrc_tpu/ops/intersect_wide.py::intersect_wbvh
 //   nrc_wbvh_any            <- nrc_tpu/ops/intersect_wide.py::occluded_wbvh
-//   nrc_wbvh_curves_closest <- nrc_tpu/ops/intersect_wide.py::intersect_curves_wbvh
-//   nrc_wbvh_curves_any     <- nrc_tpu/ops/intersect_wide.py::occluded_curves_wbvh
 // No TPU kernel stood there: on the TPU the walk is an XLA while loop whose
 // every step fetches one row per ray for all rays together and keeps a dense
 // [N, D, B] stack updated by one-hot selects.
@@ -17,8 +16,7 @@
 // hiy*B | hiz*B, then B child metas as bit-cast int32 (meta >= 0: node row;
 // meta < 0: leaf row W + ~meta; INT32_MIN: empty slot). Leaf row:
 // component-major columns of leaf_size primitives, 9 floats each (a triangle's
-// p0 | e1 | e2; a curve segment's pa | ba | ra, rb, m0 with ba = pb - pa and
-// m0 = |ba|^2), then leaf_size primitive ids (-1 = padding).
+// p0 | e1 | e2), then leaf_size primitive ids (-1 = padding).
 //
 // What it reproduces from the plain walk (ops/intersect_wide.py), so that the
 // closest t agrees bit for bit: inv_d with 3e38 for |d| <= 1e-20; a dead ray
@@ -26,10 +24,7 @@
 // min(far, min(tmax, best_t)), inclusive, tested once when its node is
 // visited; empty slots are masked by meta, never by their inverted box;
 // Möller-Trumbore with |det| > 1e-12, u >= 0, v >= 0, u + v <= 1, tmin < t <
-// cap in the plain version's operation order (the cone leaf: the lateral
-// surface's quadratic and both end spheres, ops/intersect_wide.py::
-// _leaf_cone_t, again in its order; it uses + - * / and sqrt alone, all
-// correctly rounded here and on the CPU); a leaf's winner (lowest slot on
+// cap in the plain version's operation order; a leaf's winner (lowest slot on
 // ties) replaces the best only when t < cap. The closest-hit entry visits
 // the hit children nearest first, ties by slot (the plain walk's network
 // orders equal keys its own way: only the winner between triangles at the
@@ -113,49 +108,7 @@ __device__ __forceinline__ float tri_t(const Ray& r, float cap, int pid, float p
   return ok ? t : kRtMax;
 }
 
-// The round-cone test for one curve segment of a leaf, in the operation
-// order of ops/intersect_wide.py::_leaf_cone_t: the lateral surface's
-// quadratic (k2, k1, k0), its root accepted where the axial coordinate y lies
-// inside (0, d2), and the end spheres at pa (radius ra) and pa + ba (rb); the
-// smallest t in (tmin, cap), or kRtMax. The direction must be of unit length.
-__device__ __forceinline__ float cone_t(const Ray& r, float cap, int pid, float pax, float pay,
-                                        float paz, float bax, float bay, float baz, float ra, float rb,
-                                        float m0) {
-  const float oax = r.ox - pax;
-  const float oay = r.oy - pay;
-  const float oaz = r.oz - paz;
-  const float obx = oax - bax;
-  const float oby = oay - bay;
-  const float obz = oaz - baz;
-  const float rr = ra - rb;
-  const float m1 = (bax * oax + bay * oay) + baz * oaz;
-  const float m2 = (bax * r.dx + bay * r.dy) + baz * r.dz;
-  const float m3 = (r.dx * oax + r.dy * oay) + r.dz * oaz;
-  const float m5 = (oax * oax + oay * oay) + oaz * oaz;
-  const float m6 = (obx * r.dx + oby * r.dy) + obz * r.dz;
-  const float m7 = (obx * obx + oby * oby) + obz * obz;
-  const float d2 = m0 - rr * rr;
-  const float k2 = d2 - m2 * m2;
-  const float k1 = (d2 * m3 - m1 * m2) + (m2 * rr) * ra;
-  const float k0 = ((d2 * m5 - m1 * m1) + ((m1 * rr) * ra) * 2.0f) - (m0 * ra) * ra;
-  const float h = k1 * k1 - k0 * k2;
-  const bool ok2 = fabsf(k2) > 1e-20f;
-  // h < 0 (or NaN) fails h >= 0 below whatever the root reads
-  float t_body = (-sqrtf(h > 0.0f ? h : 0.0f) - k1) / (ok2 ? k2 : 1.0f);
-  const float y = (m1 - ra * rr) + t_body * m2;
-  const bool body_ok = h >= 0.0f && ok2 && y > 0.0f && y < d2 && t_body > r.tn && t_body < cap;
-  t_body = body_ok ? t_body : kRtMax;
-  const float h1 = (m3 * m3 - m5) + ra * ra;
-  float t_ca = -m3 - sqrtf(h1 > 0.0f ? h1 : 0.0f);
-  t_ca = (h1 >= 0.0f && t_ca > r.tn && t_ca < cap) ? t_ca : kRtMax;
-  const float h2 = (m6 * m6 - m7) + rb * rb;
-  float t_cb = -m6 - sqrtf(h2 > 0.0f ? h2 : 0.0f);
-  t_cb = (h2 >= 0.0f && t_cb > r.tn && t_cb < cap) ? t_cb : kRtMax;
-  const float t = fminf(t_body, fminf(t_ca, t_cb));
-  return pid >= 0 ? t : kRtMax;
-}
-
-// The two leaf tests as types the walk is instantiated with: each reads a
+// The leaf test as a type the walk is instantiated with: it reads a
 // primitive's 9 component-major columns (stride leaf_size) from c.
 struct TriLeaf {
   static __device__ __forceinline__ float test(const Ray& r, float cap, int pid, const float* c,
@@ -163,15 +116,6 @@ struct TriLeaf {
     return tri_t(r, cap, pid, __ldg(c), __ldg(c + ls), __ldg(c + 2 * ls), __ldg(c + 3 * ls),
                  __ldg(c + 4 * ls), __ldg(c + 5 * ls), __ldg(c + 6 * ls), __ldg(c + 7 * ls),
                  __ldg(c + 8 * ls));
-  }
-};
-
-struct ConeLeaf {
-  static __device__ __forceinline__ float test(const Ray& r, float cap, int pid, const float* c,
-                                               int ls) {
-    return cone_t(r, cap, pid, __ldg(c), __ldg(c + ls), __ldg(c + 2 * ls), __ldg(c + 3 * ls),
-                  __ldg(c + 4 * ls), __ldg(c + 5 * ls), __ldg(c + 6 * ls), __ldg(c + 7 * ls),
-                  __ldg(c + 8 * ls));
   }
 };
 
@@ -395,21 +339,4 @@ extern "C" int nrc_wbvh_any(const float* org, const float* dir, const float* tmi
                             void* stream) {
   return launch<true, TriLeaf>(org, dir, tmin, tmax, rows, num_rays, row_words, num_nodes, branch,
                                leaf_size, t_out, prim_out, stream);
-}
-
-// C1/C2: the same walk over round-cone curve segments
-extern "C" int nrc_wbvh_curves_closest(const float* org, const float* dir, const float* tmin,
-                                       const float* tmax, const float* rows, int num_rays,
-                                       int row_words, int num_nodes, int branch, int leaf_size,
-                                       float* t_out, int* prim_out, void* stream) {
-  return launch<false, ConeLeaf>(org, dir, tmin, tmax, rows, num_rays, row_words, num_nodes, branch,
-                                 leaf_size, t_out, prim_out, stream);
-}
-
-extern "C" int nrc_wbvh_curves_any(const float* org, const float* dir, const float* tmin,
-                                   const float* tmax, const float* rows, int num_rays, int row_words,
-                                   int num_nodes, int branch, int leaf_size, float* t_out,
-                                   int* prim_out, void* stream) {
-  return launch<true, ConeLeaf>(org, dir, tmin, tmax, rows, num_rays, row_words, num_nodes, branch,
-                                leaf_size, t_out, prim_out, stream);
 }

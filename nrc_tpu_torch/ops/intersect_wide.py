@@ -131,7 +131,7 @@ def _leaf_cone_t(c, pid, org, direction, tmin, cap):
     ``c``: 9 [N, ls] planes (pax..paz | bax..baz | ra | rb | m0), the rows of
     ``ops/curve_intersect.py::build_wide_curve_bvh``. Returns t [N, ls] with
     RT_MAX at invalid or missed slots. ``direction`` must be of unit length.
-    The operation order is the cone walk kernel's (``csrc/intersect_wide.cu``
+    The operation order is the cone walk kernel's (``csrc/intersect_curves.cu``
     ``cone_t``): sums of three products left to right."""
     pax, pay, paz, bax, bay, baz, ra, rb, m0 = c
     dx, dy, dz = direction[:, 0:1], direction[:, 1:2], direction[:, 2:3]

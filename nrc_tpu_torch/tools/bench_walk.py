@@ -2,7 +2,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 -m nrc_tpu_torch.tools.bench_walk [--parent DIR] [--l2-probe] [--curves]
+    python3 -m nrc_tpu_torch.tools.bench_walk [--parent DIR] [--l2-probe] [--curves] [--no-triangles]
 
 The integrator launches W1 (closest hit) and W2 (any hit) over all lanes at
 every bounce and marks a dead lane with an empty t range. This tool renders
@@ -24,29 +24,36 @@ record_frame_launches``) and, per launch and for the all-live sets of
   every ray and the winners on >= 99.99 % of them, W2's occlusion on
   >= 99.99 %.
 
-The builds are the shipped ``csrc/intersect_wide.cu`` and, with ``--parent
-DIR``, ``DIR/intersect_wide.cu``, another tree's source with the same entry
-points (unpack it with ``git archive <commit> nrc_tpu_torch/csrc | tar -x
--C build/parent``). Builds are timed in turns on each launch (shipped,
+The builds of W1/W2 are the shipped ``csrc/intersect_wide.cu`` and, with
+``--parent DIR``, ``DIR/intersect_wide.cu``, another tree's source with the
+same entry points (unpack it with ``git archive <commit> nrc_tpu_torch/csrc
+| tar -x -C build/parent``). Builds are timed in turns on each launch (shipped,
 parent, parent, shipped) and the two readings averaged. The frame-weighted time of a build is the sum over the
 frame's launches. Times are device times (``bench_intersect.device_ms``:
 ten launches captured in a CUDA graph, replayed). ``measure`` is the one
 definition of a launch's reading: ``chip_smoke.py`` 7b calls it too.
 
-``--curves`` adds the curve walks C1 (closest hit) and C2 (any hit), the
-same walk with the round-cone leaf: ``cornell_hair`` (16,384 strands,
-262,144 cones) FULL + train at 320x320 until the tile size settles, then
-every C1 and C2 launch of one more frame (``record_curve_launches``)
-measured as W1/W2's are, against the plain walk with the cone leaf (C1's t
-bit for bit, the winners equal but at equal-t ties; C2's occlusion exact),
-with their frame-weighted sums beside the W1/W2 frame's (the parent's
-W1/W2 beside them with ``--parent``).
+``--curves`` adds the curve walks C1 (closest hit) and C2 (any hit) of
+``csrc/intersect_curves.cu``, the walk over round-cone segments:
+``cornell_hair`` (16,384 strands, 262,144 cones) FULL + train at 320x320
+until the tile size settles, then every C1 and C2 launch of one more frame
+(``record_curve_launches``) measured as W1/W2's are, against the plain walk
+with the cone leaf (C1's t bit for bit, the winners equal but at equal-t
+ties; C2's occlusion exact), with their frame-weighted sums beside the
+W1/W2 frame's. With ``--parent DIR`` the parent's C1/C2 are timed beside
+them in turns: ``DIR/intersect_curves.cu``, or ``DIR/intersect_wide.cu``
+where the parent has no such file (the curve walks lived there until they
+got a source of their own). ``--no-triangles`` skips W1/W2 (``DIR`` still
+needs an ``intersect_wide.cu``).
 
-``--l2-probe`` then times the shipped build on the frame's launches again,
-after ``bench_gather``'s run as ``chip_smoke.py`` makes it (K8 marks its
-table's lines evict-last in the L2), and once more after 256 MiB have been
-read through the L2: whether what an earlier kernel left in the L2 moves
-the walk's time. The last line is one JSON object with the card's name and
+``--l2-probe`` then times the shipped build on the frame's W1/W2 launches
+again, after ``bench_gather``'s run as ``chip_smoke.py`` makes it (K8 marks
+its table's lines evict-last in the L2), and once more after 256 MiB have
+been read through the L2: whether what an earlier kernel left in the L2
+moves the walk's time. With ``--curves`` it also times every C1/C2 launch
+of the recorded frame cold, each launch right after a 256 MiB read
+(``cold_ms``), beside its back-to-back time (``device_ms``, the table warm
+in the L2). The last line is one JSON object with the card's name and
 power limit.
 """
 
@@ -75,9 +82,48 @@ RES = 320
 KINDS = {"W1": ("triangle", False), "W2": ("triangle", True), "C1": ("cone", False), "C2": ("cone", True)}
 
 
-def curve_builds() -> dict:
-    """name -> (C1 entry point, C2 entry point): the shipped build."""
-    return {"shipped": (WC.CURVE_CLOSEST_KERNEL, WC.CURVE_ANYHIT_KERNEL)}
+def curve_builds(parent: str | None = None) -> dict:
+    """name -> (C1 entry point, C2 entry point): the shipped build and, with
+    ``parent``, the one of ``parent/intersect_curves.cu`` or, where that
+    file is absent, of ``parent/intersect_wide.cu``."""
+    builds = {"shipped": (WC.CURVE_CLOSEST_KERNEL, WC.CURVE_ANYHIT_KERNEL)}
+    if parent:
+        source = Path(parent) / "intersect_curves.cu"
+        if not source.exists():
+            source = Path(parent) / "intersect_wide.cu"
+        builds["parent"] = tuple(CudaKernel(str(source.resolve()), symbol, WC._ARGS,
+                                            extra_flags=WC.CURVE_CLOSEST_KERNEL.extra_flags)
+                                 for symbol in ("nrc_wbvh_curves_closest", "nrc_wbvh_curves_any"))
+    return builds
+
+
+def cold_ms(fn, flush, reps: int = 5) -> float:
+    """Device time of one fn() right after flush() (a read that evicts the
+    L2): ``reps`` of (flush, fn) captured in a CUDA graph and replayed
+    twice, less ``reps`` of flush alone."""
+    def replayed(body):
+        body()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                body()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (2 * reps)
+
+    def both():
+        flush()
+        fn()
+
+    return replayed(both) - replayed(flush)
 
 
 def record_curve_launches(renderer: Renderer) -> list:
@@ -160,6 +206,8 @@ def measure(kind, rays, bvh, builds: dict) -> dict:
                                              leaf=leaf)
     row = dict(kind=kind, lanes=o.shape[0], live=int(live.sum()), fetched=fetched, distinct=int(seen.sum()),
                fetches=fetch_stats(fetches, live), builds={})
+    if leaf == "cone":
+        row["span_widths"] = WC.curve_span_widths(tn, tf, any_hit)
     packed = live_first(rays)
     for name, kernels in builds.items():
         got = WC.launch_walk(kernels[any_hit], o, d, bvh, tn, tf)
@@ -173,36 +221,56 @@ def measure(kind, rays, bvh, builds: dict) -> dict:
     return row
 
 
-def curve_frame(dev) -> dict:
-    """C1/C2 over one recorded ``cornell_hair`` FULL + train frame."""
-    builds = curve_builds()
+def curve_frame(dev, parent: str | None = None, l2_probe: bool = False) -> dict:
+    """C1/C2 over one recorded ``cornell_hair`` FULL + train frame, the
+    parent's build beside; with ``l2_probe`` each launch also cold."""
+    builds = curve_builds(parent)
     scene, system = cornell_hair((RES, RES))
     r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
     bvh = r.device_scene.curve_bvh
     BI.settle_tiles(r)
+    flush_buf = torch.ones(1 << 26, device=dev) if l2_probe else None
     rows = []
     for i, (kind, rays) in enumerate(record_curve_launches(r)):
         row = dict(set=f"launch {i}", **measure(kind, rays, bvh, builds))
+        if l2_probe:
+            k = builds["shipped"][KINDS[kind][1]]
+            row["cold_ms"] = cold_ms(lambda: WC.launch_walk(k, *rays[:2], bvh, *rays[2:]), flush_buf.sum)
         rows.append(row)
         f = row["fetches"]
-        x = row["builds"]["shipped"]
-        print(f"launch {i:3d} {kind}: {row['lanes']:6d} lanes, {row['live']:6d} live, fetches a live ray mean "
-              f"{f['mean']:.2f} p99 {f['p99']:.0f} max {f['max']}; {x['ms']:.4f} ms, live first "
-              f"{x['live_first_ms']:.4f}{'' if x['ok'] else ' DISAGREES WITH THE PLAIN WALK'}")
-    return dict(sets=rows, frame=frame_totals(rows, builds, kinds=("C1", "C2")),
-                agree=all(row["builds"]["shipped"]["ok"] for row in rows))
+        sw = row["span_widths"]
+        print(f"launch {i:3d} {kind}: {row['lanes']:6d} lanes, {row['live']:6d} live, spans at E = 1/4 "
+              f"{sw[1]}/{sw[4]}, fetches a live ray mean {f['mean']:.2f} p99 {f['p99']:.0f} max {f['max']}; "
+              + "; ".join(f"{b}: {x['ms']:.4f} ms, live first {x['live_first_ms']:.4f}"
+                          f"{'' if x['ok'] else ' DISAGREES WITH THE PLAIN WALK'}" for b, x in row["builds"].items())
+              + (f"; cold {row['cold_ms']:.4f} ms" if l2_probe else ""))
+    frame = frame_totals(rows, builds, kinds=("C1", "C2"))
+    cold = None
+    if l2_probe:
+        cold = {}
+        for kind in ("C1", "C2"):
+            mine = [row for row in rows if row["kind"] == kind]
+            warm, c = sum(x["builds"]["shipped"]["ms"] for x in mine), sum(x["cold_ms"] for x in mine)
+            cold[kind] = dict(warm_ms=warm, cold_ms=c, cold_over_warm=c / warm)
+            print(f"{kind} over the frame, shipped: back to back {warm:.4f} ms, each launch after a 256 MiB read "
+                  f"{c:.4f} ms ({100 * (c / warm - 1):+.1f} %)")
+    return dict(sets=rows, frame=frame, cold=cold, agree=all(x["ok"] for row in rows for x in row["builds"].values()))
 
 
-def run(parent: str | None = None, l2_probe: bool = False, curves: bool = False) -> dict:
+def run(parent: str | None = None, l2_probe: bool = False, curves: bool = False, triangles: bool = True) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("bench_walk: no CUDA device is available")
     dev = torch.device("cuda", 0)
     builds = walk_builds(parent)
-    for name, kernels in list(builds.items()) + ([("curves", curve_builds()["shipped"])] if curves else []):
+    for name, kernels in list(builds.items()) + ([(f"curves {b}", k) for b, k in curve_builds(parent).items()]
+                                                 if curves else []):
         for line in kernels[0].build().splitlines():
             if "Used" in line or "spill" in line:
                 print(f"{name}: {line.strip()}")
         kernels[1].build()
+    if not triangles:
+        curve = curve_frame(dev, parent, l2_probe)
+        return {"device": _device_line(), "all_agree": curve["agree"], "curves": curve}
     scene, system = cornell_objects((RES, RES))
     r = Renderer(scene, system, render_mode=RenderMode.FULL, device=dev)
     bvh = r.device_scene.bvh
@@ -238,14 +306,18 @@ def run(parent: str | None = None, l2_probe: bool = False, curves: bool = False)
     curve = None
     if curves:
         del r, recorded, sets
-        curve = curve_frame(dev)
+        curve = curve_frame(dev, parent, l2_probe)
         agree &= curve["agree"]
-    smi = subprocess.run(
+    return {"device": _device_line(), "tile_sizes": [list(s) for s in sizes], "all_agree": agree, "sets": rows,
+            "frame": frame, "l2_probe": probe, "curves": curve}
+
+
+def _device_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    return {"device": smi, "tile_sizes": [list(s) for s in sizes], "all_agree": agree, "sets": rows,
-            "frame": frame, "l2_probe": probe, "curves": curve}
 
 
 def frame_totals(launches: list, builds: dict, label: str = "", kinds=("W1", "W2")) -> dict:
@@ -270,13 +342,16 @@ def frame_totals(launches: list, builds: dict, label: str = "", kinds=("W1", "W2
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="W1/W2 over a cornell_objects frame (and C1/C2 over a "
                                              "cornell_hair frame) on one card")
-    ap.add_argument("--parent", help="a directory holding another tree's intersect_wide.cu, timed beside")
+    ap.add_argument("--parent", help="a directory holding another tree's intersect_wide.cu (and "
+                                     "intersect_curves.cu, if it has one), timed beside")
     ap.add_argument("--l2-probe", action="store_true",
-                    help="time the frame's launches again after bench_gather and after a read of 256 MiB")
+                    help="time the frame's launches again after bench_gather and after a read of 256 MiB; "
+                         "with --curves each C1/C2 launch cold too")
     ap.add_argument("--curves", action="store_true",
                     help="C1/C2 over a recorded cornell_hair FULL + train frame as well")
+    ap.add_argument("--no-triangles", action="store_true", help="with --curves, skip W1/W2 on cornell_objects")
     args = ap.parse_args(argv)
-    result = run(args.parent, args.l2_probe, args.curves)
+    result = run(args.parent, args.l2_probe, args.curves, triangles=not args.no_triangles)
     print(result["device"])
     print(json.dumps(result))
     return 0 if result["all_agree"] else 1

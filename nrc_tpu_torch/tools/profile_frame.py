@@ -85,8 +85,8 @@ GROUPS = (("K1 nrc_planes_closest", ("planes_kernel<false>",)),
           ("K2 nrc_planes_any", ("planes_kernel<true>",)),
           ("W1 nrc_wbvh_closest", ("wbvh_kernel<", "false", "TriLeaf>")),
           ("W2 nrc_wbvh_any", ("wbvh_kernel<", "true", "TriLeaf>")),
-          ("C1 nrc_wbvh_curves_closest", ("wbvh_kernel<", "false", "ConeLeaf>")),
-          ("C2 nrc_wbvh_curves_any", ("wbvh_kernel<", "true", "ConeLeaf>")),
+          ("C1 nrc_wbvh_curves_closest", ("curves_kernel<false>",)),
+          ("C2 nrc_wbvh_curves_any", ("curves_kernel<true>",)),
           ("K7-K9 row gathers", ("gather_warp_kernel",)),
           ("K7-K9 row gathers", ("gather_bulk_kernel",)),
           ("K7-K9 row gathers", ("gather_block_kernel",)),

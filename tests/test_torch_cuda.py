@@ -559,11 +559,13 @@ def test_walk_wrapper_refuses_what_the_kernel_was_not_built_for(cuda):
 
 
 def test_c1_c2_match_plain_cone_walk(cuda):
-    """The curve walks on ``cornell_hair``'s fur (a few hundred strands)
-    against the plain walk with the cone leaf: C1's t bit for bit (the round
-    cone uses + - * / and sqrt alone, correctly rounded on both), the
-    winners equal but at equal-t ties, C2's occlusion exact; dead lanes
-    report no hit."""
+    """The curve walks (``csrc/intersect_curves.cu``) on ``cornell_hair``'s
+    fur (a few hundred strands) against the plain walk with the cone leaf:
+    C1's t bit for bit (the round cone uses + - * / and sqrt alone, correctly
+    rounded on both) and its winners the plain walk's (it visits rows in the
+    plain walk's order at every width), C2's occlusion exact; dead lanes
+    report no hit. Dense and sparse spans, so that the kernels walk at 8 and
+    32 lanes a ray."""
     from nrc_tpu_torch.ops.curve_intersect import build_wide_curve_bvh
     from nrc_tpu_torch.scene.scene_builder import cornell_hair
 
@@ -578,6 +580,14 @@ def test_c1_c2_match_plain_cone_walk(cuda):
     tmin = torch.full((n,), 1e-4, device=cuda)
     tmax = torch.full((n,), RT_MAX, device=cuda)
     tmax[::13] = 0.0  # dead lanes
+    keep = torch.ones(n, dtype=torch.bool, device=cuda)
+    keep[1600:2400] = torch.arange(800, device=cuda) % 16 < 12    # C1's spans of 12, C2's of 6 or 4
+    keep[2400:3200] = torch.arange(800, device=cuda) % 16 < 6     # of 6 and 3
+    keep[3200:] = torch.arange(n - 3200, device=cuda) % 16 == 0   # of 1 and 1 or 0
+    tmax[~keep] = 0.0
+    widths_c1, widths_c2 = WC.curve_span_widths(tmin, tmax, False), WC.curve_span_widths(tmin, tmax, True)
+    assert all(widths_c1.values()) and widths_c2[4] > 0 == widths_c2[1]  # every C2 ray 32 lanes
+    assert WC.CURVE_CLOSEST_KERNEL.source == WC.CURVE_ANYHIT_KERNEL.source == "intersect_curves.cu"
     n1, n2 = WC.CURVE_CLOSEST_KERNEL.launches, WC.CURVE_ANYHIT_KERNEL.launches
     tk, pk = WC.wide_traverse_cuda(org, d, bvh, tmin, tmax, False, leaf="cone")
     _, ok = WC.wide_traverse_cuda(org, d, bvh, tmin, tmax, True, leaf="cone")
@@ -585,7 +595,7 @@ def test_c1_c2_match_plain_cone_walk(cuda):
     _, op, _ = IW.wide_traverse_plain(org, d, bvh, tmin, tmax, True, leaf="cone")
     torch.cuda.synchronize()
     assert WC.CURVE_CLOSEST_KERNEL.launches == n1 + 1 and WC.CURVE_ANYHIT_KERNEL.launches == n2 + 1
-    assert torch.equal(tk, tp) and torch.equal(pk >= 0, pp >= 0) and not (pk[::13] >= 0).any()
+    assert torch.equal(tk, tp) and torch.equal(pk.long(), pp.long()) and not (pk[tmax == 0.0] >= 0).any()
     assert torch.equal(ok >= 0, op >= 0) and 0.05 < (pp >= 0).float().mean().item()
     with pytest.raises(ValueError, match="cone leaf rows handed to the triangle walk"):
         WC.wide_traverse_cuda(org, d, bvh, tmin, tmax, False)

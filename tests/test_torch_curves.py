@@ -221,7 +221,8 @@ def test_the_walks_refuse_the_other_kind():
         WC.wide_traverse_cuda(o, dd, tris, tn, tf, True, leaf="cone")
     with pytest.raises(ValueError, match="primitive kind"):
         IW.upload_wide_bvh(PCI.build_wide_curve_bvh(make_segments(*args)), "cpu", kind="sphere")
-    # the card's four entry points, one per (kind, any hit)
+    # the card's four entry points, one per (kind, any hit): W1/W2 in one
+    # source, C1/C2 in their own
     assert {(k.source, k.symbol) for k in WC.WALK_KERNELS.values()} == {
-        ("intersect_wide.cu", s) for s in
-        ("nrc_wbvh_closest", "nrc_wbvh_any", "nrc_wbvh_curves_closest", "nrc_wbvh_curves_any")}
+        ("intersect_wide.cu", "nrc_wbvh_closest"), ("intersect_wide.cu", "nrc_wbvh_any"),
+        ("intersect_curves.cu", "nrc_wbvh_curves_closest"), ("intersect_curves.cu", "nrc_wbvh_curves_any")}
