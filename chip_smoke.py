@@ -57,7 +57,7 @@ Phases, each of which raises on failure (non-zero exit):
    one replaying graphs and one eager, through FULL + train frames with a
    forced tile-size change, ``restart_accumulation``, ``reset_cache`` and
    ``set_hyper_params``; after every frame the image, weights, moments,
-   EMA, step and stats must be equal bit for bit. On the Cornell box (12
+   EMA, step and stats must be equal bit for bit. On the Cornell box (10
    frames) and on ``cornell_objects`` (8 frames);
 6d. the hash encoding: FULL + train at 320x320 through ``set_encoding``,
    replayed, until the tile size settles, then 4 timed frames and 4 counted:
@@ -145,6 +145,26 @@ Phases, each of which raises on failure (non-zero exit):
    8``: K1, K2, K3, K6 and K7 launched in that run, the PNG written, the
    CLI's throughput line printed, and its frames' image bit for bit that of
    a ``Renderer`` on ``cornell_box()`` from the same seed;
+6j. the live viewer: the CLI with ``--present --port 0`` on the same files
+   at 320x320, ``-m 0 --spp 8``, in the script's main thread, while a page
+   thread fetches ``/``, ``/params`` and ``/frame.png``, sends an orbit, a
+   ``render_mode`` setting and a ``screenshot_png`` action, reads ``/stats``
+   and ends the loop with ``_thread.interrupt_main()``: K1, K2, K3, K6 and
+   K7 launched, a valid 320x320 PNG served that is not flat, the
+   accumulation restarted by the orbit with no graph captured for it, the
+   screenshot written; the loop's ``/stats`` fps printed;
+6k. the sharded frame on one rank: an NCCL group of world size 1 in this
+   process, ``ParallelRenderer`` (``parallel/shard.py``) beside a
+   ``Renderer`` on Cornell FULL + train 320x320, frequency: the first
+   frame's image bit for bit; K5 four times a frame (each step's gradient
+   all-reduced before Adam) and K6 never, eagerly and replayed (the NCCL
+   collectives are captured in the frame's graph); after 4 frames the
+   weights, moments and EMA within ``bench_mlp.CARD_LIMITS`` of the
+   ``Renderer``'s K6 state; ms/frame of both, replayed, in the same phase;
+   then two hash frames with the table level-sharded (``hash_shard_axis``):
+   H1 and H2 launched; and H1/H2 on each rank's block of levels at 2 and 4
+   ranks (no dense level past rank 0), at the gathered query counts, held to
+   their plain versions as the whole grid's are;
 7. large scene: FULL + train at 320x320 on ``cornell_objects`` (the wide
    BVH path), replayed: frames until the tile size settles, then 4 timed
    frames and 4 more counted; W1, W2 and the path's gather must run, K1 and
@@ -201,10 +221,10 @@ from pathlib import Path
 
 
 # Frames timed by Renderer.benchmark in each 320x320 run, and frames traced
-# and timed by profile_frame.profile_mode (8 and (4, 10) until PR 14; cut so
-# that the run stays near 240 s with phase 6h)
+# and timed by profile_frame.profile_mode (once 8 and (4, 10), then (2, 6);
+# cut so that the run keeps its time with phases 6h, 6j and 6k)
 TIMED_FRAMES = 4
-PROFILED_FRAMES = (2, 6)
+PROFILED_FRAMES = (1, 4)
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -307,6 +327,44 @@ def _ptxas(log):
         elif "Used" in ln and "registers" in ln:
             out.append(f"{name}: {ln.split(':', 1)[1].strip()}, {spills}")
     return out
+
+
+def _kernels():
+    """Every kernel's launch handle and the TPU kernel (or XLA code) it
+    replaces, by the name the kernels line gives it."""
+    from nrc_tpu_torch.ops import gather_cuda as GC
+    from nrc_tpu_torch.ops import hash_cuda as HC
+    from nrc_tpu_torch.ops import intersect_cuda as IC
+    from nrc_tpu_torch.ops import intersect_wide_cuda as WC
+    from nrc_tpu_torch.ops import mlp_cuda as MC
+
+    return {
+        "intersect_planes": (IC.CLOSEST_KERNEL, "nrc_tpu/ops/intersect_pallas.py:185"),
+        "occluded_planes": (IC.ANYHIT_KERNEL, "nrc_tpu/ops/intersect_pallas.py:240"),
+        "fused_forward": (MC.FORWARD_KERNEL, "nrc_tpu/ops/mlp_pallas.py:81"),
+        "fused_backward": (MC.BACKWARD_KERNEL, "nrc_tpu/ops/mlp_pallas.py:155"),
+        "fused_train_grad": (MC.TRAIN_GRAD_KERNEL, "nrc_tpu/ops/mlp_pallas.py:311"),
+        "fused_train4": (MC.TRAIN4_KERNEL, "nrc_tpu/ops/mlp_pallas.py:626"),
+        "gather_rows": (GC.GATHER_KERNEL, "tools/bench_gather_pallas.py:144"),
+        "gather_rows_resident": (GC.RESIDENT_KERNEL, "tools/bench_gather_pallas.py:211"),
+        "gather_rows_block": (GC.BLOCK_KERNEL, "tools/bench_gather_pallas.py:251"),
+        "wbvh_closest": (WC.CLOSEST_KERNEL,
+                         "nrc_tpu/ops/intersect_wide.py:518 (intersect_wbvh; no Pallas kernel stood there)"),
+        "wbvh_any": (WC.ANYHIT_KERNEL,
+                     "nrc_tpu/ops/intersect_wide.py:528 (occluded_wbvh; no Pallas kernel stood there)"),
+        "wbvh_curves_closest": (WC.CURVE_CLOSEST_KERNEL,
+                                "nrc_tpu/ops/intersect_wide.py:533 (intersect_curves_wbvh; no Pallas kernel stood "
+                                "there)"),
+        "wbvh_curves_any": (WC.CURVE_ANYHIT_KERNEL,
+                            "nrc_tpu/ops/intersect_wide.py:541 (occluded_curves_wbvh; no Pallas kernel stood there)"),
+        "hash_grid_lookup": (HC.LOOKUP_KERNEL,
+                             "nrc_tpu/ops/encodings.py:320 (hash_grid_lookup: XLA gathers; no Pallas kernel stood "
+                             "there)"),
+        "hash_grid_adjoint": (HC.ADJOINT_KERNEL,
+                              "nrc_tpu/ops/encodings.py:320 (the adjoint of hash_grid_lookup: XLA's scatter-add, "
+                              "or the one-hot products of _grid_gather_bwd at :283 on a TPU; no Pallas kernel "
+                              "stood there)"),
+    }
 
 
 def _with_tiles(system, tiles):
@@ -1045,6 +1103,243 @@ def _scene_files_slice(kernels, dev, path_gather):
     _check(np.array_equal(image, want), "the frames on the loaded Cornell files are not cornell_box()'s bit for bit")
 
 
+VIEWER_SPP = 8  # frames the viewer accumulates in phase 6j
+
+
+class _Wrapped:
+    """Class attributes replaced by counting wrappers for the length of a
+    ``with`` block (phase 6j watches the CLI's renderer from outside)."""
+
+    def __init__(self, cls, names, counts, on_call=None):
+        self.cls, self.names, self.counts, self.on_call = cls, names, counts, on_call
+        self.saved = {}
+
+    def __enter__(self):
+        for name in self.names:
+            real = self.saved[name] = getattr(self.cls, name)
+
+            def wrapped(obj, *a, _real=real, _name=name, **kw):
+                out = _real(obj, *a, **kw)
+                self.counts[_name] = self.counts.get(_name, 0) + 1
+                if self.on_call is not None:
+                    self.on_call(_name, obj)
+                return out
+            setattr(self.cls, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.saved.items():
+            setattr(self.cls, name, real)
+
+
+def _viewer_slice(kernels, dev, path_gather):
+    """The live viewer, phase 6j of the module's docstring: the CLI with
+    ``--present --port 0`` on the Cornell files at 320x320, ``-m 0 --spp 8``,
+    in this thread; a page thread fetches ``/``, ``/params`` and, once the
+    frames are accumulated, ``/frame.png``; sends an orbit, waits for the
+    accumulation to restart and fill again, sets ``render_mode`` NO_CACHE,
+    asks for a PNG screenshot, reads ``/stats`` and ends the loop with
+    ``_thread.interrupt_main()``, as ctrl-c would. Held: K1, K2, K3, K6 and
+    K7 launched; a 320x320 PNG served that is not flat; the accumulation
+    restarted by the orbit and no graph captured for it; the screenshot
+    written."""
+    import _thread
+    import glob
+    import io
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from nrc_tpu_torch.app import cli
+    from nrc_tpu_torch.app.viewer import Viewer
+    from nrc_tpu_torch.render.renderer import Renderer
+    from nrc_tpu_torch.scene.scene_builder import write_cornell_box_files
+    from nrc_tpu_torch.utils.image_io import decode_png
+
+    names = ("intersect_planes", "occluded_planes", "fused_forward", "fused_train4", path_gather)
+    calls, seen, made, renderers = {}, {}, [], []
+    with tempfile.TemporaryDirectory(prefix="nrc_viewer_") as d:
+        system, scene = write_cornell_box_files(d, (320, 320))
+        prefix = os.path.join(d, "viewer")
+
+        def wait(cond, what, limit=120.0):
+            t_end = time.monotonic() + limit
+            while not cond():
+                if time.monotonic() > t_end:
+                    raise TimeoutError(f"the viewer's loop: no {what} within {limit:g} s")
+                time.sleep(0.02)
+
+        def page():
+            try:
+                wait(lambda: made and renderers, "viewer")
+                url, r = made[0].url, renderers[0]
+
+                def get(path):
+                    with urllib.request.urlopen(url + path, timeout=30) as resp:
+                        return resp.read()
+
+                seen["page"] = get("")
+                seen["params"] = json.loads(get("params"))
+                wait(lambda: json.loads(get("stats"))["iteration"] >= VIEWER_SPP, "accumulated frames")
+                seen["png"] = get("frame.png")
+                seen["captures"] = calls.get("_capture", 0)
+                frames = calls["render_frame"]
+                get("control?op=orbit&dx=0.05&dy=0.02")
+                wait(lambda: calls.get("restart_accumulation", 0) >= 1 and r.iteration >= VIEWER_SPP
+                     and calls["render_frame"] >= frames + VIEWER_SPP, "restart after the orbit")
+                seen["orbit_frames"] = calls["render_frame"] - frames
+                seen["orbit_captures"] = calls.get("_capture", 0) - seen["captures"]
+                seen["phi"] = r.scene.camera.phi
+                get("set?key=render_mode&value=NO_CACHE")
+                get("action?op=screenshot_png")
+                wait(lambda: glob.glob(prefix + "_*spp.png"), "screenshot")
+                wait(lambda: r.cfg.render_mode.name == "NO_CACHE" and r.iteration >= VIEWER_SPP, "NO_CACHE frames")
+                time.sleep(1.2)  # one more publication
+                seen["stats"] = json.loads(get("stats"))
+                seen["shots"] = sorted(glob.glob(prefix + "_*spp.png"))
+            except BaseException as e:  # reported by the main thread
+                seen["error"] = repr(e)
+            finally:
+                _thread.interrupt_main()
+
+        def on_call(name, obj):
+            if name == "__init__" and isinstance(obj, Viewer):
+                made.append(obj)
+            elif name == "render_frame" and not renderers:
+                renderers.append(obj)
+
+        argv = ["-s", system, "-d", scene, "-m", "0", "--spp", str(VIEWER_SPP), "--present", "--port", "0",
+                "--output", prefix]
+        out = io.StringIO()
+        helper = threading.Thread(target=page, daemon=True)
+        with _Wrapped(Viewer, ("__init__",), calls, on_call), \
+                _Wrapped(Renderer, ("render_frame", "restart_accumulation", "_capture"), calls, on_call), \
+                contextlib.redirect_stdout(out):
+            helper.start()
+            rc, counts = _counted(kernels, names, lambda: cli.main(argv))
+        helper.join(30)
+        for line in out.getvalue().splitlines():
+            print(f"viewer, cli: {line}")
+        _check("error" not in seen, f"the viewer's page thread failed: {seen.get('error')}")
+        _check(rc == 0, f"the CLI returned {rc}")
+        print(f"viewer: launches {counts}; /params render_mode {seen['params']['render_mode']}, "
+              f"{len(seen['params']['materials'])} materials; the orbit: phi {seen['phi']:.4f}, "
+              f"{seen['orbit_frames']} frames after it, {seen['orbit_captures']} graphs captured for it; "
+              f"/stats at the end {seen['stats']}; screenshots {[os.path.basename(p) for p in seen['shots']]}")
+        _check(b"/frame.png" in seen["page"], "the viewer's page is not served")
+        png = decode_png(seen["png"])
+        _check(png.shape == (320, 320, 3) and png.std() > 0.0, f"the served PNG is {png.shape}, std {png.std()}")
+        _check(all(n > 0 for n in counts.values()), f"the viewer's run launched no {[k for k, n in counts.items() if not n]}")
+        _check(seen["orbit_frames"] >= VIEWER_SPP and calls.get("restart_accumulation", 0) >= 1,
+               "the orbit did not restart the accumulation")
+        _check(seen["orbit_captures"] == 0, f"the orbit captured {seen['orbit_captures']} graphs (0 expected)")
+        _check(seen["shots"], "the screenshot action wrote no PNG")
+        _check(seen["stats"]["iteration"] >= VIEWER_SPP and seen["stats"]["fps"] > 0.0, "bad /stats")
+        print(f"viewer: /stats fps {seen['stats']['fps']:.3f} (frames over the loop's wall time, "
+              f"captures, builds and idle waits included; not a yardstick)")
+
+
+def _sharded_slice(kernels, dev, BI, launches):
+    """The sharded frame on one rank, phase 6k of the module's docstring:
+    an NCCL group of world size 1 in this process; ``ParallelRenderer``
+    beside ``Renderer`` from the same seed on Cornell FULL + train 320x320,
+    frequency: the first frame's image bit for bit; K5 four times a frame and
+    K6 none on the sharded frame; after 4 frames the weights, moments and
+    EMA within ``bench_mlp.CARD_LIMITS`` of the ``Renderer``'s K6 state;
+    ms/frame of both, replayed; then two hash frames with ``hash_shard_axis``
+    set: H1 and H2 launched; then ``_level_blocks``."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from nrc_tpu_torch.config import InputEncoding, NetworkConfig
+    from nrc_tpu_torch.parallel import shard as S
+    from nrc_tpu_torch.render.renderer import Renderer
+    from nrc_tpu_torch.scene.scene_builder import cornell_box
+    from nrc_tpu_torch.tools import bench_mlp as BM
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    S.init_data_group(dev, 0, 1, port)
+    try:
+        scene, system = cornell_box((320, 320))
+        whole = Renderer(scene, system, device=dev)
+        par = S.ParallelRenderer(scene, system, device=dev)
+        whole.render_frame()
+        _, counts = _counted(kernels, kernels, par.render_frame)
+        torch.cuda.synchronize()
+        same = torch.equal(whole.image, par.image)
+        print(f"sharded frame (1 rank, NCCL): the first frame's image bit for bit the Renderer's: {same}; "
+              f"launches of its eager frame {counts}")
+        _check(same, "the sharded frame's first image differs from the Renderer's")
+        _check(counts["fused_train_grad"] == 4 and counts["fused_train4"] == 0,
+               f"the sharded frame launched K5 {counts['fused_train_grad']} and K6 {counts['fused_train4']} times")
+        for _ in range(3):
+            whole.render_frame()
+            par.render_frame()
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(_state_tensors(whole), _state_tensors(par)))
+        print(f"sharded frame after 4 frames, K5 + all-reduce + Adam against K6: bit for bit {equal}; "
+              f"{BM.check_train_state(_state_tensors(par), _state_tensors(whole))}; step "
+              f"{int(par.net_state.opt.step)} / {int(whole.net_state.opt.step)}")
+        sizes = (BI.settle_tiles(whole), BI.settle_tiles(par))
+        _check(sizes[0] == sizes[1], f"the tile sizes went apart: {sizes}")
+        per_frame = _replayed_launches(par, kernels)
+        _check(per_frame["fused_train_grad"] == 4 and per_frame["fused_train4"] == 0,
+               f"a replayed sharded frame launches K5 {per_frame['fused_train_grad']} and K6 "
+               f"{per_frame['fused_train4']} times")
+        launches["fused_train_grad"] = per_frame["fused_train_grad"]
+        print(f"sharded frame replayed: {len(par.graphs)} graphs, launches a frame {per_frame}")
+        rows = {}
+        for label, r in (("Renderer", whole), ("ParallelRenderer", par)):
+            r.flush_stats()
+            rows[label] = r.benchmark(TIMED_FRAMES)
+        print(f"sharded frame, FULL + train 320x320, replayed: ParallelRenderer (1 rank) "
+              f"{rows['ParallelRenderer']['ms_per_frame']:.3f} ms/frame against the Renderer's "
+              f"{rows['Renderer']['ms_per_frame']:.3f}, same call, {TIMED_FRAMES} frames each")
+        del whole, par
+        hash_cfg = NetworkConfig(encoding=InputEncoding.HASH, hash_shard_axis="data")
+        ph = S.ParallelRenderer(scene, system, net_cfg=hash_cfg, device=dev)
+        _, counts = _counted(kernels, kernels, lambda: ph.render(2))
+        _check(counts["hash_grid_lookup"] > 0 and counts["hash_grid_adjoint"] > 0,
+               f"the level-sharded hash frames launched no H1 or H2: {counts}")
+        _check(bool(torch.isfinite(ph.image).all()) and ph.image.std().item() > 0.0, "level-sharded hash image bad")
+        print(f"sharded hash frames (level-sharded table, 1 rank): launches over 2 frames {counts}, "
+              f"loss {float(ph.last_stats.loss):.4f}")
+        _level_blocks(hash_cfg, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _level_blocks(cfg, dev):
+    """H1 and H2 on every rank's block of levels at 2 and 4 ranks (the grids
+    a rank > 0 sees have no dense level), at the queries the sharded frame
+    gives them (the gathered D x 16,384 of a training step), held to their
+    plain versions as the whole grid's are (``bench_hash.check``)."""
+    import torch
+
+    from nrc_tpu_torch.ops import encodings as E
+    from nrc_tpu_torch.tools import bench_hash as BH
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for world in (2, 4):
+        for rank in range(world):
+            spec = E.block_spec(cfg, E.level_block(cfg, rank, world))
+            n = world * BH.STEP_ROWS
+            res = BH.check(spec, BH.INFER_ROWS, n, gen, dev, f"levels of rank {rank} of {world}")
+            steps = BH.check_lookup(spec, n, gen, dev)
+            _check(steps["differing"] == 0, f"H1 on rank {rank} of {world}'s levels at B = {n}: {steps}")
+            print(f"H1/H2 on rank {rank} of {world}'s block ({spec.levels} levels, dense {sum(spec.dense)}): "
+                  f"H1 words differing at B = {BH.INFER_ROWS} and {n}: {res['h1']['differing']}, "
+                  f"{steps['differing']}; H2 at B = {n}: {res['h2']} (limits {BH.CARD_LIMITS}), run to run and "
+                  f"fixed-point model bit-equal {res['h2_bits_equal_run_to_run']}, "
+                  f"{res['h2_bits_equal_fixed_point_model']}; seeded faults {res['faults']}")
+
+
 HAIR_SMALL_STRANDS = 300
 
 
@@ -1752,33 +2047,7 @@ def main() -> int:
 
     phase_clock("2")
     # ---- 2. build: one nvcc per source, all together -------------------------
-    kernels = {
-        "intersect_planes": (IC.CLOSEST_KERNEL, "nrc_tpu/ops/intersect_pallas.py:185"),
-        "occluded_planes": (IC.ANYHIT_KERNEL, "nrc_tpu/ops/intersect_pallas.py:240"),
-        "fused_forward": (MC.FORWARD_KERNEL, "nrc_tpu/ops/mlp_pallas.py:81"),
-        "fused_backward": (MC.BACKWARD_KERNEL, "nrc_tpu/ops/mlp_pallas.py:155"),
-        "fused_train_grad": (MC.TRAIN_GRAD_KERNEL, "nrc_tpu/ops/mlp_pallas.py:311"),
-        "fused_train4": (MC.TRAIN4_KERNEL, "nrc_tpu/ops/mlp_pallas.py:626"),
-        "gather_rows": (GC.GATHER_KERNEL, "tools/bench_gather_pallas.py:144"),
-        "gather_rows_resident": (GC.RESIDENT_KERNEL, "tools/bench_gather_pallas.py:211"),
-        "gather_rows_block": (GC.BLOCK_KERNEL, "tools/bench_gather_pallas.py:251"),
-        "wbvh_closest": (WC.CLOSEST_KERNEL,
-                         "nrc_tpu/ops/intersect_wide.py:518 (intersect_wbvh; no Pallas kernel stood there)"),
-        "wbvh_any": (WC.ANYHIT_KERNEL,
-                     "nrc_tpu/ops/intersect_wide.py:528 (occluded_wbvh; no Pallas kernel stood there)"),
-        "wbvh_curves_closest": (WC.CURVE_CLOSEST_KERNEL,
-                                "nrc_tpu/ops/intersect_wide.py:533 (intersect_curves_wbvh; no Pallas kernel stood "
-                                "there)"),
-        "wbvh_curves_any": (WC.CURVE_ANYHIT_KERNEL,
-                            "nrc_tpu/ops/intersect_wide.py:541 (occluded_curves_wbvh; no Pallas kernel stood there)"),
-        "hash_grid_lookup": (HC.LOOKUP_KERNEL,
-                             "nrc_tpu/ops/encodings.py:320 (hash_grid_lookup: XLA gathers; no Pallas kernel stood "
-                             "there)"),
-        "hash_grid_adjoint": (HC.ADJOINT_KERNEL,
-                              "nrc_tpu/ops/encodings.py:320 (the adjoint of hash_grid_lookup: XLA's scatter-add, "
-                              "or the one-hot products of _grid_gather_bwd at :283 on a TPU; no Pallas kernel "
-                              "stood there)"),
-    }
+    kernels = _kernels()
     path_gather = next(name for name, (k, _) in kernels.items() if k is GC.PATH_KERNEL)
     first_of_source = {}
     for name, (k, _) in kernels.items():
@@ -1932,8 +2201,8 @@ def main() -> int:
     wp = [t.detach() for t in r.net_state.params.tensors()]
     got4 = MC.fused_backward_cuda(*wp, x4[0], g_out)
     ref4 = MC.fused_backward_plain(*wp, x4[0], g_out)
-    # no path of the port launches K5 since K6 became one kernel: this check is
-    # its one launch (the kernels line shows it as check_launches)
+    # the single-device frames launch no K5 since K6 became one kernel (the
+    # sharded frame does, 6k): this check's launch is its check_launches
     got5, k5_counts = _counted(kernels, ("fused_train_grad",), lambda: MC.fused_train_grad_cuda(*wp, x4[1], t4[1]))
     check_launches = dict(k5_counts)
     ref5 = MC.fused_train_grad_plain(*wp, x4[1], t4[1])
@@ -2295,7 +2564,7 @@ def main() -> int:
 
     phase_clock("6c")
     # ---- 6c. graph replay against eager frames, bit for bit -----------------------
-    _replay_matches_eager(scene, _with_tiles(system, (4, 4)), dev, 12, "Cornell box")
+    _replay_matches_eager(scene, _with_tiles(system, (4, 4)), dev, 10, "Cornell box")  # every event
 
     phase_clock("6d")
     # ---- 6d. the hash encoding: FULL + train replayed, then against eager frames ----
@@ -2329,6 +2598,14 @@ def main() -> int:
     phase_clock("6i")
     # ---- 6i. the scene-file entry point: the CLI on the Cornell box's files -----
     _scene_files_slice(kernels, dev, path_gather)
+
+    phase_clock("6j")
+    # ---- 6j. the live viewer: the CLI's present loop, driven by a page thread ---
+    _viewer_slice(kernels, dev, path_gather)
+
+    phase_clock("6k")
+    # ---- 6k. the sharded frame on one rank: NCCL, K5 per step, level-sharded table -
+    _sharded_slice(kernels, dev, BI, launches)
 
     phase_clock("7")
     # ---- 7. the large scene: FULL + train through the wide BVH -------------------
@@ -2436,8 +2713,9 @@ def main() -> int:
     phase_clock("the kernels line")
     print(smi)
     # launches: per replayed FULL + train frame (W1/W2: per replayed cornell_objects
-    # frame; H1, H2 and K4: per replayed hash FULL + train frame); check_launches: a
-    # kernel that no path launches, its launches in its own check
+    # frame; H1, H2 and K4: per replayed hash FULL + train frame; K5: per replayed
+    # sharded frame, 6k); check_launches: K5's in its own check, and a kernel
+    # that no path launches, its launches in its own check
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=f"nrc_tpu_torch/csrc/{k.source}", replaces=replaces,
              launches=launches[name], **report[name],

@@ -1,6 +1,6 @@
-"""Command-line application: the reference's app shell without the GUI.
+"""Command-line application: the reference's app shell, with a live viewer.
 
-Port of the batch path of ``nrc_tpu/app/cli.py``, with the same options
+Port of ``nrc_tpu/app/cli.py``, with the same options
 (``nrc/src/Options.cpp:45-157``):
   -w/--width, -h/--height  override render resolution
   -m/--mode 0|1            0 = progressive render loop, 1 = benchmark
@@ -11,10 +11,17 @@ Port of the batch path of ``nrc_tpu/app/cli.py``, with the same options
 plus --spp, --render-mode, --encoding, --checkpoint/--resume (npz render
 states, ``models/checkpoint.py``), --stats-log, --profile (a
 ``torch.profiler`` Chrome trace) and ``--device cuda|cpu``: the card by
-default, which raises without one; the CPU only when asked. Not ported
-yet, and refused with ``NotImplementedError``: the live viewer
-(``--present`` or ``present 1`` in the system file with ``-m 0``), more
-than one device (``--devices``) and the orbax checkpoint container.
+default, which raises without one; the CPU only when asked.
+
+- ``--present`` (or ``present 1`` in the system file) with ``-m 0`` serves
+  the live viewer (``app/viewer.py``) and renders until interrupted
+  (``_present_loop``).
+- ``--devices N`` renders the frame in N horizontal bands
+  (``parallel/shard.py``): N spawned ranks, each on a card of its own over
+  NCCL, or with ``--device cpu`` on the CPU over gloo. Rank 0 prints and
+  writes the files. More ranks than cards raise before any frame.
+  ``--present`` with more than one device is not ported (ROADMAP Queue 1).
+- ``--checkpoint-format orbax`` is not ported ("Do not port").
 
 Usage:
   python3 -m nrc_tpu_torch.app.cli -s system.txt -d scene.txt -m 1 --spp 8 --output out
@@ -24,17 +31,25 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
+import multiprocessing
 import os
+import socket
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..config import InputEncoding, NetworkConfig, RenderMode
 from ..models.checkpoint import is_render_state, load_checkpoint, load_render_state, save_render_state
+from ..parallel.shard import ParallelRenderer, init_data_group
 from ..render.renderer import Renderer
 from ..scene.scene_builder import load_scene
+from ..utils.image_io import encode_png
+from ..utils.tonemap import tonemap_to_u8
+from .viewer import Viewer
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,7 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--area-spread", type=float, default=None,
                    help="area-spread truncation constant c (default 0.01)")
     p.add_argument("--devices", type=int, default=1,
-                   help="number of devices (only 1: multi-GPU is ROADMAP Queue 1 item 5)")
+                   help="render the frame in bands over N ranks (one card each; "
+                        "with --device cpu, N CPU ranks)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="render on the card (default; raises without one) or on the CPU")
     p.add_argument("--checkpoint", default=None,
@@ -94,7 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats-log", default=None,
                    help="write per-frame JSONL stats (loss, records, tile size)")
     p.add_argument("--present", action="store_true",
-                   help="interactive viewer (not ported: ROADMAP Queue 1 item 4)")
+                   help="interactive mode: serve a live HTTP viewer with "
+                        "orbit/pan/dolly/zoom (also enabled by 'present 1' "
+                        "in the system file)")
     p.add_argument("--port", type=int, default=8000,
                    help="viewer port for --present (0 = ephemeral)")
     return p
@@ -120,20 +138,75 @@ def _print_material_report(scene) -> None:
 
 
 def _refuse_unported(args, present: bool) -> None:
-    """What the port does not run yet, refused before any frame."""
-    if args.mode == 0 and (args.present or present):
-        raise NotImplementedError("the live viewer (--present, present 1) is not ported: ROADMAP Queue 1 item 4")
-    if args.devices > 1:
-        raise NotImplementedError(f"--devices {args.devices}: multi-GPU is not ported: ROADMAP Queue 1 item 5")
+    """What the port does not run, refused before any frame."""
+    if args.mode == 0 and (args.present or present) and args.devices > 1:
+        raise NotImplementedError("the live viewer with --devices above 1 is not ported: ROADMAP Queue 1")
     if args.checkpoint_format == "orbax":
         raise NotImplementedError("--checkpoint-format orbax is not ported (ROADMAP, 'Do not port')")
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    if args.devices > 1:
+        return _run_ranks(args, argv)
+    return _run(args, torch.device(args.device))
+
+
+def _run_ranks(args, argv) -> int:
+    """``--devices N``: N spawned ranks, one card each (or N CPU ranks),
+    joined in a data group at a free local port; each runs ``_run`` on its
+    band. A rank that fails ends the others."""
+    _refuse_unported(args, present=False)
+    if args.device == "cuda":
+        cards = torch.cuda.device_count()
+        if args.devices > cards:
+            raise ValueError(f"--devices {args.devices}: {cards} CUDA devices are present")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(argv, rank, args.devices, port)) for rank in range(args.devices)]
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = [rank for rank, p in enumerate(procs) if p.exitcode not in (None, 0)]
+            if failed:
+                raise RuntimeError(f"rank {failed[0]} of {args.devices} failed (exit code {procs[failed[0]].exitcode})")
+            time.sleep(0.1)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * args.devices:
+            raise RuntimeError(f"the ranks' exit codes: {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    return 0
+
+
+def _rank_main(argv, rank: int, world: int, port: int) -> None:
+    args = build_parser().parse_args(argv)
+    device = torch.device("cuda", rank) if args.device == "cuda" else torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    init_data_group(device, rank, world, port)
+    try:
+        _run(args, device, rank, world)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, device: torch.device, rank: int = 0, world: int = 1) -> int:
+    """The CLI on one rank of ``world``: rank 0 prints and writes the files."""
+    lead = rank == 0
     scene, system = load_scene(args.system, args.scene)
     _refuse_unported(args, present=bool(system.present))
-    _print_material_report(scene)
+    if lead:
+        _print_material_report(scene)
     if args.width:
         system.resolution = (args.width, system.resolution[1])
     if args.height:
@@ -143,10 +216,10 @@ def main(argv=None) -> int:
     net_cfg = NetworkConfig(
         encoding=InputEncoding.HASH if args.encoding == "hash" else InputEncoding.FREQUENCY
     )
-    r = Renderer(
+    kind = ParallelRenderer if world > 1 else Renderer
+    r = kind(
         scene, system, net_cfg=net_cfg, render_mode=RenderMode[args.render_mode.upper()],
-        train=not args.no_train, reflectance_factoring=args.reflectance_factoring,
-        device=torch.device(args.device),
+        train=not args.no_train, reflectance_factoring=args.reflectance_factoring, device=device,
     )
     if args.lr or args.unbiased_ratio or args.area_spread:
         r.set_hyper_params(
@@ -157,49 +230,59 @@ def main(argv=None) -> int:
     if args.resume:
         if is_render_state(args.resume):
             load_render_state(args.resume, r)
-            print(f"resumed render state from {args.resume} (iteration {r.iteration})")
+            if lead:
+                print(f"resumed render state from {args.resume} (iteration {r.iteration})")
         else:
             r.net_state = load_checkpoint(args.resume, r.net_cfg, r.device)
-            print(f"resumed network from {args.resume}")
+            if lead:
+                print(f"resumed network from {args.resume}")
 
     spp = args.spp if args.spp is not None else system.samples_sqrt ** 2
     activities = [torch.profiler.ProfilerActivity.CPU]
     if r.device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
+    present = args.mode == 0 and (args.present or system.present)
     with contextlib.ExitStack() as stack:
-        stats_f = stack.enter_context(open(args.stats_log, "w")) if args.stats_log else None
+        stats_f = stack.enter_context(open(args.stats_log, "w")) if args.stats_log and lead else None
         # the frames sum their traced rays on the device; read after the barrier
         r.traced_rays.zero_()
         t0 = time.perf_counter()
-        with (torch.profiler.profile(activities=activities) if args.profile
+        with (torch.profiler.profile(activities=activities) if args.profile and lead
               else contextlib.nullcontext()) as prof:
-            _render_loop(args, r, spp, stats_f, t0)
+            if present:
+                frames = _present_loop(args, r, spp, t0)
+            else:
+                _render_loop(args, r, spp, stats_f, t0, lead)
+                frames = spp
             if r.device.type == "cuda":
                 torch.cuda.synchronize(r.device)
         dt = time.perf_counter() - t0
+    r.flush_stats()
+    if not lead:
+        return 0
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     # throughput report (the reference prints only fps,
     # Application.cpp:522-527; Mrays/s + cache queries/s added on top).
     # Primary Mrays/s counts rays actually cast (on-device counter, read
-    # after the barrier); "potential" assumes every path traces every
-    # closest-hit + shadow segment, which the area-spread truncation makes
-    # a severalfold overstatement. The wall time includes the first frames'
-    # kernel builds and graph captures.
+    # after the barrier; every band's with --devices); "potential" assumes
+    # every path traces every closest-hit + shadow segment, which the
+    # area-spread truncation makes a severalfold overstatement. The wall
+    # time includes the first frames' kernel builds and graph captures; in
+    # the viewer, the time it served after the last frame too.
     segs = r.cfg.max_depth + 1
     n_tiles = r.cfg.num_tiles if r.cfg.train else 0
-    potential = (r.cfg.num_pixels + n_tiles) * segs * 2 * spp
+    potential = (r.cfg.num_pixels + n_tiles) * segs * 2 * frames
     traced = int(r.traced_rays)
     uses_cache = r.cfg.render_mode != RenderMode.NO_CACHE
-    n_queries = ((r.cfg.num_pixels if uses_cache else 0) + n_tiles) * spp
+    n_queries = ((r.cfg.num_pixels if uses_cache else 0) + n_tiles) * frames
     print(
-        f"{spp} spp in {dt:.2f}s -> {spp / dt:.2f} fps, "
+        f"{frames} spp in {dt:.2f}s -> {frames / dt:.2f} fps, "
         f"{traced / dt / 1e6:.2f} Mrays/s traced "
         f"({potential / dt / 1e6:.2f} potential), "
         f"{n_queries / dt / 1e6:.2f} M cache queries/s"
     )
-    r.flush_stats()
     if r.loss_history:
         h = list(r.loss_history)
         print(
@@ -219,14 +302,14 @@ def main(argv=None) -> int:
     return 0
 
 
-def _render_loop(args, r: Renderer, spp: int, stats_f, t0: float) -> None:
+def _render_loop(args, r: Renderer, spp: int, stats_f, t0: float, lead: bool = True) -> None:
     """``spp`` frames (``nrc_tpu/app/cli.py:398-430``), each written to the
     stats log when one is open, a render state saved every
     ``--checkpoint-every`` frames, and the frame rate printed every 16
-    frames in mode 0."""
+    frames in mode 0 (by rank 0 alone with ``--devices``)."""
     for i in range(spp):
         stats = r.render_frame()
-        if args.checkpoint and args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
+        if lead and args.checkpoint and args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
             save_render_state(args.checkpoint, r)
         if stats_f is not None:
             stats_f.write(json.dumps({
@@ -236,9 +319,149 @@ def _render_loop(args, r: Renderer, spp: int, stats_f, t0: float) -> None:
                 "traced_rays": int(stats.traced_rays),
                 "tile_size": list(r.cfg.tile_size),
             }) + "\n")
-        if args.mode == 0 and (i + 1) % 16 == 0:
+        if lead and args.mode == 0 and (i + 1) % 16 == 0:
             el = time.perf_counter() - t0
             print(f"[{i + 1}/{spp}] {(i + 1) / el:.2f} fps, loss {float(stats.loss):.4f}")
+
+
+def _present_loop(args, r: Renderer, spp: int, t0: float) -> int:
+    """Interactive presentation (``nrc_tpu/app/cli.py:234-290``; the
+    reference's interactive mode, ``Application::render`` +
+    ``guiEventHandler``): each pass applies the viewer's queued camera verbs
+    (a move restarts the accumulation; the frame's graph is replayed, the
+    new frustum copied into the rows it reads), its settings and its actions,
+    then renders a frame while fewer than ``spp`` are accumulated, else
+    sleeps 0.05 s. About once a second the tonemapped image is published as
+    a PNG: the loop's one read of the image from the device. It serves until
+    interrupted (ctrl-c); returns the frames it rendered."""
+    viewer = Viewer(port=args.port)
+    viewer.params_provider = lambda: _gui_params(r)
+    print(f"presenting at {viewer.url} (ctrl-c to stop)", flush=True)
+    last_pub, frames = 0.0, 0
+    try:
+        while True:
+            if viewer.apply_events(r.scene.camera):
+                r.restart_accumulation()
+            for s in viewer.drain_settings():
+                _apply_setting(r, s)
+            for act in viewer.drain_actions():
+                prefix = args.output or r.system.prefix_screenshot or "frame"
+                tag = f"{prefix}_{r.iteration}spp"
+                if act == "screenshot_png":
+                    print(r.screenshot(tag, tonemap=True), flush=True)
+                elif act == "screenshot_hdr":
+                    print(r.screenshot(tag, tonemap=False), flush=True)
+                elif act == "save_system":
+                    print(r.save_system_description(args.save_system or prefix + "_system.txt"), flush=True)
+                elif act == "reset_cache":
+                    r.reset_cache()
+                    r.restart_accumulation()
+            if r.iteration < spp:
+                r.render_frame()
+                frames += 1
+            else:
+                time.sleep(0.05)
+            now = time.perf_counter()
+            if now - last_pub >= 1.0:  # about 1 Hz (Application.cpp:457-491)
+                h, w = r.cfg.height, r.cfg.width
+                ldr = tonemap_to_u8(r.image.view(h, w, 3).flip(0), r.system.tonemapper).cpu().numpy()
+                loss = r.loss_history[-1] if r.loss_history else 0.0
+                viewer.publish(encode_png(ldr), r.iteration, frames / max(now - t0, 1e-9), loss,
+                               loss_history=list(r.loss_history))
+                last_pub = now
+    except KeyboardInterrupt:
+        pass
+    finally:
+        viewer.close()
+    return frames
+
+
+def _gui_params(r: Renderer) -> dict:
+    """The state the viewer's control panel edits (``nrc_tpu/app/cli.py:
+    293-329``): the reference's System window (render-mode radio, encoding
+    combo, tonemapper), Stats window (learning rate, unbiased ratio, area
+    spread) and per-material ``Param_info`` editors
+    (``Application.cpp:650-1068``, ``inc/MaterialMDL.h:62-295``), and the
+    materials' load report. Python values only: the viewer's thread reads
+    them."""
+    tm = r.system.tonemapper
+    return {
+        "render_mode": r.cfg.render_mode.name,
+        "render_modes": [m.name for m in RenderMode],
+        "encoding": r.net_cfg.encoding.name.lower(),
+        "learning_rate": float(r.hyper.learning_rate),
+        "train_unbiased_ratio": float(r.hyper.train_unbiased_ratio),
+        "area_spread_factor": float(r.hyper.area_spread_factor),
+        "tonemapper": {
+            "gamma": tm.gamma, "white": tm.white_point,
+            "burn": tm.burn_highlights, "crush": tm.crush_blacks,
+            "sat": tm.saturation, "bright": tm.brightness,
+        },
+        "materials": [
+            {
+                "index": i,
+                "name": m.name,
+                "albedo": list(m.albedo),
+                "roughness": list(m.roughness),
+                "ior": float(m.ior),
+                "thin_walled": bool(m.thin_walled),
+                "emission_intensity": list(m.emission_intensity),
+            }
+            for i, m in enumerate(r.scene.material_rows)
+        ],
+        "material_report": r.scene.material_report or [],
+    }
+
+
+def _apply_setting(r: Renderer, s: dict) -> None:
+    """One queued control-panel edit. Values from HTTP are untrusted: a
+    malformed ``/set`` is printed and dropped, not raised into the loop."""
+    try:
+        _apply_setting_unchecked(r, s)
+    except (KeyError, ValueError, IndexError, TypeError) as e:
+        print(f"ignoring bad setting {s!r}: {type(e).__name__}: {e}", flush=True)
+
+
+def _apply_setting_unchecked(r: Renderer, s: dict) -> None:
+    """``nrc_tpu/app/cli.py:345-395``: a material field, the render mode, the
+    encoding, a hyper-parameter or a tonemapper field."""
+    key, raw = s["key"], s["value"]
+
+    def vec(txt, n):
+        parts = [float(x) for x in txt.split(",")]
+        return tuple((parts + parts[-1:] * n)[:n])
+
+    if s.get("material") is not None:
+        idx = int(s["material"])
+        if not 0 <= idx < len(r.scene.material_rows):
+            raise IndexError(f"material index {idx} out of range")
+        if key in ("albedo", "emission_intensity"):
+            r.update_material(idx, **{key: vec(raw, 3)})
+        elif key == "roughness":
+            r.update_material(idx, roughness=vec(raw, 2))
+        elif key == "ior":
+            r.update_material(idx, ior=float(raw))
+        elif key == "thin_walled":
+            r.update_material(idx, thin_walled=bool(int(raw)))
+        return
+    if key == "render_mode":
+        r.set_render_mode(RenderMode[raw])
+    elif key == "encoding":
+        r.set_encoding(raw)
+    elif key == "learning_rate":
+        r.set_hyper_params(learning_rate=float(raw))
+    elif key == "train_unbiased_ratio":
+        r.set_hyper_params(train_unbiased_ratio=float(raw))
+    elif key == "area_spread_factor":
+        r.set_hyper_params(area_spread_factor=float(raw))
+        r.restart_accumulation()
+    elif key.startswith("tm_"):
+        field = {
+            "tm_gamma": "gamma", "tm_white": "white_point",
+            "tm_burn": "burn_highlights", "tm_crush": "crush_blacks",
+            "tm_sat": "saturation", "tm_bright": "brightness",
+        }[key]
+        r.system.tonemapper = dataclasses.replace(r.system.tonemapper, **{field: float(raw)})
 
 
 if __name__ == "__main__":

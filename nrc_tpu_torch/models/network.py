@@ -17,6 +17,16 @@ four steps of a frequency frame. A hash frame runs four ``train_step``s
 instead, since its encoded input depends on the table: each is H1 -> K3 ->
 K4 (with dX) -> H2 -> Adam + EMA. On CPU tensors the kernels take their
 plain versions.
+
+Data-parallel training (``parallel/shard.py``) reduces each step's
+gradients across the ranks between the gradient and the update
+(``grad_reduce``, ``grid_grad_reduce``; ``nrc_tpu/models/network.py:239-340``).
+K6 runs a frame's four steps in one launch and cannot reduce between them,
+so a frequency frame with a ``grad_reduce`` takes each step as K5 (loss and
+gradients), the reduction, then the plain Adam + EMA. With
+``NetworkConfig.hash_shard_axis`` set, a rank's state holds its block of the
+table's levels (``state_from_numpy``'s ``level_block``) and the lookup is
+``encodings.sharded_hash_grid_lookup``.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ from torch import nn
 
 from ..config import InputEncoding, NetworkConfig
 from ..ops import encodings as E
-from ..ops.mlp_cuda import LANE, OUT_PAD, AdamHyper, FusedMLP, adam_ema, fused_train4
+from ..ops.mlp_cuda import LANE, OUT_PAD, AdamHyper, FusedMLP, adam_ema, fused_train4, fused_train_grad
 
 
 class MLPParams(nn.Module):
@@ -77,14 +87,12 @@ _WEIGHTS = ("w_in", "w_hidden", "w_out")
 # sums the device time of the kernels launched inside it)
 TABLE_UPDATE_RANGE = "hash table Adam + EMA"
 # the hash state's checkpoint keys (nrc_tpu/models/checkpoint.py:41-45)
-_GRID_KEYS = ("grid.table", "ema_grid.table", "opt.mu_grid", "opt.nu_grid")
+GRID_KEYS = ("grid.table", "ema_grid.table", "opt.mu_grid", "opt.nu_grid")
 
 
 def _check_encoding(cfg: NetworkConfig) -> None:
     if cfg.encoding not in (InputEncoding.FREQUENCY, InputEncoding.HASH):
         raise ValueError(f"unknown encoding {cfg.encoding}")
-    if cfg.encoding == InputEncoding.HASH and cfg.hash_shard_axis is not None:
-        raise NotImplementedError("the level-sharded hash grid waits for the multi-GPU port")
     if cfg.n_neurons != 64:
         raise ValueError("the fully-fused path is specialized to 64-wide")
 
@@ -145,7 +153,8 @@ def init_network(generator: torch.Generator, cfg: NetworkConfig,
                   like(torch.zeros_like), torch.zeros((), dtype=torch.int64, device=device), grid)
 
 
-def state_from_numpy(tree, device: Optional[torch.device] = None) -> NetworkState:
+def state_from_numpy(tree, device: Optional[torch.device] = None,
+                     level_block: Optional[slice] = None) -> NetworkState:
     """The JAX ``NetworkState`` as numpy -> the port's state, so both
     packages compute with the same weights.
 
@@ -153,7 +162,9 @@ def state_from_numpy(tree, device: Optional[torch.device] = None) -> NetworkStat
     ``params``, ``ema``, ``opt``, and ``grid``, ``ema_grid`` with the hash
     encoding) or a mapping with the keys of
     ``nrc_tpu/models/checkpoint.py:27-45`` (``"params.w_in"``, ...,
-    ``"grid.table"``, ...).
+    ``"grid.table"``, ...). ``level_block`` takes those levels of the hash
+    table, its EMA and its moments: one rank's block of a level-sharded
+    table (``parallel/shard.py::rank_state``).
     """
     device = torch.device("cpu") if device is None else device
     if isinstance(tree, Mapping):
@@ -174,7 +185,8 @@ def state_from_numpy(tree, device: Optional[torch.device] = None) -> NetworkStat
     step = torch.tensor(int(np.asarray(get("opt.step"))), dtype=torch.int64, device=device)
     grid = None
     if has_grid:
-        grid = tuple(torch.tensor(np.asarray(get(k), np.float32), device=device) for k in _GRID_KEYS)
+        block = slice(None) if level_block is None else level_block
+        grid = tuple(torch.tensor(np.asarray(get(k), np.float32)[block], device=device) for k in GRID_KEYS)
     return _state(mlp("params"), mlp("ema"), mlp("opt.mu"), mlp("opt.nu"), step, grid)
 
 
@@ -200,7 +212,7 @@ def state_to_numpy(state: NetworkState) -> dict:
         for w in _WEIGHTS:
             out[f"{prefix}.{w}"] = getattr(mlp, w).detach().cpu().numpy().copy()
     out["opt.step"] = np.int32(int(state.opt.step))
-    for key, t in zip(_GRID_KEYS, _grid_tensors(state)):
+    for key, t in zip(GRID_KEYS, _grid_tensors(state)):
         out[key] = t.detach().cpu().numpy().copy()
     return out
 
@@ -274,6 +286,8 @@ def train_step(
     cfg: NetworkConfig,
     learning_rate=None,
     loss_scale: Optional[torch.Tensor] = None,
+    grad_reduce=None,
+    grid_grad_reduce=None,
 ) -> tuple[NetworkState, torch.Tensor]:
     """One SGD step (= one ``trainer->training_step``, NRCNetwork.cu:41-59):
     the loss through ``torch.autograd`` over ``mlp_forward`` (K3 + K4 on the
@@ -282,17 +296,37 @@ def train_step(
     table takes Adam without the L2 term and its own EMA
     (``nrc_tpu/models/network.py:369-380``). ``loss_scale`` multiplies the
     loss (0 drops the gradient). Returns (new_state, loss); ``state`` is left
-    as it was."""
+    as it was.
+
+    ``grad_reduce`` maps a list of gradients to their reductions across the
+    ranks: the weights' and the table's, or with ``grid_grad_reduce`` (a
+    function of the table's gradient) the weights' alone; both apply before
+    the L2 term and Adam
+    (``nrc_tpu/models/network.py:318-323``). A frequency step with a
+    ``grad_reduce`` takes its loss and gradients from K5
+    (``fused_train_grad``), not from autograd over K3 + K4."""
     lr = cfg.learning_rate if learning_rate is None else learning_rate
     weights = state.params.tensors()
     leaves = weights if state.grid is None else (*weights, state.grid.table)
-    with torch.enable_grad():
-        x = encode(query, cfg, state.grid)
-        pred = mlp_forward(state.params, x, output_relu=False)
-        loss = relative_l2_luminance(pred, target)
-        if loss_scale is not None:
-            loss = loss * loss_scale
-        grads = torch.autograd.grad(loss, leaves)
+    if grad_reduce is not None and state.grid is None:
+        with torch.no_grad():
+            x = encode(query, cfg)
+            loss, *grads = fused_train_grad(*weights, x, target)
+            if loss_scale is not None:
+                loss = loss * loss_scale
+                grads = [g * loss_scale for g in grads]
+    else:
+        with torch.enable_grad():
+            x = encode(query, cfg, state.grid)
+            pred = mlp_forward(state.params, x, output_relu=False)
+            loss = relative_l2_luminance(pred, target)
+            if loss_scale is not None:
+                loss = loss * loss_scale
+            grads = torch.autograd.grad(loss, leaves)
+    if grad_reduce is not None and grid_grad_reduce is None:
+        grads = grad_reduce(list(grads))
+    elif grad_reduce is not None:
+        grads = [*grad_reduce(list(grads[:3])), grid_grad_reduce(grads[3])]
 
     step = state.opt.step + 1
     t = step.to(torch.float32)
@@ -320,14 +354,21 @@ def train_frame(
     num_records: torch.Tensor,   # int scalar on the state's device
     cfg: NetworkConfig,
     learning_rate: torch.Tensor,  # f32 scalar on the state's device
+    grad_reduce=None,
+    grid_grad_reduce=None,
+    loss_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """A frame's NB sequential steps (``Device::nrcTrainRadiance``,
     Device.cpp:1473-1513), updating ``state`` in place; with ``num_records``
     0 nothing changes. Returns the losses [NB]. The frequency encoding runs
-    them through K6; the hash encoding as NB ``train_step``s
-    (``_train_frame_steps``)."""
-    if cfg.encoding == InputEncoding.HASH:
-        return _train_frame_steps(state, batch_q, batch_t, num_records, cfg, learning_rate)
+    them through K6; the hash encoding, and any frame whose gradients are
+    reduced across ranks (``grad_reduce``, ``grid_grad_reduce``, each step's
+    loss times ``loss_scale``; ``num_records`` is then the reduced count), as
+    NB ``train_step``s (``_train_frame_steps``)."""
+    if cfg.encoding == InputEncoding.HASH or grad_reduce is not None:
+        return _train_frame_steps(state, batch_q, batch_t, num_records, cfg, learning_rate,
+                                  dict(grad_reduce=grad_reduce, grid_grad_reduce=grid_grad_reduce,
+                                       loss_scale=loss_scale))
     nb, b, qd = batch_q.shape
     x4 = encode(batch_q.reshape(nb * b, qd), cfg).view(nb, b, LANE)
     with torch.no_grad():
@@ -339,16 +380,18 @@ def train_frame(
 
 
 @torch.no_grad()
-def _train_frame_steps(state, batch_q, batch_t, num_records, cfg, learning_rate) -> torch.Tensor:
+def _train_frame_steps(state, batch_q, batch_t, num_records, cfg, learning_rate,
+                       step_kw=None) -> torch.Tensor:
     """``train_frame`` as NB ``train_step``s (the JAX package's scan,
-    ``nrc_tpu/render/frame.py:364-390``). The JAX package skips the whole
-    update when the frame has no records (``lax.cond``); here the steps run
-    and every tensor of the state, the step count too, keeps its old value
-    where ``num_records`` is 0, selected on the device without a read, so
-    that the frame stays one CUDA graph."""
+    ``nrc_tpu/render/frame.py:364-390``), each given ``step_kw``. The JAX
+    package skips the whole update when the frame has no records
+    (``lax.cond``); here the steps run and every tensor of the state, the
+    step count too, keeps its old value where ``num_records`` is 0, selected
+    on the device without a read, so that the frame stays one CUDA graph."""
     new, losses = state, []
     for k in range(batch_q.shape[0]):
-        new, loss = train_step(new, batch_q[k], batch_t[k], cfg, learning_rate=learning_rate)
+        new, loss = train_step(new, batch_q[k], batch_t[k], cfg, learning_rate=learning_rate,
+                               **(step_kw or {}))
         losses.append(loss)
     keep = num_records > 0
     for old, t in zip(state_tensors(state), state_tensors(new)):

@@ -12,10 +12,12 @@ Port of ``nrc_tpu/ops/encodings.py`` (tiny-cuda-nn's composite encoding,
 
 The column order is the JAX package's (dim-major), which is the weight
 layout. The grid's lookup and its adjoint run through ``ops/hash_cuda``
-(kernels H1/H2 on the card, their plain versions on the CPU). Not ported:
-the TPU's one-hot matrix-product adjoint (``_use_onehot_adjoint``,
-``_grid_gather``), a workaround for the TPU's slow scatter, and
-``sharded_hash_grid_lookup``, which waits for the multi-GPU port.
+(kernels H1/H2 on the card, their plain versions on the CPU). With
+``NetworkConfig.hash_shard_axis`` set, the table is level-sharded over the
+ranks of the default ``torch.distributed`` group
+(``sharded_hash_grid_lookup``; ``parallel/shard.py``). Not ported: the TPU's
+one-hot matrix-product adjoint (``_use_onehot_adjoint``, ``_grid_gather``),
+a workaround for the TPU's slow scatter.
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import NetworkConfig
+from . import hash_cuda as HC
 from .hash_cuda import GridSpec, HashGridLookup, corner_index_weight
 
 M_PI = math.pi
@@ -139,12 +143,95 @@ def hash_grid_lookup(pos: torch.Tensor, params: HashGridParams, cfg: NetworkConf
     return out.reshape(*lead, out.shape[-1])
 
 
+def level_block(cfg: NetworkConfig, rank: int, world: int) -> slice:
+    """The levels of the table rank ``rank`` of ``world`` owns when the table
+    is level-sharded: a block of L / world consecutive levels."""
+    if cfg.hash_n_levels % world:
+        raise ValueError(f"level sharding needs the ranks ({world}) to divide hash_n_levels ({cfg.hash_n_levels})")
+    per = cfg.hash_n_levels // world
+    return slice(rank * per, (rank + 1) * per)
+
+
+def block_spec(cfg: NetworkConfig, block: slice) -> GridSpec:
+    """The grid of one block of levels: their resolutions and dense flags.
+    The hash takes no level index, so H1/H2 run on it unchanged."""
+    spec = grid_spec(cfg)
+    return spec._replace(res=spec.res[block], dense=spec.dense[block])
+
+
+def _all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """[D, ...] -> [D, ...]: block j goes to rank j, block s comes from rank s."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x)
+    return out
+
+
+class ShardedHashGridLookup(torch.autograd.Function):
+    """The level-sharded lookup, differentiable in this rank's block of the
+    table: ``apply(pos [B, 3], table [L/D, S, F], spec)`` over the default group.
+
+    Forward: an ``all_gather`` of every rank's positions [D*B, 3]; the
+    lookup (H1 on the card) of all D*B queries on this rank's levels; an
+    ``all_to_all`` that hands rank j its queries' features of these levels
+    and brings this rank's queries' features of every rank's levels, [B, L*F]
+    in the global level order. Backward: the reverse ``all_to_all`` brings
+    every rank's queries' gradients of this rank's levels, and the adjoint
+    (H2 on the card) sums them into this rank's block. Positions take no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, pos, table, spec: GridSpec):
+        world = dist.get_world_size()
+        b = pos.shape[0]
+        pos = pos.contiguous()
+        parts = [torch.empty_like(pos) for _ in range(world)]
+        dist.all_gather(parts, pos)
+        gpos = torch.cat(parts)
+        acc = HC.hash_grid_lookup(gpos, table, spec)               # [D*B, L/D*F]
+        swapped = _all_to_all(acc.view(world, b, -1))             # [D, B, L/D*F]
+        ctx.spec = spec
+        ctx.save_for_backward(gpos)
+        return swapped.transpose(0, 1).reshape(b, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (gpos,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[1]:
+            return None, None, None
+        world = dist.get_world_size()
+        b = g.shape[0]
+        back = _all_to_all(g.reshape(b, world, -1).transpose(0, 1))  # [D, B, L/D*F]
+        return None, HC.hash_grid_adjoint(gpos, back.reshape(world * b, -1), ctx.spec), None
+
+
+def sharded_hash_grid_lookup(pos: torch.Tensor, params: HashGridParams, cfg: NetworkConfig) -> torch.Tensor:
+    """The hash-grid lookup with the table level-sharded over the ranks of
+    the default group: ``params.table`` is this rank's block [L/D, S, F] of the
+    global table, levels ``level_block(cfg, rank, D)`` (D must divide L).
+    Port of ``nrc_tpu/ops/encodings.py:346-410``: pos [..., 3] ->
+    [..., L * F], every rank's queries' features of every level, in the
+    global level order."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    block = level_block(cfg, rank, world)
+    if params.table.shape[0] != block.stop - block.start:
+        raise ValueError(f"a [{', '.join(map(str, params.table.shape))}] table: rank {rank} of {world} owns "
+                         f"{block.stop - block.start} of {cfg.hash_n_levels} levels")
+    lead = pos.shape[:-1]
+    out = ShardedHashGridLookup.apply(pos.reshape(-1, 3), params.table, block_spec(cfg, block))
+    return out.reshape(*lead, out.shape[-1])
+
+
 def encode_hash(query: torch.Tensor, params: HashGridParams, cfg: NetworkConfig) -> torch.Tensor:
     """Hash-path composite encoding: [.., 15] -> [.., 62]. Positions arrive
     pre-scaled by ``FrameConfig.position_scale`` (roughly [-0.05, 0.05] for
-    Cornell); re-centered into [0, 1]^3 for the grid."""
+    Cornell); re-centered into [0, 1]^3 for the grid, level-sharded where
+    ``cfg.hash_shard_axis`` is set."""
     pos01 = query[..., POS] * 5.0 + 0.5
-    grid = hash_grid_lookup(pos01, params, cfg)
+    if cfg.hash_shard_axis is not None:
+        grid = sharded_hash_grid_lookup(pos01, params, cfg)
+    else:
+        grid = hash_grid_lookup(pos01, params, cfg)
     blob = one_blob(_normalized_blob_inputs(query), cfg.oneblob_n_bins)
     ident = query[..., 9:15]
     return torch.cat([grid, blob, ident], dim=-1)

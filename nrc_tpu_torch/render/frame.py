@@ -64,28 +64,40 @@ class CameraArrays(NamedTuple):
     w: torch.Tensor
 
 
-def pixel_grid(cfg: FrameConfig, device: torch.device):
-    """Pixel coordinates [H*W, 2] f32 and linear indices [H*W] (the RNG
-    stream id of each pixel)."""
-    lin = torch.arange(cfg.height * cfg.width, dtype=torch.int64, device=device)
+def pixel_grid(cfg: FrameConfig, device: torch.device, rows: Optional[int] = None, row_offset: int = 0):
+    """Pixel coordinates [rows*W, 2] f32 and linear indices [rows*W] (the RNG
+    stream id of each pixel) of ``rows`` image rows from ``row_offset`` (the
+    whole image by default). A band of the frame takes the rays the whole
+    frame gives its pixels: the offset enters the global pixel index that
+    seeds their streams (``nrc_tpu/render/frame.py:70-86``)."""
+    rows = cfg.height if rows is None else rows
+    lin = torch.arange(rows * cfg.width, dtype=torch.int64, device=device)
     ys = lin // cfg.width
+    if row_offset:
+        ys = ys + row_offset
     xs = lin % cfg.width
     return torch.stack([xs, ys], dim=-1).to(torch.float32), ys * cfg.width + xs
 
 
 def training_rays(cfg: FrameConfig, total_subframe: int, camera: CameraArrays,
-                  train_unbiased_ratio: float, device: torch.device):
+                  train_unbiased_ratio: float, device: torch.device,
+                  tile_rows: Optional[int] = None, row_offset: int = 0):
     """One training ray per screen tile (``isTrainingRay``,
     ``raygeneration.cu:123-136``): (org, dir, seeds, unbiased). The same
     pixel of every tile traces it, drawn per frame (host ``rand()`` in the
-    reference, ``Device.cpp:2423-2428``; a TEA stream here)."""
+    reference, ``Device.cpp:2423-2428``; a TEA stream here). A band of the
+    frame takes its ``tile_rows`` rows of tiles, their origins offset by the
+    band's first row ``row_offset`` (``nrc_tpu/render/frame.py:89-98``)."""
     tsx, tsy = cfg.tile_size
     ntx, nty = cfg.num_tiles_xy
+    nty = nty if tile_rows is None else tile_rows
     lin = torch.arange(ntx * nty, dtype=torch.int64, device=device)
     _, u = R.rng(R.tea(torch.full((), 0x9E3779B9, dtype=torch.int64, device=device), total_subframe))
     index = torch.clamp((u * (tsx * tsy)).to(torch.int64), max=tsx * tsy - 1)
     tpx = (lin % ntx) * tsx + index % tsx
     tpy = (lin // ntx) * tsy + index // tsx
+    if row_offset:
+        tpy = tpy + row_offset
     seeds = R.tea(tpy * cfg.width + tpx + 0x7F4A7C15, total_subframe)
     seeds, u_unbiased = R.rng(seeds)
     seeds, jitter = R.rng2(seeds)
@@ -183,14 +195,34 @@ def frame_step(
     cfg: FrameConfig,
     net_cfg: NetworkConfig,
     learning_rate: Optional[torch.Tensor] = None,  # f32 scalar on the device
+    grad_reduce=None,
+    count_reduce=None,
+    grid_grad_reduce=None,
+    shard_rows: Optional[int] = None,
+    row_offset: int = 0,
 ) -> tuple[torch.Tensor, FrameStats]:
     """One frame (1 spp). Returns (image', stats); with ``cfg.train`` the
-    network state is trained in place."""
+    network state is trained in place.
+
+    With ``shard_rows`` and ``row_offset`` the step renders the horizontal
+    band of ``shard_rows`` rows from ``row_offset`` (``image`` is then the
+    band's [shard_rows*W, 3]) and trains on the band's records: the body of
+    one rank of ``parallel/shard.py::sharded_frame_step``
+    (``nrc_tpu/render/frame.py:165-190``). ``grad_reduce`` (the weights'
+    gradients), ``grid_grad_reduce`` (the hash table's, ``grad_reduce`` by
+    default) and ``count_reduce`` (the record count) reduce across the
+    ranks: each step's gradient is taken with the loss scaled by whether
+    the band has records, reduced, then applied; the steps run on every
+    rank and their result is kept where the reduced count is above 0, a
+    select on the device, so that the ranks stay in step."""
     mode = cfg.render_mode
     dev = image.device
-    n_pixels = cfg.num_pixels
+    rows = cfg.height if shard_rows is None else shard_rows
+    n_pixels = cfg.width * rows
+    tile_rows = None if shard_rows is None else shard_rows // cfg.tile_size[1]
+    n_tiles = cfg.num_tiles if shard_rows is None else cfg.num_tiles_xy[0] * tile_rows
 
-    pix, pidx = pixel_grid(cfg, dev)
+    pix, pidx = pixel_grid(cfg, dev, shard_rows, row_offset)
     seeds = R.tea(pidx, total_subframe)
     seeds, jitter = R.rng2(seeds)
     org, dirn = generate_primary_rays(
@@ -202,7 +234,7 @@ def frame_step(
     train_out = None
     if cfg.train:
         t_org, t_dir, t_seeds, unbiased = training_rays(
-            cfg, total_subframe, camera, cfg.train_unbiased_ratio, dev
+            cfg, total_subframe, camera, cfg.train_unbiased_ratio, dev, tile_rows, row_offset
         )
         train_out = trace_wavefront(scene, t_org, t_dir, t_seeds, cfg, train=True, unbiased=unbiased)
         traced_rays = traced_rays + train_out.traced_count.sum()
@@ -228,8 +260,8 @@ def frame_step(
             cache = cache * query_reflectance(all_q)
     ofs = n_pixels if render_cache else 0
     if cfg.train:
-        cache_end = cache[ofs:ofs + cfg.num_tiles]
-        ofs += cfg.num_tiles
+        cache_end = cache[ofs:ofs + n_tiles]
+        ofs += n_tiles
 
     # ---- accumulate into the image ---------------------------------------
     w_acc = accumulation_weight(iteration_index)
@@ -269,5 +301,12 @@ def frame_step(
     )
     if learning_rate is None:
         learning_rate = torch.tensor(net_cfg.learning_rate, dtype=torch.float32, device=dev)
-    losses = N.train_frame(net_state, batch_q, batch_t, num_records, net_cfg, learning_rate)
+    if grad_reduce is None:
+        losses = N.train_frame(net_state, batch_q, batch_t, num_records, net_cfg, learning_rate)
+    else:
+        # the train branch decides on the reduced count, on the device
+        total = num_records if count_reduce is None else count_reduce(num_records)
+        losses = N.train_frame(net_state, batch_q, batch_t, total, net_cfg,
+                               learning_rate, grad_reduce=grad_reduce, grid_grad_reduce=grid_grad_reduce,
+                               loss_scale=(num_records > 0).to(torch.float32))
     return image, FrameStats(losses.mean(), num_records, traced_rays)

@@ -231,9 +231,11 @@ class Renderer:
         """Re-create the network (GUI 'reset cache' -> ``Device.cpp:2415-2421``)
         with random weights from ``seed`` (0, as the JAX renderer's default),
         drawn on the CPU and copied into the state the graphs read."""
-        self.net_state = N.init_network(
-            torch.Generator().manual_seed(seed), self.net_cfg, self.device
-        )
+        self.net_state = self._init_state(seed)
+
+    def _init_state(self, seed: int) -> N.NetworkState:
+        """A new network state of ``net_cfg`` from ``seed`` on the device."""
+        return N.init_network(torch.Generator().manual_seed(seed), self.net_cfg, self.device)
 
     def set_encoding(self, encoding, seed: int = 0) -> None:
         """Live input-encoding switch (the reference GUI combo re-creates the
@@ -254,7 +256,7 @@ class Renderer:
         )
         self.hyper = dataclasses.replace(self.hyper, learning_rate=self.net_cfg.learning_rate)
         self.learning_rate.fill_(self.hyper.learning_rate)
-        self.bind_state(N.init_network(torch.Generator().manual_seed(seed), self.net_cfg, self.device))
+        self.bind_state(self._init_state(seed))
         self.restart_accumulation()
 
     def update_material(self, index: int, **changes) -> None:
@@ -437,9 +439,12 @@ class Renderer:
         self.loss_history.append(float(loss))
         if self.adaptive_tiles:
             # Device::adjustTileSize (Device.cpp:818-828), two frames late
-            new_ts = adjust_tile_size(self.cfg.tile_size, int(count))
+            new_ts = self._next_tile_size(int(count))
             if new_ts != self.cfg.tile_size:
                 self.cfg = dataclasses.replace(self.cfg, tile_size=new_ts)
+
+    def _next_tile_size(self, num_train_records: int) -> tuple:
+        return adjust_tile_size(self.cfg.tile_size, num_train_records)
 
     def flush_stats(self) -> None:
         """Drain the deferred per-frame stats (before reading

@@ -1,9 +1,12 @@
 """Orbit camera and the pinhole lens.
 
 Port of ``nrc_tpu/scene/camera.py:27-138``: the host-side orbit camera that
-produces the (P, U, V, W) frustum (reference ``nrc/src/Camera.cpp:170-199``)
-and batched primary-ray generation for the three lenses, pinhole,
-full-format fisheye and spherical (``nrc/shaders/lens_shader.cu:40-108``).
+produces the (P, U, V, W) frustum (reference ``nrc/src/Camera.cpp:170-199``),
+its controls ``orbit``, ``dolly``, ``pan``, ``zoom`` and ``focus`` (the live
+viewer's verbs, float32 numpy as in the JAX package, so that each gives the
+JAX verb's fields bit for bit), and batched primary-ray generation for the
+three lenses, pinhole, full-format fisheye and spherical
+(``nrc/shaders/lens_shader.cu:40-108``).
 """
 
 from __future__ import annotations
@@ -53,6 +56,37 @@ class Camera:
         )
         w = -normal
         return p, u, v, w
+
+    def orbit(self, dx: float, dy: float) -> None:
+        """Mouse-orbit (``Camera::orbit``)."""
+        self.phi = (self.phi - dx) % 1.0
+        self.theta = min(max(self.theta + dy, 0.0), 1.0)
+
+    def dolly(self, dw: float) -> None:
+        """Move along the view axis (``Camera::dolly``)."""
+        self.distance = max(self.distance - dw, 1e-3)
+
+    def pan(self, dx: float, dy: float) -> None:
+        """Translate the orbit center in the view plane (``Camera::pan``)."""
+        _, u, v, _ = self.frustum()
+        un = u / max(float(np.linalg.norm(u)), 1e-12)
+        vn = v / max(float(np.linalg.norm(v)), 1e-12)
+        c = np.asarray(self.center, np.float32)
+        c = c + (-dx * un + dy * vn) * self.distance
+        self.center = tuple(float(x) for x in c)
+
+    def zoom(self, dz: float) -> None:
+        """Change the field of view (``Camera::zoom``)."""
+        self.fov = min(max(self.fov + dz, 1.0), 179.0)
+
+    def focus(self, point: Tuple[float, float, float]) -> None:
+        """Re-center the orbit on a world-space point (``Camera::setFocus``),
+        keeping the view direction by adjusting the distance."""
+        p, _, _, w = self.frustum()
+        w = w / max(float(np.linalg.norm(w)), 1e-12)
+        d = float(np.dot(np.asarray(point, np.float32) - p, w))
+        self.center = tuple(float(x) for x in np.asarray(point, np.float32))
+        self.distance = max(d, 1e-3)
 
 
 def generate_primary_rays(

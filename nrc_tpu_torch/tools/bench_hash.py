@@ -227,8 +227,8 @@ def dropped_train_step():
     keeps the fault at every replay)."""
     steps = N._train_frame_steps
 
-    def fewer(state, batch_q, batch_t, num_records, cfg, learning_rate):
-        return steps(state, batch_q[:-1], batch_t[:-1], num_records, cfg, learning_rate)
+    def fewer(state, batch_q, batch_t, num_records, cfg, learning_rate, *rest):
+        return steps(state, batch_q[:-1], batch_t[:-1], num_records, cfg, learning_rate, *rest)
 
     N._train_frame_steps = fewer
     try:

@@ -16,8 +16,8 @@ import zlib
 import numpy as np
 
 
-def write_png(path: str, rgb_u8: np.ndarray) -> None:
-    """Write an RGB8 PNG. ``rgb_u8``: [H, W, 3] uint8."""
+def encode_png(rgb_u8: np.ndarray) -> bytes:
+    """An RGB8 PNG file's bytes. ``rgb_u8``: [H, W, 3] uint8."""
     img = np.asarray(rgb_u8, dtype=np.uint8)
     if img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"expected [H, W, 3] uint8, got {img.shape}")
@@ -31,17 +31,25 @@ def write_png(path: str, rgb_u8: np.ndarray) -> None:
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
     raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw, 6))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path: str, rgb_u8: np.ndarray) -> None:
+    """Write an RGB8 PNG. ``rgb_u8``: [H, W, 3] uint8."""
+    data = encode_png(rgb_u8)
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", ihdr))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
+        f.write(data)
 
 
 def read_png(path: str) -> np.ndarray:
     """Minimal PNG reader for our own RGB8 non-interlaced files (test roundtrip)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read())
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """``read_png`` of a file's bytes: [H, W, 3] uint8."""
     assert data[:8] == b"\x89PNG\r\n\x1a\n"
     pos, w, h, idat = 8, 0, 0, b""
     while pos < len(data):

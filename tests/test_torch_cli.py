@@ -1,16 +1,23 @@
-"""The port's batch CLI against the JAX package's option set, and what it
+"""The port's CLI against the JAX package's option set, and what it
 refuses.
 
 ``nrc_tpu_torch/app/cli.py::build_parser`` must take the JAX CLI's options
 (``nrc_tpu/app/cli.py:27-87``), each with the same flags, destination,
 default, type, choices and requiredness, plus ``--device``; the same
 command line must parse to the same values. What the port does not run
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item before any
-frame: the viewer (``--present``, or ``present 1`` in the system file,
-with ``-m 0``), ``--devices`` above 1 and the orbax checkpoint container.
-``--device cuda`` (the default) raises without a card, as ``Renderer``
-does; the CPU is taken only when asked.
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` entry before any
+frame: the viewer with ``--devices`` above 1 and the orbax checkpoint
+container. ``--device cuda`` (the default) raises without a card, as
+``Renderer`` does; the CPU is taken only when asked. ``present 1`` in the
+system file serves the viewer in mode 0 (the loop itself is checked in
+``test_torch_viewer.py``). ``--devices 2 --device cpu`` renders in two gloo
+ranks and writes the PNG ``--devices 1`` writes; more ranks than cards
+raise before any frame.
 """
+
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -54,8 +61,7 @@ def files(tmp_path_factory):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--present"], "Queue 1 item 4"),
-    (["--devices", "2"], "Queue 1 item 5"),
+    (["--present", "--devices", "2"], "Queue 1"),
     (["--checkpoint-format", "orbax", "-m", "1"], "Do not port"),
 ])
 def test_unported_options_raise(files, extra, item):
@@ -63,15 +69,53 @@ def test_unported_options_raise(files, extra, item):
         cli.main(["-s", files[0], "-d", files[1], "--device", "cpu", "--spp", "1"] + extra)
 
 
-def test_present_in_the_system_file_raises_in_mode_0(files, tmp_path):
+def test_present_in_the_system_file_serves_in_mode_0(files, tmp_path, monkeypatch):
+    """``present 1`` serves the viewer in mode 0 until interrupted (here at
+    the loop's first idle wait, once the frame is accumulated); mode 1
+    renders in batch, as the JAX CLI does."""
     system = tmp_path / "system_present.txt"
     system.write_text(open(files[0]).read() + "present 1\n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        cli.main(["-s", str(system), "-d", files[1], "--device", "cpu", "--spp", "1"])
-    # the benchmark mode renders in batch, as the JAX CLI does
+    waits = []
+
+    def interrupt(seconds):
+        waits.append(seconds)
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(cli.time, "sleep", interrupt)
+    assert cli.main(["-s", str(system), "-d", files[1], "--device", "cpu", "--spp", "1", "--port", "0",
+                     "--output", str(tmp_path / "shown")]) == 0
+    assert waits == [0.05] and (tmp_path / "shown_1spp.png").exists()
     assert cli.main(["-s", str(system), "-d", files[1], "-m", "1", "--device", "cpu", "--spp", "1",
                      "--no-train", "--output", str(tmp_path / "frame")]) == 0
-    assert (tmp_path / "frame_1spp.png").exists()
+    assert (tmp_path / "frame_1spp.png").exists() and waits == [0.05]
+
+
+def test_devices_2_writes_the_png_of_devices_1(files, tmp_path):
+    """NO_CACHE frames in two gloo ranks (16x16, 8-row bands of 8x8 tiles:
+    the system file's 16x16 tiles do not divide a band, so ``--devices 2``
+    asks for 8x8 ones through the file) against one rank: the same PNG and
+    HDR bytes. The ranks run in a child process with a time limit."""
+    system = tmp_path / "system_8.txt"
+    system.write_text(open(files[0]).read().replace("tileSize 16 16", "tileSize 8 8"))
+    assert "tileSize 8 8" in system.read_text()
+    common = ["-s", str(system), "-d", files[1], "-m", "1", "--device", "cpu", "--spp", "2",
+              "--render-mode", "no_cache", "--hdr"]
+    assert cli.main(common + ["--output", str(tmp_path / "one")]) == 0
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-m", "nrc_tpu_torch.app.cli", *common, "--devices", "2",
+                           "--output", str(tmp_path / "two")], cwd=root, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.count("spp in ") == 1  # rank 0 alone prints
+    for ext in ("png", "hdr"):
+        assert (tmp_path / f"two_2spp.{ext}").read_bytes() == (tmp_path / f"one_2spp.{ext}").read_bytes()
+
+
+def test_more_devices_than_cards_raise(files):
+    cards = torch.cuda.device_count()
+    ranks = max(cards + 1, 2)
+    with pytest.raises(ValueError, match=f"--devices {ranks}: {cards} CUDA devices"):
+        cli.main(["-s", files[0], "-d", files[1], "--spp", "1", "--devices", str(ranks)])
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="the card is there: cuda does not raise")

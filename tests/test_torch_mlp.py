@@ -140,13 +140,11 @@ def test_cpu_tensors_take_the_plain_version():
     assert MC.FORWARD_KERNEL._fn is None  # nothing was built
 
 
-def test_hash_encoding_is_not_ported():
-    """What of the hash encoding is not ported: the level-sharded grid
-    (``hash_shard_axis``), which waits for the multi-GPU port. The grid on
-    one device is (``tests/test_torch_hash.py``)."""
+def test_hash_state_holds_the_whole_table():
+    """The hash state's table on one device: 16 levels of 2^15 rows of 2
+    features. The level-sharded grid (``hash_shard_axis``) is checked in
+    ``tests/test_torch_shard.py``."""
     from nrc_tpu_torch.config import InputEncoding
 
     st = N.init_network(torch.Generator(), NetworkConfig(encoding=InputEncoding.HASH))
     assert st.grid.table.shape == (16, 2 ** 15, 2)
-    with pytest.raises(NotImplementedError):
-        N.init_network(torch.Generator(), NetworkConfig(encoding=InputEncoding.HASH, hash_shard_axis="data"))
