@@ -19,8 +19,10 @@ default, which raises without one; the CPU only when asked.
 - ``--devices N`` renders the frame in N horizontal bands
   (``parallel/shard.py``): N spawned ranks, each on a card of its own over
   NCCL, or with ``--device cpu`` on the CPU over gloo. Rank 0 prints and
-  writes the files. More ranks than cards raise before any frame.
-  ``--present`` with more than one device is not ported (ROADMAP Queue 1).
+  writes the files. More ranks than cards raise before any frame. With
+  ``--present``, rank 0 serves the viewer and hands what it drains to every
+  rank before each pass; ctrl-c ends every rank (``_present_loop``,
+  ``_run_ranks``).
 - ``--checkpoint-format orbax`` is not ported ("Do not port").
 
 Usage:
@@ -35,8 +37,10 @@ import dataclasses
 import json
 import multiprocessing
 import os
+import signal
 import socket
 import sys
+import threading
 import time
 
 import torch
@@ -49,7 +53,7 @@ from ..render.renderer import Renderer
 from ..scene.scene_builder import load_scene
 from ..utils.image_io import encode_png
 from ..utils.tonemap import tonemap_to_u8
-from .viewer import Viewer
+from .viewer import Viewer, apply_camera_events
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -137,10 +141,8 @@ def _print_material_report(scene) -> None:
         print(f"  ... and {len(warnings) - 20} more (Scene.material_report holds the full list)")
 
 
-def _refuse_unported(args, present: bool) -> None:
+def _refuse_unported(args) -> None:
     """What the port does not run, refused before any frame."""
-    if args.mode == 0 and (args.present or present) and args.devices > 1:
-        raise NotImplementedError("the live viewer with --devices above 1 is not ported: ROADMAP Queue 1")
     if args.checkpoint_format == "orbax":
         raise NotImplementedError("--checkpoint-format orbax is not ported (ROADMAP, 'Do not port')")
 
@@ -156,8 +158,10 @@ def main(argv=None) -> int:
 def _run_ranks(args, argv) -> int:
     """``--devices N``: N spawned ranks, one card each (or N CPU ranks),
     joined in a data group at a free local port; each runs ``_run`` on its
-    band. A rank that fails ends the others."""
-    _refuse_unported(args, present=False)
+    band. A rank that fails ends the others. An interrupt (ctrl-c) is
+    passed on to rank 0, whose present loop then stops every rank at the
+    next pass; a second one ends the ranks at once."""
+    _refuse_unported(args)
     if args.device == "cuda":
         cards = torch.cuda.device_count()
         if args.devices > cards:
@@ -169,12 +173,19 @@ def _run_ranks(args, argv) -> int:
     procs = [ctx.Process(target=_rank_main, args=(argv, rank, args.devices, port)) for rank in range(args.devices)]
     for p in procs:
         p.start()
+    interrupted = False
     try:
         while any(p.is_alive() for p in procs):
             failed = [rank for rank, p in enumerate(procs) if p.exitcode not in (None, 0)]
             if failed:
                 raise RuntimeError(f"rank {failed[0]} of {args.devices} failed (exit code {procs[failed[0]].exitcode})")
-            time.sleep(0.1)
+            try:
+                time.sleep(0.1)
+            except KeyboardInterrupt:
+                if interrupted or not procs[0].is_alive():
+                    raise
+                interrupted = True
+                os.kill(procs[0].pid, signal.SIGINT)
         codes = [p.exitcode for p in procs]
         if codes != [0] * args.devices:
             raise RuntimeError(f"the ranks' exit codes: {codes}")
@@ -204,7 +215,7 @@ def _run(args, device: torch.device, rank: int = 0, world: int = 1) -> int:
     """The CLI on one rank of ``world``: rank 0 prints and writes the files."""
     lead = rank == 0
     scene, system = load_scene(args.system, args.scene)
-    _refuse_unported(args, present=bool(system.present))
+    _refuse_unported(args)
     if lead:
         _print_material_report(scene)
     if args.width:
@@ -233,7 +244,7 @@ def _run(args, device: torch.device, rank: int = 0, world: int = 1) -> int:
             if lead:
                 print(f"resumed render state from {args.resume} (iteration {r.iteration})")
         else:
-            r.net_state = load_checkpoint(args.resume, r.net_cfg, r.device)
+            r.net_state = load_checkpoint(args.resume, r.net_cfg, r.device, level_block=r.state_block)
             if lead:
                 print(f"resumed network from {args.resume}")
 
@@ -258,6 +269,9 @@ def _run(args, device: torch.device, rank: int = 0, world: int = 1) -> int:
                 torch.cuda.synchronize(r.device)
         dt = time.perf_counter() - t0
     r.flush_stats()
+    if args.checkpoint:
+        # every rank: a level-sharded table is gathered from the ranks' blocks
+        save_render_state(args.checkpoint, r)
     if not lead:
         return 0
     if args.profile:
@@ -297,7 +311,6 @@ def _run(args, device: torch.device, rank: int = 0, world: int = 1) -> int:
     if args.save_system:
         print(r.save_system_description(args.save_system))
     if args.checkpoint:
-        save_render_state(args.checkpoint, r)
         print(f"saved render state to {args.checkpoint}")
     return 0
 
@@ -305,11 +318,12 @@ def _run(args, device: torch.device, rank: int = 0, world: int = 1) -> int:
 def _render_loop(args, r: Renderer, spp: int, stats_f, t0: float, lead: bool = True) -> None:
     """``spp`` frames (``nrc_tpu/app/cli.py:398-430``), each written to the
     stats log when one is open, a render state saved every
-    ``--checkpoint-every`` frames, and the frame rate printed every 16
-    frames in mode 0 (by rank 0 alone with ``--devices``)."""
+    ``--checkpoint-every`` frames (by every rank with ``--devices``: a
+    collective, rank 0 writes), and the frame rate printed every 16 frames
+    in mode 0 (by rank 0 alone)."""
     for i in range(spp):
         stats = r.render_frame()
-        if lead and args.checkpoint and args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
+        if args.checkpoint and args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
             save_render_state(args.checkpoint, r)
         if stats_f is not None:
             stats_f.write(json.dumps({
@@ -333,36 +347,42 @@ def _present_loop(args, r: Renderer, spp: int, t0: float) -> int:
     then renders a frame while fewer than ``spp`` are accumulated, else
     sleeps 0.05 s. About once a second the tonemapped image is published as
     a PNG: the loop's one read of the image from the device. It serves until
-    interrupted (ctrl-c); returns the frames it rendered."""
-    viewer = Viewer(port=args.port)
-    viewer.params_provider = lambda: _gui_params(r)
-    print(f"presenting at {viewer.url} (ctrl-c to stop)", flush=True)
+    interrupted (ctrl-c); returns the frames it rendered.
+
+    Over the ranks of a ``ParallelRenderer`` rank 0 alone serves the viewer,
+    publishes and writes the files. It drains the viewer and hands what it
+    drained and whether to stop to every rank in one exchange a pass
+    (``_PassExchange``); every rank applies it with the same code and
+    renders the same frames (their accumulations are equal), whose
+    collectives pair them. SIGINT stops rank 0 at its next pass and every
+    rank with it; the other ranks ignore it in the loop."""
+    lead = r.lead
+    exchange = _PassExchange() if isinstance(r, ParallelRenderer) else None
+    viewer = None
     last_pub, frames = 0.0, 0
     try:
+        if lead:
+            viewer = Viewer(port=args.port)
+            viewer.params_provider = lambda: _gui_params(r)
+            print(f"presenting at {viewer.url} (ctrl-c to stop)", flush=True)
         while True:
-            if viewer.apply_events(r.scene.camera):
-                r.restart_accumulation()
-            for s in viewer.drain_settings():
-                _apply_setting(r, s)
-            for act in viewer.drain_actions():
-                prefix = args.output or r.system.prefix_screenshot or "frame"
-                tag = f"{prefix}_{r.iteration}spp"
-                if act == "screenshot_png":
-                    print(r.screenshot(tag, tonemap=True), flush=True)
-                elif act == "screenshot_hdr":
-                    print(r.screenshot(tag, tonemap=False), flush=True)
-                elif act == "save_system":
-                    print(r.save_system_description(args.save_system or prefix + "_system.txt"), flush=True)
-                elif act == "reset_cache":
-                    r.reset_cache()
-                    r.restart_accumulation()
+            todo = None
+            if lead:
+                todo = {"verbs": viewer.drain_events(), "settings": viewer.drain_settings(),
+                        "actions": viewer.drain_actions(),
+                        "stop": exchange is not None and exchange.stop.is_set()}
+            if exchange is not None:
+                todo = exchange(todo)
+            if todo["stop"]:
+                break
+            _apply_pass(args, r, todo)
             if r.iteration < spp:
                 r.render_frame()
                 frames += 1
             else:
                 time.sleep(0.05)
             now = time.perf_counter()
-            if now - last_pub >= 1.0:  # about 1 Hz (Application.cpp:457-491)
+            if lead and now - last_pub >= 1.0:  # about 1 Hz (Application.cpp:457-491)
                 h, w = r.cfg.height, r.cfg.width
                 ldr = tonemap_to_u8(r.image.view(h, w, 3).flip(0), r.system.tonemapper).cpu().numpy()
                 loss = r.loss_history[-1] if r.loss_history else 0.0
@@ -370,10 +390,63 @@ def _present_loop(args, r: Renderer, spp: int, t0: float) -> int:
                                loss_history=list(r.loss_history))
                 last_pub = now
     except KeyboardInterrupt:
-        pass
+        if exchange is not None:
+            raise  # the ranks stop on the exchange's flag, never between two collectives
     finally:
-        viewer.close()
+        if viewer is not None:
+            viewer.close()
+        if exchange is not None:
+            exchange.close()
     return frames
+
+
+class _PassExchange:
+    """The present loop's one exchange a pass over the ranks: rank 0's
+    drained verbs, settings and actions and whether to stop, broadcast as
+    host objects over a gloo group of their own (the data group's own where
+    it is gloo), so that the exchange never touches the card's stream. SIGINT sets ``stop`` instead of raising (rank 0
+    broadcasts it; the other ranks' flag is ignored), for the length of the
+    loop: no rank leaves it between two collectives of a frame."""
+
+    def __init__(self):
+        self.group = dist.new_group(backend="gloo") if dist.get_backend() != "gloo" else None
+        self.stop = threading.Event()
+        self._saved = signal.signal(signal.SIGINT, lambda *_: self.stop.set())
+
+    def __call__(self, todo):
+        box = [todo]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    def close(self) -> None:
+        signal.signal(signal.SIGINT, signal.SIG_DFL if self._saved is None else self._saved)
+        if self.group is not None:
+            dist.destroy_process_group(self.group)
+
+
+def _apply_pass(args, r: Renderer, todo: dict) -> None:
+    """What one pass of the present loop drained from the viewer, applied to
+    ``r``: the camera verbs (a move restarts the accumulation), the
+    settings, then the actions (the files by the lead renderer alone)."""
+    if apply_camera_events(r.scene.camera, todo["verbs"]):
+        r.restart_accumulation()
+    for s in todo["settings"]:
+        _apply_setting(r, s)
+    for act in todo["actions"]:
+        if act == "reset_cache":
+            r.reset_cache()
+            r.restart_accumulation()
+            continue
+        if not r.lead:
+            continue
+        prefix = args.output or r.system.prefix_screenshot or "frame"
+        tag = f"{prefix}_{r.iteration}spp"
+        if act == "screenshot_png":
+            print(r.screenshot(tag, tonemap=True), flush=True)
+        elif act == "screenshot_hdr":
+            print(r.screenshot(tag, tonemap=False), flush=True)
+        elif act == "save_system":
+            print(r.save_system_description(args.save_system or prefix + "_system.txt"), flush=True)
 
 
 def _gui_params(r: Renderer) -> dict:
@@ -419,7 +492,8 @@ def _apply_setting(r: Renderer, s: dict) -> None:
     try:
         _apply_setting_unchecked(r, s)
     except (KeyError, ValueError, IndexError, TypeError) as e:
-        print(f"ignoring bad setting {s!r}: {type(e).__name__}: {e}", flush=True)
+        if r.lead:
+            print(f"ignoring bad setting {s!r}: {type(e).__name__}: {e}", flush=True)
 
 
 def _apply_setting_unchecked(r: Renderer, s: dict) -> None:

@@ -14,7 +14,9 @@ accumulation, ``Application::restartRendering``).
 The server's threads touch only bytes and Python values: the loop encodes
 the PNG (``utils/image_io.encode_png``) and hands its bytes over; events,
 actions and settings cross in queues the loop drains. No CUDA tensor is
-read on the server's threads.
+read on the server's threads. Over ranks (``--present --devices N``) rank
+0 alone serves; the camera verbs are drained as data (``drain_events``) and
+applied on every rank by ``apply_camera_events``.
 
 Enabled by ``present 1`` in the system description or ``--present`` on the
 CLI (mode 0, ``app/cli.py::_present_loop``).
@@ -274,25 +276,17 @@ class Viewer:
                 "loss_history": [float(x) for x in loss_history],
             }
 
-    def apply_events(self, camera) -> bool:
-        """Drain queued camera verbs onto ``camera``; True if any applied
-        (caller restarts accumulation, ``Application::restartRendering``)."""
-        moved = False
+    def drain_events(self) -> list:
+        """Queued camera verbs as data, ``[(op, (dx, dy, d)), ...]``: the
+        present loop over ranks drains them on rank 0 and applies them on
+        every rank (``apply_camera_events``)."""
+        out = []
         while True:
             try:
-                op, (dx, dy, d) = self.events.get_nowait()
+                out.append(self.events.get_nowait())
             except queue.Empty:
                 break
-            if op == "orbit":
-                camera.orbit(dx, dy)
-            elif op == "pan":
-                camera.pan(dx, dy)
-            elif op == "dolly":
-                camera.dolly(d * camera.distance * 0.1)
-            elif op == "zoom":
-                camera.zoom(-d * 2.0)
-            moved = True
-        return moved
+        return out
 
     def drain_actions(self) -> list:
         """Queued one-shot actions (screenshots / save-system / cache reset)."""
@@ -317,3 +311,22 @@ class Viewer:
     def close(self) -> None:
         self._server.shutdown()
         self._server.server_close()
+        # the provider closes over the renderer, and the server's handler
+        # over this viewer: let the renderer go with the loop that ends
+        self.params_provider = lambda: {}
+
+
+def apply_camera_events(camera, events) -> bool:
+    """Apply camera verbs (``Viewer.drain_events``) to ``camera`` in order;
+    True if any applied (the caller restarts the accumulation,
+    ``Application::restartRendering``)."""
+    for op, (dx, dy, d) in events:
+        if op == "orbit":
+            camera.orbit(dx, dy)
+        elif op == "pan":
+            camera.pan(dx, dy)
+        elif op == "dolly":
+            camera.dolly(d * camera.distance * 0.1)
+        elif op == "zoom":
+            camera.zoom(-d * 2.0)
+    return bool(events)

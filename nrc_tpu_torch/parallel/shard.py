@@ -176,14 +176,42 @@ class ParallelRenderer(Renderer):
             dist.all_reduce(probe)
             torch.cuda.synchronize(self.device)
 
+    @property
+    def lead(self) -> bool:
+        return self.band.rank == 0
+
+    @property
+    def state_block(self) -> Optional[slice]:
+        """This rank's block of the table's levels where the table is
+        level-sharded, else None (the whole table)."""
+        if not level_sharded(N.GRID_KEYS[0], self.net_cfg):
+            return None
+        return level_block(self.net_cfg, self.band.rank, self.band.world)
+
     def _init_state(self, seed: int) -> N.NetworkState:
         """The whole state from ``seed`` (the same on every rank), its
         level-sharded tensors cut to this rank's block."""
         state = super()._init_state(seed)
-        if not self.band.shard_tables or state.grid is None:
+        if self.state_block is None or state.grid is None:
             return state
-        block = level_block(self.net_cfg, self.band.rank, self.band.world)
-        return N.state_from_numpy(N.state_to_numpy(state), self.device, level_block=block)
+        return N.state_from_numpy(N.state_to_numpy(state), self.device, level_block=self.state_block)
+
+    def net_state_arrays(self) -> dict:
+        """The whole network state as numpy, as the JAX package's file holds
+        a level-sharded state: the table, its EMA and its moments gathered
+        from every rank's block in level order (one ``all_gather``), the
+        replicated tensors as this rank holds them. A collective where the
+        table is level-sharded: every rank calls it."""
+        arrays = N.state_to_numpy(self.net_state)
+        st = self.net_state
+        if self.state_block is None or st.grid is None:
+            return arrays
+        blocks = torch.stack([st.grid.table, st.ema_grid.table, st.opt.mu_grid, st.opt.nu_grid])
+        gathered = blocks.new_empty((self.band.world,) + tuple(blocks.shape))
+        dist.all_gather(list(gathered.unbind(0)), blocks.contiguous())
+        whole = gathered.transpose(0, 1).reshape(len(N.GRID_KEYS), -1, *blocks.shape[2:]).cpu().numpy()
+        arrays.update({key: whole[i].copy() for i, key in enumerate(N.GRID_KEYS)})
+        return arrays
 
     def _frame(self) -> FrameStats:
         with torch.no_grad():

@@ -211,6 +211,17 @@ class Renderer:
         self.graphs.clear()
         self._net_state = state
 
+    # -- the network state as a file holds it (models/checkpoint.py) ---------
+
+    # this process writes the files (a ParallelRenderer: rank 0 alone)
+    lead = True
+    # the levels of the hash table this renderer holds (None: all of them)
+    state_block: Optional[slice] = None
+
+    def net_state_arrays(self) -> dict:
+        """The whole network state as numpy under the checkpoint keys."""
+        return N.state_to_numpy(self.net_state)
+
     @property
     def device_scene(self) -> DeviceScene:
         return self._device_scene

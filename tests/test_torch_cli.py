@@ -6,8 +6,7 @@ refuses.
 default, type, choices and requiredness, plus ``--device``; the same
 command line must parse to the same values. What the port does not run
 raises ``NotImplementedError`` naming its ``ROADMAP.md`` entry before any
-frame: the viewer with ``--devices`` above 1 and the orbax checkpoint
-container. ``--device cuda`` (the default) raises without a card, as
+frame: the orbax checkpoint container. ``--device cuda`` (the default) raises without a card, as
 ``Renderer`` does; the CPU is taken only when asked. ``present 1`` in the
 system file serves the viewer in mode 0 (the loop itself is checked in
 ``test_torch_viewer.py``). ``--devices 2 --device cpu`` renders in two gloo
@@ -61,7 +60,6 @@ def files(tmp_path_factory):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--present", "--devices", "2"], "Queue 1"),
     (["--checkpoint-format", "orbax", "-m", "1"], "Do not port"),
 ])
 def test_unported_options_raise(files, extra, item):

@@ -18,7 +18,7 @@ distance t for a fibre seen from the camera: its discriminant keeps about
 evaluations (XLA:CPU's contracted FMAs, PyTorch's separate products) give t
 up to 5e-4 apart relative, a hit point a few 1e-4 units apart, and a fibre
 normal 1e-2 apart. So at each curve call the port's own hit is held to the
-JAX hit (``_curve_call``: the port's cone test at the JAX inputs within
+JAX hit (``hair_decisions.curve_call``: the port's cone test at the JAX inputs within
 ``T_COND`` ulp over the root of the relative discriminant; where the walks
 name different segments, each the closest on its own ray, and an equal-t
 tie or a ray that grazes a winner, shown by its logged h or y), and then
@@ -29,7 +29,7 @@ with two changes for this scene, each stated where ``HAIR_LIMITS`` is set.
 
 Three more decisions count a ray as flipped (``test_torch_slice.ray_flips``):
 a fibre normal, a hair sample or a hair evaluation that the two sides'
-inputs moved apart (``_normal_moved``, ``_hair_moved``). A round cone's
+inputs moved apart (``normal_moved``, ``hair_moved``). A round cone's
 normal turns by the hit point's move over the fibre's radius (down to
 0.006), so a hit point a few ulp apart turns it by 1e-4; the longitudinal
 and azimuthal terms take arcsines and logarithms of h, ill-conditioned
@@ -42,6 +42,10 @@ patch's rays (whose fibres face them along z) mostly ray by ray. The query
 vectors' direction and normal are read as the unit vectors they encode
 (``query_gap_unit``): their azimuth near the pole (+-z, where these rays
 run) turns by the vector's move over its distance from the pole.
+
+The decisions, their thresholds and their witnesses are the port's
+``nrc_tpu_torch/tools/hair_decisions.py``, which the card's smoke test
+(``chip_smoke.py`` phase 6h) counts the card's frames with too.
 """
 
 import contextlib
@@ -73,6 +77,7 @@ from nrc_tpu_torch.render.renderer import Renderer
 from nrc_tpu_torch.render.scene_device import upload_scene
 from nrc_tpu_torch.scene.materials import Archetype
 from nrc_tpu_torch.scene.scene_builder import HAIR_SEGMENTS, HAIR_SUBSEGMENTS, cornell_hair, cornell_hair_declarations
+from nrc_tpu_torch.tools import hair_decisions as HD
 from test_hair_render import build_scene as strand_patch_scene
 from test_torch_graph import _HostOps, _wavefront_inputs, assert_same_bits
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
@@ -89,47 +94,11 @@ from test_torch_train_slice import (
 RES = (32, 32)
 TILE = (8, 8)
 STRANDS = 300
-# the round cone's t, the port's own against the JAX hit, in float32 ulp
-# over the square root of the root's relative discriminant (its chord over
-# t): a camera ray's fibre hit reads 1e-6 of its terms in h, so 5e-4
-# relative in t is 8 ulp / 1e-3
-T_COND = 64
-# two segments of a strand at the same t (the sphere at their joint),
-# relative to the root's scale (reads 1.5e-4)
-TIE_RTOL = 1e-3
-# the port's cone test may miss a JAX hit at a graze: its smallest root's
-# discriminant within H_DECISION of 0, relative to its terms (a camera ray's
-# hits read 1.6e-7 to 2.5e-6, the grazes 0 to 1.8e-7: its terms k1^2 and
-# k0 k2 each carry the cancellation of d2 m5 against m1^2), or at the body / cap
-# border: y within Y_DECISION of 0 or d2, relative to d2
-H_DECISION = 5e-7
-Y_DECISION = 1e-3
-# the port's hair sample / evaluation at the JAX inputs against the JAX
-# output: directions and the values relative to their size
-HAIR_ATOL = 2e-4
-HAIR_DECISION = 1e-5
-# a fibre normal moved apart: half the query bound, so that the query's
-# encoding of the normal (elevation, azimuth) stays under it (2.07e-5 read
-# for a normal 1.9e-5 apart)
-NORMAL_APART = 1e-5
-# the port's fibre normal at the JAX hit point against the JAX normal (reads
-# 3.0e-5): the body normal d2 (x - pa) - ba y subtracts two terms of size
-# |ba|^2 |x - pa| to leave d2 r, r down to 0.006 at a tip, and XLA contracts
-# the product into an FMA
-FRAME_ATOL = 1e-4
-# the box's limits but two. The first hits' t: the block's top face is seen
-# at a grazing angle (n.d ~ 0.1) under this camera, where the plane form's
-# t = -(n.o + d0) / (n.d) reads 5 ulp apart (4 on the box). The flipped
-# share: the rays that meet a fibre part at its normal or its lobe's
-# conditioning (reads 0.167 NO_CACHE, 0.120 FULL, 0.120 FULL + train; 15 %
-# of the camera rays hit a fibre first)
-HAIR_LIMITS = dict(LIMITS, first_t_ulp=6, flipped_share=0.2)
-HAIR_SLICE_LIMITS = dict(SLICE_LIMITS, flipped_share=0.2)
+# the box's limits but two, each stated where hair_decisions sets it
+HAIR_LIMITS = dict(LIMITS, **HD.HAIR_LIMIT_CHANGES)
+HAIR_SLICE_LIMITS = dict(SLICE_LIMITS, flipped_share=HD.HAIR_LIMIT_CHANGES["flipped_share"])
 # curve decisions seen by the checks of one test (for its reporting)
 _DECISIONS = {"curve": 0, "curve_ties": 0}
-# set while a check calls the port's hair functions: the wrappers log nothing
-_QUIET = []
-_PORT_FRAME = port_curves.curve_shading_frame  # unwrapped, for the checks
 
 
 # ---- the scenes ---------------------------------------------------------------
@@ -171,6 +140,14 @@ def test_scene_is_the_declared_fur():
     assert r.cfg.position_scale == JRenderer(jscene, system).cfg.position_scale
 
 
+def test_the_decisions_read_the_box_bounds():
+    """``hair_decisions`` (the card's count of 6h's decisions) reads the
+    box frames' query bound and changes the box's limits as this file's
+    ``HAIR_LIMITS`` does."""
+    assert HD.QUERY_ABS == LIMITS["query_abs"]
+    assert {k: v for k, v in HAIR_LIMITS.items() if LIMITS[k] != v} == HD.HAIR_LIMIT_CHANGES
+
+
 # ---- logging both sides' curve calls and hair lobes --------------------------------
 
 
@@ -210,27 +187,13 @@ def _port_occlusion_logging(fn):
     return occluded
 
 
-HAIR_FIELDS = port_hair.HairParams._fields
-
-
-def _curve_won(log, n):
-    """The lanes whose last n-ray curve call won over the triangles: where
-    the hair lobe's result is used."""
-    tri = next(a for tag, a in reversed(log) if tag == "closest" and a[0].shape[0] == n)
-    cur = next(a for tag, a in reversed(log) if tag == "curve" and a[0].shape[0] == n)
-    tri_t = np.where(tri[-1] >= 0, tri[2], 3.0e38)
-    return (cur[5] >= 0) & (cur[4] < tri_t) & (cur[0] > 0.0)
-
-
 def _hair_logging(side, name, fn):
     """``hair_sample`` / ``hair_eval`` logging (name, [used lanes, params...,
     inputs..., outputs...])."""
     if side == "port":
         def port_fn(params, *args):
             out = fn(params, *args)
-            if _QUIET:
-                return out
-            used = _curve_won(_LOG["port"], args[0].shape[0])
+            used = HD.curve_won(_LOG["port"], args[0].shape[0])
             _LOG["port"].append((name, [used] + [np.asarray(t).copy() for t in (*params, *args, *out)]))
             return out
         return port_fn
@@ -240,7 +203,7 @@ def _hair_logging(side, name, fn):
 
         def log(*arrays):
             arrays = [np.asarray(a) for a in arrays]
-            _LOG["jax"].append((name, [_curve_won(_LOG["jax"], arrays[-1].shape[0])] + arrays))
+            _LOG["jax"].append((name, [HD.curve_won(_LOG["jax"], arrays[-1].shape[0])] + arrays))
 
         jax.debug.callback(log, *params, *args, *out, ordered=True)
         return out
@@ -253,7 +216,7 @@ def _frame_logging(side, fn):
     if side == "port":
         def port_frame(table, prim, x):
             out = fn(table, prim, x)
-            used = _curve_won(_LOG["port"], x.shape[0])
+            used = HD.curve_won(_LOG["port"], x.shape[0])
             _LOG["port"].append(("cframe", [used, prim.numpy().copy(), x.numpy().copy(), out.normal.numpy().copy()]))
             return out
         return port_frame
@@ -263,193 +226,11 @@ def _frame_logging(side, fn):
 
         def log(*arrays):
             arrays = [np.asarray(a) for a in arrays]
-            _LOG["jax"].append(("cframe", [_curve_won(_LOG["jax"], arrays[0].shape[0])] + arrays))
+            _LOG["jax"].append(("cframe", [HD.curve_won(_LOG["jax"], arrays[0].shape[0])] + arrays))
 
         jax.debug.callback(log, prim, x, out.normal, ordered=True)
         return out
     return jax_frame_fn
-
-
-def _normal_moved(table):
-    """The rays whose fibre normal the two sides' hit points moved apart by
-    more than ``NORMAL_APART``, among the lanes whose curve hit won: a round
-    cone's normal turns by the hit point's move over the fibre's radius
-    (0.006 at a tip), so a move of a few ulp turns it by 1e-4. The port's
-    frame at the JAX inputs must give the JAX normal within ``FRAME_ATOL``."""
-    def moved(j, p):
-        (used_j, prim_j, x_j, n_j), (used_p, _, _, n_p) = j, p
-        apart = (used_j | used_p) & (np.abs(n_j - n_p).max(-1) > NORMAL_APART)
-        at_jax = _PORT_FRAME(table, torch.from_numpy(prim_j.astype(np.int64)),
-                             torch.from_numpy(x_j.copy())).normal.numpy()
-        off = np.abs(at_jax - n_j)[used_j].max(initial=0.0)
-        assert off <= FRAME_ATOL, f"the port's fibre normal at the JAX inputs is {off} off the JAX normal"
-        return apart
-    return moved
-
-
-def _unit(q):
-    """A query's (elevation, azimuth) pair as the unit vector it encodes."""
-    th, ph = q[..., 0], q[..., 1]
-    return np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph), np.cos(th)], -1)
-
-
-def query_gap_unit(a, b):
-    """The gap between two sets of queries with the direction and normal
-    read as the unit vectors they encode: the azimuth of a direction near
-    the query's pole (+-z) turns by its move over its distance from the
-    pole, so a fibre normal that faces a ray along z (the strand patch, the
-    camera of ``cornell_hair``) reads its azimuth 1e-4 apart for normals
-    1e-6 apart."""
-    gap = np.abs(a - b)
-    for c in (3, 5):
-        gap[..., c:c + 2] = np.abs(_unit(a[..., c:c + 2]) - _unit(b[..., c:c + 2])).max(-1, keepdims=True)
-    return gap
-
-
-def _cone_terms(o, d, seg, prim):
-    """The round-cone test's terms for segment ``prim`` (clamped at 0) of
-    ``seg`` (``CurveSoA`` of tensors) and the rays (o, d), in
-    ``_roundcone_t``'s operations: each root's discriminant relative to its
-    terms (``h``: the body's h / (k1^2 + |k0 k2|); ``h1``, ``h2``: the end
-    spheres'), the smallest of the three in size (``graze``), and the
-    body's y at its root relative to d2 (its distance from the body/cap
-    border, ``y``)."""
-    p = torch.clamp(torch.from_numpy(np.asarray(prim, np.int64)), min=0)
-    o, d = torch.from_numpy(o.copy()), torch.from_numpy(d.copy())
-    pa, ba, ra, rb, m0 = seg.pa[p], seg.ba[p], seg.ra[p], seg.rb[p], seg.m0[p]
-    s3 = port_curves._sum3
-    oa = o - pa
-    ob = oa - ba
-    rr = ra - rb
-    m1, m2, m3, m5, m6, m7 = s3(ba, oa), s3(ba, d), s3(d, oa), s3(oa, oa), s3(ob, d), s3(ob, ob)
-    d2 = m0 - rr * rr
-    k2 = d2 - m2 * m2
-    k1 = d2 * m3 - m1 * m2 + m2 * rr * ra
-    k0 = d2 * m5 - m1 * m1 + m1 * rr * ra * 2.0 - m0 * ra * ra
-    h = k1 * k1 - k0 * k2
-    t_body = (-torch.sqrt(torch.clamp(h, min=0.0)) - k1) / torch.where(k2.abs() > 1e-20, k2, 1.0)
-    y = m1 - ra * rr + t_body * m2
-    h1, h2 = m3 * m3 - m5 + ra * ra, m6 * m6 - m7 + rb * rb
-    rel = dict(h=h / (k1 * k1 + (k0 * k2).abs()), h1=h1 / (m3 * m3 + m5 + ra * ra), h2=h2 / (m6 * m6 + m7 + rb * rb),
-               y=torch.minimum(y.abs(), (d2 - y).abs()) / d2.abs().clamp(min=1e-20))
-    # the worst conditioned of the three roots: the one whose discriminant
-    # keeps the least of its terms
-    rel["graze"] = torch.minimum(rel["h"].abs(), torch.minimum(rel["h1"].abs(), rel["h2"].abs()))
-    return {k: v.numpy() for k, v in rel.items()}
-
-
-def _curve_call(seg):
-    """The check of one curve call (``ray_flips`` handler), the port's own
-    hit against the JAX hit, on the rays that have not parted at an earlier
-    decision (origin and direction within the query bound):
-
-    - the port's cone test at the JAX ray and segment gives the JAX t within
-      T_COND ulp of the root's scale (t, or the origin's distance from the
-      segment where that is larger: a ray leaving a fibre) over the square
-      root of the root's relative discriminant; it may miss it only at a
-      decision: a graze (a relative discriminant within ``H_DECISION`` of 0),
-      the body/cap border (y within ``Y_DECISION`` of 0 or d2) or the t
-      range's start (a ray leaving a fibre meets it again at tmin);
-    - where the walks name different segments, each is the closest on its
-      own ray: the port's cone test on the port's ray puts the JAX segment
-      no nearer than the port's winner (else the walk missed it), and the
-      two t are an equal-t tie (``TIE_RTOL`` of the scale: two segments of a
-      strand share the sphere at their joint), or one side's segment is
-      missed on the other side's ray (the rays' last bits decide) or grazes
-      there (the two arithmetics decide).
-
-    No ray flips: the port's bounce takes the JAX hit."""
-    def cone_t(o, d, k, tn, tf):
-        k = np.maximum(k, 0)
-        return port_curves._roundcone_t(*(torch.from_numpy(np.array(a)) for a in (
-            o, d, seg.pa[k].numpy(), seg.ba[k].numpy(), seg.ra[k].numpy(), seg.rb[k].numpy(), seg.m0[k].numpy(),
-            tn, tf))).numpy()
-
-    def check(j, p):
-        (tf_j, tn_j, o_j, d_j, t_j, prim_j), (tf_p, tn_p, o_p, d_p, t_p, prim_p) = j, p
-        same_ray = (np.abs(o_j - o_p).max(-1) <= LIMITS["query_abs"]) & (
-            np.abs(d_j - d_p).max(-1) <= LIMITS["query_abs"]) & (tf_j > 0.0) & (tf_p > 0.0)
-        hit_j = same_ray & (prim_j >= 0)
-        k = np.maximum(prim_j, 0)
-        scale = np.maximum(np.abs(t_j), np.linalg.norm(o_j - seg.pa[k].numpy(), axis=-1))
-        t_at = cone_t(o_j, d_j, prim_j, tn_j, tf_j)
-        terms = _cone_terms(o_j, d_j, seg, prim_j)
-        bound = T_COND * np.finfo(np.float32).eps / np.sqrt(np.maximum(terms["graze"], 1e-30))
-        missed = hit_j & (t_at >= port_curves.RT_MAX)
-        decided = (terms["graze"] <= H_DECISION) | (terms["y"] <= Y_DECISION) | (
-            np.abs(t_j - tn_j) <= bound * scale)
-        assert not (missed & ~decided).any(), "the port's cone test misses a JAX hit off a decision"
-        held = hit_j & ~missed
-        worst = (np.abs(t_at - t_j)[held] / scale[held] / bound[held]).max(initial=0.0)
-        _DECISIONS["worst_t_ratio"] = max(_DECISIONS.get("worst_t_ratio", 0.0), float(worst))
-        assert worst <= 1.0, f"the port's cone test at the JAX inputs is {worst} of its bound off the JAX t"
-
-        flip = same_ray & (prim_j != prim_p)
-        # the JAX winner on the port's ray must be no nearer than the port's
-        t_pj = cone_t(o_p, d_p, prim_j, tn_p, tf_p)
-        t_win = np.where(prim_p >= 0, t_p, port_curves.RT_MAX)
-        walk_missed = flip & (prim_j >= 0) & (t_pj < t_win)
-        assert not walk_missed.any(), (
-            f"the port's walk missed a nearer segment on its own ray: {prim_j[walk_missed]} at "
-            f"{t_pj[walk_missed]}, took {prim_p[walk_missed]} at {t_p[walk_missed]}")
-        tie = flip & (prim_j >= 0) & (prim_p >= 0) & (np.abs(t_p - t_j) <= TIE_RTOL * scale)
-        t_jp = cone_t(o_j, d_j, prim_p, tn_j, tf_j)
-        apart = flip & ((t_pj >= port_curves.RT_MAX) | (t_jp >= port_curves.RT_MAX))
-        # or one winner grazes on the other ray, where the two arithmetics
-        # (FMA or not) decide the hit apart
-        for o, d, prim in ((o_j, d_j, prim_p), (o_p, d_p, prim_j)):
-            rel = _cone_terms(o, d, seg, prim)
-            apart |= flip & (prim >= 0) & ((rel["graze"] <= H_DECISION) | (rel["y"] <= Y_DECISION))
-        unexplained = flip & ~tie & ~apart
-        assert not unexplained.any(), (
-            f"{unexplained.sum()} curve hits flipped without a tie or a decision: jax {prim_j[unexplained]} "
-            f"t {t_j[unexplained]}, port {prim_p[unexplained]} t {t_p[unexplained]}")
-        _DECISIONS["curve"] += int(flip.sum())
-        _DECISIONS["curve_ties"] += int(tie.sum())
-        return np.zeros(t_j.shape[0], bool)
-    return check
-
-
-def _hair_moved(name):
-    """The rays whose hair sample (or evaluation) the two sides' inputs
-    moved apart by more than the query bound, among the lanes that use it;
-    the port's function at the JAX inputs must give the JAX outputs within
-    ``HAIR_ATOL`` (relative for the values) except at the lobe pick's
-    decisions."""
-    n_params = len(HAIR_FIELDS)
-    n_in = 3  # (wo, h, xi) of a sample, (wo, wi, h) of an evaluation
-
-    def moved(j, p):
-        used = j[0] | p[0]  # the port's bounce takes the JAX hit: either side's lanes
-        params_j, ins_j, outs_j = j[1:1 + n_params], j[1 + n_params:1 + n_params + n_in], j[1 + n_params + n_in:]
-        outs_p = p[1 + n_params + n_in:]
-        apart = np.zeros(used.shape[0], bool)
-        for a, b in zip(outs_j, outs_p):
-            diff = np.abs(a - b) / np.maximum(np.abs(a), 1.0)
-            apart |= (diff.reshape(diff.shape[0], -1) > LIMITS["query_abs"]).any(-1)
-        apart &= used
-        params = port_hair.HairParams(*(torch.from_numpy(a.copy()) for a in params_j))
-        ins = [torch.from_numpy(a.copy()) for a in ins_j]
-        _QUIET.append(True)
-        try:
-            at_jax = [t.numpy() for t in getattr(port_hair, "hair_sample" if name == "hair" else "hair_eval")(
-                params, *ins)]
-        finally:
-            _QUIET.pop()
-        decision = np.zeros_like(apart)
-        if name == "hair":
-            wo, h, _ = ins
-            cdf = port_hair._lobe_cdf(port_hair._lobe_pdf(port_hair._attenuations(
-                port_hair._geometry(wo, h, params)))).numpy()
-            w = params_j[HAIR_FIELDS.index("diffuse_weight")]
-            u0 = np.clip(ins_j[2][:, 0] / np.maximum(1.0 - w, 1e-6), 0.0, 1.0)
-            decision = (ins_j[2][:, 0] < 1.0 - w) & (np.abs(u0[:, None] - cdf[:, :3]) <= HAIR_DECISION).any(-1)
-        for a, b in zip(at_jax, outs_j):
-            off = (np.abs(a - b) / np.maximum(np.abs(b), 1.0)).reshape(a.shape[0], -1).max(-1)
-            worst = off[apart & ~decision].max(initial=0.0)
-            assert worst <= HAIR_ATOL, f"the port's {name} at the JAX inputs is {worst} off the JAX output"
-        return apart
-    return moved
 
 
 @contextlib.contextmanager
@@ -457,12 +238,13 @@ def hair_logged(seg_of):
     """Both sides' curve calls, fibre frames and hair lobes logged, the
     port's bounce on the JAX curve hits; ``seg_of()`` gives the scene's
     ``CurveSoA`` of tensors for the checks."""
-    handlers = {"curve": lambda j, p: _curve_call(seg_of())(j, p), "hair": _hair_moved("hair"),
-                "hair_eval": _hair_moved("hair_eval"),
-                "cframe": lambda j, p: _normal_moved(torch.from_numpy(port_curves.curve_row_table(seg_of())))(j, p)}
+    handlers = {"curve": lambda j, p: HD.curve_call(seg_of(), _DECISIONS)(j, p),
+                "hair": HD.hair_moved("hair"),
+                "hair_eval": HD.hair_moved("hair_eval"),
+                "cframe": lambda j, p: HD.normal_moved(torch.from_numpy(port_curves.curve_row_table(seg_of())))(j, p)}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(test_torch_slice, "MOVED", dict(test_torch_slice.MOVED, **handlers))
-        mp.setattr(test_torch_slice, "QUERY_GAP", query_gap_unit)
+        mp.setattr(test_torch_slice, "QUERY_GAP", HD.query_gap_unit)
         mp.setattr(jax_curves, "intersect_curves_bvh", _jax_curve_logging(jax_curves.intersect_curves_bvh))
         mp.setattr(jax_curves, "occluded_curves_bvh", _jax_occlusion_logging(jax_curves.occluded_curves_bvh))
         mp.setattr(port_curves, "intersect_curves_bvh", _port_curve_taking_jax_hits(port_curves.intersect_curves_bvh))
@@ -535,7 +317,7 @@ def test_strand_patch_wavefront_matches_jax(train):
             keep = ~_flipped(_LOG["jax"], _LOG["port"], n)
     finally:
         jax.config.update("jax_enable_compilation_cache", prev)
-    hair_hits = _curve_won(_LOG["port"], n)  # the last bounce's; the first call's below
+    hair_hits = HD.curve_won(_LOG["port"], n)  # the last bounce's; the first call's below
     first = next(a for tag, a in _LOG["port"] if tag == "curve")
     assert (first[5] >= 0).mean() > 0.3, "the rays do not hit the strands"
     print(f"strand patch, {'training' if train else 'render'}: {int((~keep).sum())} of {n} rays flipped")
@@ -547,7 +329,7 @@ def test_strand_patch_wavefront_matches_jax(train):
     if train:
         slots = (np.arange(pcfg.max_train_records_per_ray)[None] < got["rec_count"][:, None]) & keep[:, None]
         assert slots.any() and int(got["rec_count"].sum()) > 0
-        assert query_gap_unit(got["rec_query"], ref["rec_query"])[slots].max() <= LIMITS["query_abs"]
+        assert HD.query_gap_unit(got["rec_query"], ref["rec_query"])[slots].max() <= LIMITS["query_abs"]
         assert (np.abs(got["rec_target"] - ref["rec_target"]) / np.maximum(np.abs(ref["rec_target"]), 1e-3))[
             slots].max() <= LIMITS["radiance_rel"]
     else:

@@ -233,20 +233,14 @@ def bands_rank(rank, world, **jax_side):
     return out
 
 
-def jax_sharded_frames():
-    """The JAX ``ParallelRenderer`` on a 2-device mesh, FULL + train, frames
-    from a restarted accumulation; its intersectors are the TPU plane
-    kernels in interpret mode, logged per band, and its bands' batches kept."""
+def jax_band_intersectors(logs):
+    """JAX's ``make_intersectors`` with the TPU plane kernels in interpret
+    mode, each band's rays logged into ``logs[(band, tag, rays)]`` in call
+    order (unordered callbacks with the band's index: ordered ones are
+    refused on more than one device)."""
     import jax
 
-    import nrc_tpu.render.frame as jax_frame
-    import nrc_tpu.render.integrator as jax_integrator
     from nrc_tpu.ops import intersect_pallas as JP
-    from nrc_tpu.parallel.shard import ParallelRenderer as JParallel, make_mesh
-    from nrc_tpu.render.renderer import Renderer as JRenderer
-    from test_torch_scene import jax_cornell_scene
-
-    logs, batches = {}, {}
 
     def keep(tag):
         def cb(band, *arrays):
@@ -268,6 +262,16 @@ def jax_sharded_frames():
 
         return closest, occluded
 
+    return make
+
+
+def jax_band_batches(batches):
+    """JAX's ``assemble_training_batches`` with each band's batches kept in
+    ``batches[band]``."""
+    import jax
+
+    import nrc_tpu.render.frame as jax_frame
+
     assemble = jax_frame.assemble_training_batches
 
     def recording_assemble(*args):
@@ -276,8 +280,31 @@ def jax_sharded_frames():
                            jax.lax.axis_index("data"), *out)
         return out
 
-    jax_integrator.make_intersectors = make
-    jax_frame.assemble_training_batches = recording_assemble
+    return recording_assemble
+
+
+def jax_band_entries(logs, prefix):
+    """``jax_band_intersectors``' logs as npz entries,
+    ``<prefix><band>.<tag>.<rays>.<call>.<array>``."""
+    return {f"{prefix}{band}.{tag}.{n}.{i}.{j}": a for (band, tag, n), entries in logs.items()
+            for i, arrays in enumerate(entries) for j, a in enumerate(arrays)}
+
+
+def jax_sharded_frames():
+    """The JAX ``ParallelRenderer`` on a 2-device mesh, FULL + train, frames
+    from a restarted accumulation; its intersectors are the TPU plane
+    kernels in interpret mode, logged per band, and its bands' batches kept."""
+    import jax
+
+    import nrc_tpu.render.frame as jax_frame
+    import nrc_tpu.render.integrator as jax_integrator
+    from nrc_tpu.parallel.shard import ParallelRenderer as JParallel, make_mesh
+    from nrc_tpu.render.renderer import Renderer as JRenderer
+    from test_torch_scene import jax_cornell_scene
+
+    logs, batches = {}, {}
+    jax_integrator.make_intersectors = jax_band_intersectors(logs)
+    jax_frame.assemble_training_batches = jax_band_batches(batches)
     _, system = _system()
     jr = JRenderer(jax_cornell_scene(RES), system, render_mode=RenderMode.FULL, train=True, adaptive_tiles=False)
     jp = JParallel(jr, make_mesh(2))
@@ -303,15 +330,11 @@ def jax_sharded_frames():
             out[f"after.{f}.ema.{w}"] = getattr(after.ema, w)
         for band, (bq, bt, _) in batches.items():
             out[f"batch.{f}.{band}.q"], out[f"batch.{f}.{band}.t"] = bq, bt
-        for (band, tag, n), entries in logs.items():
-            for i, arrays in enumerate(entries):
-                for j, a in enumerate(arrays):
-                    out[f"log.{f}.{band}.{tag}.{n}.{i}.{j}"] = a
+        out.update(jax_band_entries(logs, f"log.{f}."))
     return out
 
 
 def test_bands_against_the_whole_frame_and_jax(tmp_path):
-    from test_torch_slice import ray_flips
     from test_torch_train_slice import SLICE_LIMITS
 
     jax_side = run_jax_side("test_torch_shard:jax_sharded_frames", tmp_path)
@@ -325,39 +348,80 @@ def test_bands_against_the_whole_frame_and_jax(tmp_path):
             assert np.array_equal(r[f"no_cache.{f}.image"], whole.image.numpy()), f"NO_CACHE frame {f}"
             assert int(r[f"no_cache.{f}.records"]) == int(stats.num_train_records) > 0
             assert int(r[f"no_cache.{f}.traced"]) == int(stats.traced_rays)
-    band = RES[0] * RES[1] // 2
     for f in range(BAND_FRAMES):
-        ref, out = jax_side[f"image.{f}"], ranks[0][f"full.{f}.image"]
-        assert np.array_equal(out, ranks[1][f"full.{f}.image"]) and np.isfinite(out).all() and out.std() > 0.0
-        flipped = np.zeros(2 * band, bool)
-        for k, r in enumerate(ranks):
-            for tag in ("closest", "shadow"):
-                j_calls = calls(jax_side, f"log.{f}.{k}", tag, band)
-                p_calls = calls(r, f"log.{f}", tag, band)
-                assert len(j_calls) == len(p_calls) > 0, f"band {k}: {len(j_calls)} and {len(p_calls)} {tag} calls"
-                for j, p in zip(j_calls, p_calls):
-                    flipped[k * band:(k + 1) * band] |= ray_flips(tag, j, p)
-        keep = ~flipped
-        got = {
-            "flipped_share": flipped.mean(),
-            "image_kept_abs": np.abs(out - ref)[keep].max(),
-            "image_kept_mean_rel": abs(out[keep].mean() / ref[keep].mean() - 1.0),
-            "loss_rel": abs(float(ranks[0][f"full.{f}.loss"]) / float(jax_side[f"loss.{f}"]) - 1.0),
-            "records_gap": abs(int(ranks[0][f"full.{f}.records"]) - int(jax_side[f"records.{f}"])),
-            "image_mean_rel": abs(out.mean() / ref.mean() - 1.0),
-            "ema_abs": 0.0, "ema_mean_abs": 0.0, "params_abs": 0.0,
-        }
-        assert int(jax_side[f"records.{f}"]) > 0
-        for w in ("w_in", "w_hidden", "w_out"):
-            for r in ranks[1:]:
-                assert np.array_equal(r[f"full.{f}.params.{w}"], ranks[0][f"full.{f}.params.{w}"])
-            d = np.abs(ranks[0][f"full.{f}.ema.{w}"] - jax_side[f"after.{f}.ema.{w}"])
-            got["ema_abs"] = max(got["ema_abs"], d.max())
-            got["ema_mean_abs"] = max(got["ema_mean_abs"], d.mean())
-            d = np.abs(ranks[0][f"full.{f}.params.{w}"] - jax_side[f"after.{f}.params.{w}"])
-            got["params_abs"] = max(got["params_abs"], d.max())
+        got = band_frame_readings(_prefixed(jax_side, f"image.{f}", f"loss.{f}", f"records.{f}", f"after.{f}.",
+                                            f"log.{f}."),
+                                  [_prefixed(r, f"full.{f}.", f"log.{f}.") for r in ranks])
         over = {k: (v, SLICE_LIMITS[k]) for k, v in got.items() if not v <= SLICE_LIMITS[k]}
         assert not over, f"frame {f}: readings over their limits: {over}"
+
+
+def _prefixed(arrays, *prefixes):
+    """The entries under each prefix, with the prefix taken off; an entry
+    named whole by its prefix keeps the prefix's last word (``image.0`` ->
+    ``image``); ``log.`` prefixes keep ``log.``."""
+    out = {}
+    for p in prefixes:
+        for k, v in arrays.items():
+            if k == p:
+                out[p.split(".")[0]] = v
+            elif k.startswith(p):
+                out[("log." if p.startswith("log.") else "") + k[len(p):]] = v
+    return out
+
+
+def band_image_readings(jax_frame, rank_frames) -> dict:
+    """The ranks' image against the JAX ``ParallelRenderer``'s, as
+    ``SLICE_LIMITS`` reads it: ``jax_frame`` holds the ``image`` and the
+    rays logged per band (``log.<band>.<tag>.<rays>.<call>.<array>``), each
+    of ``rank_frames`` its ``image`` and its rays (``log.<tag>...``). Every
+    rank must hold the same image."""
+    from test_torch_slice import ray_flips
+
+    ref, out = jax_frame["image"], rank_frames[0]["image"]
+    world = len(rank_frames)
+    band = ref.shape[0] // world
+    assert all(np.array_equal(out, r["image"]) for r in rank_frames[1:])
+    assert np.isfinite(out).all() and out.std() > 0.0
+    flipped = np.zeros(ref.shape[0], bool)
+    for k, r in enumerate(rank_frames):
+        for tag in ("closest", "shadow"):
+            j_calls = calls(jax_frame, f"log.{k}", tag, band)
+            p_calls = calls(r, "log", tag, band)
+            assert len(j_calls) == len(p_calls) > 0, f"band {k}: {len(j_calls)} and {len(p_calls)} {tag} calls"
+            for j, p in zip(j_calls, p_calls):
+                flipped[k * band:(k + 1) * band] |= ray_flips(tag, j, p)
+    keep = ~flipped
+    return {
+        "flipped_share": flipped.mean(),
+        "image_kept_abs": np.abs(out - ref)[keep].max(),
+        "image_kept_mean_rel": abs(out[keep].mean() / ref[keep].mean() - 1.0),
+        "image_mean_rel": abs(out.mean() / ref.mean() - 1.0),
+    }
+
+
+def band_frame_readings(jax_frame, rank_frames) -> dict:
+    """One FULL + train frame of the ranks against the JAX
+    ``ParallelRenderer``'s, as ``SLICE_LIMITS`` reads them: the image
+    (``band_image_readings``), and from ``loss``, ``records`` and the
+    weights and EMA after the frame (``params.w_in``, ``ema.w_in``, ...) on
+    both sides, the training. Every rank must hold the same weights."""
+    got = band_image_readings(jax_frame, rank_frames)
+    got.update({
+        "loss_rel": abs(float(rank_frames[0]["loss"]) / float(jax_frame["loss"]) - 1.0),
+        "records_gap": abs(int(rank_frames[0]["records"]) - int(jax_frame["records"])),
+        "ema_abs": 0.0, "ema_mean_abs": 0.0, "params_abs": 0.0,
+    })
+    assert int(jax_frame["records"]) > 0
+    for w in ("w_in", "w_hidden", "w_out"):
+        for r in rank_frames[1:]:
+            assert np.array_equal(r[f"params.{w}"], rank_frames[0][f"params.{w}"])
+        d = np.abs(rank_frames[0][f"ema.{w}"] - jax_frame[f"ema.{w}"])
+        got["ema_abs"] = max(got["ema_abs"], d.max())
+        got["ema_mean_abs"] = max(got["ema_mean_abs"], d.mean())
+        d = np.abs(rank_frames[0][f"params.{w}"] - jax_frame[f"params.{w}"])
+        got["params_abs"] = max(got["params_abs"], d.max())
+    return got
 
 
 # ---------------------------------------------------------------------------

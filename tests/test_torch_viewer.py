@@ -5,8 +5,9 @@ camera verbs (``scene/camera.py``) and the CLI's present loop
 - Each camera verb, and sequences of them, leave the JAX ``Camera``'s fields
   bit for bit (the same float32 numpy arithmetic on both sides).
 - Every endpoint of the server on an ephemeral port; the events a page sends
-  (``/control``) applied to a camera by the port's ``Viewer.apply_events``
-  and by the JAX ``Viewer``'s, fields bit for bit.
+  (``/control``) drained by the port's ``Viewer.drain_events`` and applied
+  to a camera by ``apply_camera_events``, and by the JAX ``Viewer``'s,
+  fields bit for bit.
 - ``_gui_params`` and ``_apply_setting`` against the JAX functions on
   renderers of the same Cornell files, bad edits included (each is printed
   and dropped, on both sides alike).
@@ -16,13 +17,16 @@ camera verbs (``scene/camera.py``) and the CLI's present loop
   fetches the published PNG, which must decode to ``tonemap_to_u8`` of the
   image, sends an orbit, which must restart the accumulation, and a
   screenshot action, which must write the file; then it raises
-  ``KeyboardInterrupt``, which ends the loop as ctrl-c does.
+  ``KeyboardInterrupt``, which ends the loop as ctrl-c does. The loop's
+  renderer is freed by reference counting once the loop has ended.
 """
 
 import contextlib
+import gc
 import io
 import json
 import urllib.request
+import weakref
 
 import numpy as np
 import pytest
@@ -32,7 +36,7 @@ from nrc_tpu.app import cli as jcli
 from nrc_tpu.app.viewer import Viewer as JViewer
 from nrc_tpu.scene.camera import Camera as JCamera
 from nrc_tpu_torch.app import cli
-from nrc_tpu_torch.app.viewer import Viewer
+from nrc_tpu_torch.app.viewer import Viewer, apply_camera_events
 from nrc_tpu_torch.scene.camera import Camera
 from nrc_tpu_torch.scene.scene_builder import write_cornell_box_files
 from nrc_tpu_torch.utils.image_io import decode_png, encode_png, write_png
@@ -131,12 +135,12 @@ def test_apply_events_matches_jax(viewer):
     ref = JViewer(port=0)
     try:
         port_cam, ref_cam = Camera(**START), JCamera(**START)
-        assert not viewer.apply_events(port_cam) and not ref.apply_events(ref_cam)
+        assert not apply_camera_events(port_cam, viewer.drain_events()) and not ref.apply_events(ref_cam)
         for q in ("op=orbit&dx=0.1&dy=-0.2", "op=dolly&d=1", "op=pan&dx=0.3&dy=0.1", "op=zoom&d=-1",
                   "op=dolly&d=-1", "op=orbit&dx=-0.4&dy=0.7", "op=zoom&d=1"):
             _get(viewer.url + "control?" + q)
             _get(ref.url + "control?" + q)
-        assert viewer.apply_events(port_cam) and ref.apply_events(ref_cam)
+        assert apply_camera_events(port_cam, viewer.drain_events()) and ref.apply_events(ref_cam)
         assert _fields(port_cam) == _fields(ref_cam) != _fields(Camera(**START))
     finally:
         ref.close()
@@ -280,3 +284,30 @@ def test_present_loop_serves_moves_and_writes(tmp_path, monkeypatch):
         _get(made[0].url)  # the server is closed
     write_png(str(tmp_path / "again.png"), decode_png(seen["png"]))
     assert (tmp_path / "again.png").read_bytes() == seen["png"]
+
+
+def test_the_loops_renderer_goes_with_it(monkeypatch):
+    """The present loop leaves nothing that holds its renderer: freed by
+    reference counting once the loop has ended, with no collection (on the
+    card a renderer left for one frees its graphs whenever a collection
+    runs, which ends a capture that it falls in)."""
+    from nrc_tpu_torch.render.renderer import Renderer
+    from nrc_tpu_torch.scene.scene_builder import cornell_box
+
+    def stop(_seconds):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(cli.time, "sleep", stop)
+    args = cli.build_parser().parse_args(["-s", "-", "-d", "-", "--present", "--port", "0", "--spp", "1"])
+    r = Renderer(*cornell_box((16, 16)), train=False, device="cpu")
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert cli._present_loop(args, r, 1, 0.0) == 1
+        ref = weakref.ref(r)
+        del r
+        assert ref() is None
+    finally:
+        if collecting:
+            gc.enable()
