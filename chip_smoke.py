@@ -6,7 +6,7 @@ CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or on ``PATH``) and no network.
 
 Phases, each of which raises on failure (non-zero exit):
 1. device: the card's name and power limit as ``nvidia-smi`` reports them;
-2. build: compile every kernel (K1-K9, W1, W2, C1, C2, H1, H2) from ``csrc/``, one
+2. build: compile every kernel (K1-K9, W1, W2, C1, C2, H1, H2, R1) from ``csrc/``, one
    ``nvcc`` per source file, all started together, and the native host
    library; the ``nvcc`` release is printed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -21,7 +21,10 @@ Phases, each of which raises on failure (non-zero exit):
    [8192, 160] and on the path's other tables, and timed on them beside ``index_select``; K7
    bit for bit on ``bench_gather``'s edge grid (widths, index counts, table sizes); the walk
    kernels W1/W2 on the 132 K-triangle ``cornell_objects`` scene against the
-   plain walk, and W1 against the brute-force K1; the hash grid's lookup H1
+   plain walk, and W1 against the brute-force K1; the primary raster R1 on
+   that scene's camera rays at 320x320, bit for bit against the plain raster
+   and in t against W1's depth-0 launch (triangles apart only at ties in t,
+   counted), timed beside both (``bench_walk.raster_reading``); the hash grid's lookup H1
    bit for bit and its adjoint H2 under ``tools/bench_hash.py::CARD_LIMITS``
    (with its seeded faults above them), two launches of H2 bit-equal and
    equal to ``bench_hash.fixed_point_adjoint`` (its arithmetic in plain
@@ -186,15 +189,25 @@ Phases, each of which raises on failure (non-zero exit):
    gathered query counts, held to their plain versions as the whole grid's
    are;
 7. large scene: FULL + train at 320x320 on ``cornell_objects`` (the wide
-   BVH path), replayed: frames until the tile size settles, then 4 timed
-   frames and 4 more counted; W1, W2 and the path's gather must run, K1 and
-   K2 must not; then every W1 and W2 launch of one eager frame recorded,
+   BVH path; the camera rays' first hits by the primary raster), replayed:
+   frames until the tile size settles, then 4 timed frames and 4 more
+   counted; R1, W1, W2 and the path's gather must run, K1 and K2 must not, and
+   a replayed frame launches R1 once and W1 13 times (depth 0 of the render
+   wavefront is R1's); then every W1 and W2 launch of one eager frame recorded,
    held against the plain walk and timed by ``bench_walk.measure`` (the
    measurement ``tools/bench_walk.py`` makes), each launch printed with its live
    rays and the mean, 99th percentile and largest count of rows a live ray
    fetches in the plain walk (a launch lasts as long as its longest chains):
    their frame-weighted times beside the frame bound (the all-live bound
-   over each launch's live rays);
+   over each launch's live rays); replayed against eager frames as in 6c;
+7c. the primary raster in frames: one FULL + train ``cornell_objects``
+   frame with the raster and one with the walk (``raster_primary=False``)
+   from one start, every pixel whose depth-0 triangle is the same bit for
+   bit; an eager and a replayed renderer through camera moves, the move's
+   frame walking and the next one binning, whose bins keep their shape or
+   change it within the rows held (the graph replays on the copied bins,
+   no capture) or outgrow them (another graph captured), bit for bit after
+   every frame;
 8. convergence: the JAX package's online-training oracle
    (``tests/test_frame.py:92-139``) on the port's Cornell box at 64x64 with
    8x8 tiles, for both encodings: the loss falls over 40 frames, and after a
@@ -326,7 +339,7 @@ def _ptxas(log):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             short = re.search(r"(mlp_\w*?kernel|gather_\w*?kernel|\w*planes_kernel|\w*wbvh_kernel|curves_kernel|"
-                              r"reduce_partials)",
+                              r"reduce_partials|raster_\w*kernel)",
                               m.group(1))
             name = short.group(1) if short else m.group(1)
             if "gather_warp_kernel" in name:  # <word, resident>
@@ -357,6 +370,7 @@ def _kernels():
     from nrc_tpu_torch.ops import intersect_cuda as IC
     from nrc_tpu_torch.ops import intersect_wide_cuda as WC
     from nrc_tpu_torch.ops import mlp_cuda as MC
+    from nrc_tpu_torch.ops import raster_cuda as RC
 
     return {
         "intersect_planes": (IC.CLOSEST_KERNEL, "nrc_tpu/ops/intersect_pallas.py:185"),
@@ -384,6 +398,9 @@ def _kernels():
                               "nrc_tpu/ops/encodings.py:320 (the adjoint of hash_grid_lookup: XLA's scatter-add, "
                               "or the one-hot products of _grid_gather_bwd at :283 on a TPU; no Pallas kernel "
                               "stood there)"),
+        "raster_primary": (RC.RASTER_KERNEL,
+                           "nrc_tpu/ops/raster_primary.py:319 (raster_closest_hit: XLA over [tiles, tile^2, K]; no "
+                           "Pallas kernel stood there)"),
     }
 
 
@@ -428,6 +445,123 @@ def _print_replayed(PF, r, label):
           f"{row['kernel_launches_per_frame']:.0f} kernels a frame; by group {row['device_ms_per_frame_by_group']}")
 
 
+def _train_frame_bits(r):
+    """What a FULL + train frame leaves, as bits: weights, EMA, moments,
+    step, image, loss, records and traced rays."""
+    import torch
+
+    st = r.net_state
+    out = [t.detach().view(torch.int32) for m in (st.params, st.ema, st.opt.mu, st.opt.nu) for t in m.tensors()]
+    s = r.last_stats
+    return out + [st.opt.step, r.image.view(torch.int32), s.loss.view(torch.int32), s.num_train_records,
+                  s.traced_rays]
+
+
+def _raster_frames(scene, system, dev):
+    """The primary raster in whole ``cornell_objects`` frames (phase 7c).
+
+    An eager and a replayed renderer with the raster and an eager one with
+    the walk from the same start. Frame 0: the depth-0 triangles by R1 and
+    by W1 differ only at ties in t, and every pixel whose triangle is the
+    same is bit for bit between raster and walk. Then camera moves: the
+    frame of a move walks, the next one bins and rasters; bins that keep
+    their shape or change it within the rows held (``raster_primary.room``)
+    replay the captured graph on the copied bins (no capture), bins that
+    outgrow the room capture another graph; after every frame the eager and
+    the replayed renderer are equal bit for bit."""
+    import torch
+
+    from nrc_tpu_torch.config import RenderMode
+    from nrc_tpu_torch.ops import intersect_wide_cuda as WC
+    from nrc_tpu_torch.ops import raster_cuda as RC
+    from nrc_tpu_torch.ops import raster_primary as RP
+    from nrc_tpu_torch.ops.intersect import RT_MAX
+    from nrc_tpu_torch.render.renderer import Renderer
+    from nrc_tpu_torch.tools import bench_intersect as BI
+
+    # a camera of its own, the moves below must not reach the other phases;
+    # zoomed in, so that the bins held at the start are outgrown at the end
+    # by the scene's own view (111,456 slots against 310,032 at 320x320)
+    scene = dataclasses.replace(scene, camera=dataclasses.replace(scene.camera))
+    scene.camera.zoom(-30.0)
+    pair = [Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device=dev, capture=c)
+            for c in (False, True)]
+    eager, replayed = pair
+    walk = Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device=dev, capture=False,
+                    raster_primary=False)
+
+    def frame(label, renderers=pair):
+        for r in renderers:
+            r.render_frame()
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(_train_frame_bits(eager), _train_frame_bits(replayed))]
+        _check(all(same), f"cornell_objects {label}: replayed and eager frames differ ({same})")
+
+    frame("frame 0", pair + [walk])
+    meta = eager._raster_meta
+    org, d = BI.camera_rays(eager)
+    n = org.shape[0]
+    t_r, p_r = RC.raster_closest_cuda(meta, eager._raster_data, org, d)
+    t_w, p_w = WC.wide_traverse_cuda(org, d, walk.device_scene.bvh, torch.zeros(n, device=dev),
+                                     torch.full((n,), RT_MAX, device=dev), False)
+    torch.cuda.synchronize()
+    same = p_r == p_w
+    ties = int((~same & (t_r == t_w)).sum())
+    apart = (eager.image != walk.image).any(dim=1)
+    print(f"cornell_objects FULL + train frame 0, raster against walk: {int((~same).sum())} depth-0 triangles "
+          f"differ ({ties} ties in t); {int(apart.sum())} pixels differ, {int((apart & same).sum())} of them with the "
+          f"same depth-0 triangle; records {int(eager.last_stats.num_train_records)} / "
+          f"{int(walk.last_stats.num_train_records)}, traced rays {int(eager.last_stats.traced_rays)} / "
+          f"{int(walk.last_stats.traced_rays)}")
+    _check(ties == int((~same).sum()) and torch.equal(t_r, t_w), "R1 and W1 part at depth 0 other than at a tie")
+    _check(not bool((apart & same).any()), "a pixel with the same depth-0 triangle differs between raster and walk")
+    del walk
+
+    def moved(move):
+        """The bins' shape after ``move`` and whether they fit the rows held."""
+        cam = dataclasses.replace(scene.camera)
+        getattr(cam, move[0])(*move[1:])
+        m, pids, perm, _, _ = RP.build_raster_bins(scene.p0, scene.p1, scene.p2, *cam.frustum(), *system.resolution)
+        held = replayed._raster_data
+        return m, len(pids) <= held.pids.shape[0] and len(RP.block_table(m, pids, perm)) <= held.blocks.shape[0]
+
+    frame("frame 1")
+    from nrc_tpu_torch.render.renderer import frame_key
+
+    cases = (
+        ("a move that keeps the bins' shape", [("orbit", 0.0, dy) for dy in (1e-4, 3e-5, 1e-5)], True, True),
+        ("a move that changes it within the room", [("orbit", dx, 0.0) for dx in (0.003, 0.01, 0.02)], False, True),
+        ("a move whose bins outgrow the room", [("zoom", 30.0), ("zoom", 20.0)], False, False),
+    )
+    for label, moves, same_shape, fits in cases:
+        # the bins move with the tiles' counts: the move is found on the host
+        meta = replayed._raster_meta
+        move = next((m for m in moves if ((moved(m)[0] == meta), moved(m)[1]) == (same_shape, fits)), None)
+        _check(move is not None, f"no camera move of {moves} is {label}")
+        getattr(scene.camera, move[0])(*move[1:])
+        for r in pair:
+            r.restart_accumulation()
+        # the frame of the move walks (its graph captured at the first move),
+        # the next one, the camera held, bins and rasters
+        replays, walk_held = replayed.replays, frame_key(replayed.cfg) in replayed.graphs
+        frame(f"{label}, its frame")
+        _check(not replayed._raster_frame and not eager._raster_frame, f"{label}: the frame of the move rastered")
+        held = replayed._raster_data
+        frame(f"{label}, the frame after")
+        _check(replayed._raster_frame and eager._raster_frame, f"{label}: the frame after the move walked")
+        _check((replayed._raster_data is held) == fits, f"{label}: the rows held")
+        _check(replayed.replays == replays + walk_held + fits,
+               f"{label}: {replayed.replays - replays} replays (walk graph held before: {walk_held})")
+        _check((replayed._raster_meta == meta) == same_shape, f"{label}: the bins' shape")
+        _check(all(k[-1] in (None, replayed._raster_data.key()) for k in replayed.graphs),
+               f"{label}: a graph of outgrown bins is held")
+        held = replayed._raster_data
+        print(f"cornell_objects, {label} ({move}): the move's frame walked, the next rastered "
+              f"({'replayed' if fits else 'captured'}), eager and replayed frames bit for bit; bins "
+              f"{replayed._raster_meta.group_k} x {replayed._raster_meta.group_tiles} in {held.pids.shape[0]} slots "
+              f"and {held.blocks.shape[0]} blocks held")
+
+
 def _replay_matches_eager(scene, system, dev, frames, label, **renderer_kw):
     """Eager and replayed FULL + train frames from the same start, with a
     tile-size change, a restart, a reset of the cache and new
@@ -437,14 +571,6 @@ def _replay_matches_eager(scene, system, dev, frames, label, **renderer_kw):
 
     from nrc_tpu_torch.config import RenderMode
     from nrc_tpu_torch.render.renderer import Renderer
-
-    def bits(r):
-        st = r.net_state
-        out = [t.detach().view(torch.int32) for m in (st.params, st.ema, st.opt.mu, st.opt.nu)
-               for t in m.tensors()]
-        s = r.last_stats
-        return out + [st.opt.step, r.image.view(torch.int32), s.loss.view(torch.int32), s.num_train_records,
-                      s.traced_rays]
 
     tau = renderer_kw.pop("nee_rr_tau", 0.0)
     pair = [Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device=dev, capture=c,
@@ -469,7 +595,7 @@ def _replay_matches_eager(scene, system, dev, frames, label, **renderer_kw):
         for r in pair:
             r.render_frame()
         torch.cuda.synchronize()
-        same = [torch.equal(a, b) for a, b in zip(bits(pair[0]), bits(pair[1]))]
+        same = [torch.equal(a, b) for a, b in zip(_train_frame_bits(pair[0]), _train_frame_bits(pair[1]))]
         _check(all(same), f"{label} frame {f}: replayed and eager frames differ ({same})")
     for r in pair:
         r.flush_stats()
@@ -2806,6 +2932,18 @@ def main() -> int:
           f"(device time {w1['device_ms']:.4f}; plain walk {w_plain_ms[1]:.0f} ms, K1 brute force {k1_big_ms:.3f} ms); "
           f"W2 on shadow rays {w2['ms']:.3f} ms (device time {w2['device_ms']:.4f}; plain walk {a_plain_ms[0]:.0f} ms)")
     del big_planes
+    # R1, the primary raster, on the same scene's camera rays (frame 0):
+    # bit for bit against its plain version, and in t against W1's depth-0
+    # launch, whose triangles may differ only at ties in t; timed beside them
+    # (bench_walk.raster_reading, the reading of bench_walk --raster). Bound:
+    # the larger of the bytes read and written once and 39 float32
+    # operations for each pair of a pixel and a candidate whose box holds it.
+    rr = BW.raster_reading(rb)
+    _check(rr["ok"], f"R1 disagrees with the plain raster or with W1: {rr}")
+    report["raster_primary"] = dict(
+        max_abs_err=rr["max_abs_err"], ms=rr["ms"], plain_ms=rr["plain_ms"], bound_ms=rr["bound_ms"],
+        bound_by=rr["bound_by"], library_ms=None, w1_depth0_ms=rr["w1_depth0_ms"],
+    )
 
     phase_clock("3d")
     # ---- 3d. the hash-grid kernels H1/H2 against their plain versions ------------
@@ -2986,12 +3124,19 @@ def main() -> int:
     sizes = BI.settle_tiles(rb)
     big, counts = _counted(kernels, kernels, lambda: rb.benchmark(TIMED_FRAMES))
     rb.flush_stats()
-    for name in ("wbvh_closest", "wbvh_any", path_gather, "fused_forward", "fused_train4"):
+    for name in ("wbvh_closest", "wbvh_any", "raster_primary", path_gather, "fused_forward", "fused_train4"):
         _check(counts[name] > 0, f"{name} was not launched by the large-scene run")
     for name in ("intersect_planes", "occluded_planes"):
         _check(counts[name] == 0, f"{name} was launched by the large-scene run")
     big_frame = _replayed_launches(rb, kernels)
-    launches.update({name: big_frame[name] for name in ("wbvh_closest", "wbvh_any")})
+    launches.update({name: big_frame[name] for name in ("wbvh_closest", "wbvh_any", "raster_primary")})
+    # the raster takes depth 0 of the render wavefront from W1
+    walks = 2 * (rb.cfg.max_depth + 1) - 1
+    print(f"cornell_objects replayed FULL + train frame: R1 {big_frame['raster_primary']} launch, W1 "
+          f"{big_frame['wbvh_closest']}, W2 {big_frame['wbvh_any']}")
+    _check(big_frame["raster_primary"] == 1 and big_frame["wbvh_closest"] == walks,
+           f"a replayed cornell_objects frame launches R1 {big_frame['raster_primary']} times and W1 "
+           f"{big_frame['wbvh_closest']} (1 and {walks} expected)")
     # K8 and K9 are on no path of the renderer: bench_gather's launches are their check's
     check_launches.update({name: bench_counts[name] for name in gather_names if name != path_gather})
     _check(rb.image.shape == (n, 3) and bool(torch.isfinite(rb.image).all()) and rb.image.std().item() > 0.0,
@@ -3039,6 +3184,10 @@ def main() -> int:
               f"{tot['ms']:.4f} ms, bound {tot['bound']:.4f} ms ({100 * tot['bound'] / tot['ms']:.1f} % of it)")
     del rb
     _replay_matches_eager(big_scene, _with_tiles(big_system, (4, 4)), dev, 8, "cornell_objects")
+
+    phase_clock("7c")
+    # ---- 7c. the primary raster in whole frames: against the walk, camera moves ----
+    _raster_frames(big_scene, big_system, dev)
 
     phase_clock("8")
     # ---- 8. convergence: the JAX package's Cornell oracle, both encodings ------

@@ -66,6 +66,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "moller_trumbore.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;        // a block: four warps
@@ -79,34 +81,9 @@ __device__ __forceinline__ float inv_component(float d) {
   return fabsf(d) > 1e-20f ? 1.0f / d : 3.0e38f;
 }
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, tn, tf;
-};
-
-// Möller-Trumbore for one triangle of a leaf, in the operation order of
-// ops/intersect_wide.py::_leaf_tri_t. Returns t, or kRtMax for no hit.
-__device__ __forceinline__ float tri_t(const Ray& r, float cap, int pid, float p0x, float p0y,
-                                       float p0z, float e1x, float e1y, float e1z, float e2x,
-                                       float e2y, float e2z) {
-  const float pvx = r.dy * e2z - r.dz * e2y;
-  const float pvy = r.dz * e2x - r.dx * e2z;
-  const float pvz = r.dx * e2y - r.dy * e2x;
-  const float det = (e1x * pvx + e1y * pvy) + e1z * pvz;
-  const bool nondeg = fabsf(det) > 1e-12f;
-  const float invd = nondeg ? 1.0f / det : 0.0f;
-  const float tvx = r.ox - p0x;
-  const float tvy = r.oy - p0y;
-  const float tvz = r.oz - p0z;
-  const float u = ((tvx * pvx + tvy * pvy) + tvz * pvz) * invd;
-  const float qvx = tvy * e1z - tvz * e1y;
-  const float qvy = tvz * e1x - tvx * e1z;
-  const float qvz = tvx * e1y - tvy * e1x;
-  const float v = ((r.dx * qvx + r.dy * qvy) + r.dz * qvz) * invd;
-  const float t = ((e2x * qvx + e2y * qvy) + e2z * qvz) * invd;
-  const bool ok = nondeg && pid >= 0 && u >= 0.0f && v >= 0.0f && (u + v) <= 1.0f && t > r.tn &&
-                  t < cap;
-  return ok ? t : kRtMax;
-}
+// The triangle test (csrc/moller_trumbore.cuh), shared with R1.
+using nrc_mt::Ray;
+using nrc_mt::tri_t;
 
 // The leaf test as a type the walk is instantiated with: it reads a
 // primitive's 9 component-major columns (stride leaf_size) from c.

@@ -95,9 +95,11 @@ def _leaf_tri_t(c, pid, org, direction, tmin, cap):
 
     ``c``: 9 [N, ls] planes (p0x..p0z | e1x..e1z | e2x..e2z). Returns t
     [N, ls] with RT_MAX at invalid or missed slots. The operation order is
-    the walk kernel's (``csrc/intersect_wide.cu``)."""
+    the walk kernel's (``csrc/intersect_wide.cu``). Leading dimensions
+    broadcast: the primary raster passes [G, 1, K] planes and [G, L, 3] rays
+    (``ops/raster_primary.py``)."""
     p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = c
-    dx, dy, dz = direction[:, 0:1], direction[:, 1:2], direction[:, 2:3]
+    dx, dy, dz = direction[..., 0:1], direction[..., 1:2], direction[..., 2:3]
     # pvec = d x e2
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
@@ -105,9 +107,9 @@ def _leaf_tri_t(c, pid, org, direction, tmin, cap):
     det = e1x * pvx + e1y * pvy + e1z * pvz
     ok = torch.abs(det) > 1e-12
     invd = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
-    tvx = org[:, 0:1] - p0x
-    tvy = org[:, 1:2] - p0y
-    tvz = org[:, 2:3] - p0z
+    tvx = org[..., 0:1] - p0x
+    tvy = org[..., 1:2] - p0y
+    tvz = org[..., 2:3] - p0z
     u = (tvx * pvx + tvy * pvy + tvz * pvz) * invd
     # qvec = tvec x e1
     qvx = tvy * e1z - tvz * e1y
@@ -118,7 +120,7 @@ def _leaf_tri_t(c, pid, org, direction, tmin, cap):
     ok = (
         ok & (pid >= 0)
         & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-        & (t > tmin[:, None]) & (t < cap[:, None])
+        & (t > tmin[..., None]) & (t < cap[..., None])
     )
     return torch.where(ok, t, RT_MAX)
 

@@ -165,7 +165,9 @@ class ParallelRenderer(Renderer):
         rows = height // world
         shard_tables = net_cfg is not None and net_cfg.hash_shard_axis is not None
         self.band = Band(world, rank, rows, rank * rows, shard_tables)
-        super().__init__(scene, system, net_cfg, **kw)
+        # a band walks its primaries: the raster bins the whole screen
+        # (nrc_tpu/render/frame.py:213)
+        super().__init__(scene, system, net_cfg, raster_primary=False, **kw)
         if rows % self.cfg.tile_size[1]:
             raise ValueError(f"tile height {self.cfg.tile_size[1]} does not divide the {rows}-row band")
         self._band_image = self._image.view(height, -1, 3)[rank * rows:(rank + 1) * rows].view(-1, 3)

@@ -41,7 +41,9 @@ import torch
 
 from ..config import BATCH_SIZE, NUM_BATCHES, FrameConfig, NetworkConfig, RenderMode
 from ..models import network as N
-from ..scene.camera import generate_primary_rays
+from ..ops.intersect import hit_from_t_prim
+from ..ops.raster_primary import RasterData, RasterMeta, raster_closest_hit
+from ..scene.camera import LENS_PINHOLE, generate_primary_rays
 from ..utils import rng as R
 from ..utils.tonemap import time_view_ramp
 from .integrator import trace_wavefront
@@ -200,6 +202,8 @@ def frame_step(
     grid_grad_reduce=None,
     shard_rows: Optional[int] = None,
     row_offset: int = 0,
+    raster_meta: Optional[RasterMeta] = None,
+    raster_data: Optional[RasterData] = None,
 ) -> tuple[torch.Tensor, FrameStats]:
     """One frame (1 spp). Returns (image', stats); with ``cfg.train`` the
     network state is trained in place.
@@ -214,7 +218,13 @@ def frame_step(
     ranks: each step's gradient is taken with the loss scaled by whether
     the band has records, reduced, then applied; the steps run on every
     rank and their result is kept where the reduced count is above 0, a
-    select on the device, so that the ranks stay in step."""
+    select on the device, so that the ranks stay in step.
+
+    With ``raster_meta`` and ``raster_data`` (the bins of the current camera,
+    ``Renderer``) the render wavefront's first hits come from the primary
+    raster instead of the walk (``nrc_tpu/render/frame.py:213-224``): for
+    the whole frame and a pinhole lens only; a band, and the training
+    wavefront, walk."""
     mode = cfg.render_mode
     dev = image.device
     rows = cfg.height if shard_rows is None else shard_rows
@@ -229,7 +239,11 @@ def frame_step(
         pix, jitter, (cfg.width, cfg.height), camera.p, camera.u, camera.v, camera.w,
         lens=cfg.lens_shader,
     )
-    out = trace_wavefront(scene, org, dirn, seeds, cfg)
+    primary_hit = None
+    if raster_meta is not None and shard_rows is None and cfg.lens_shader == LENS_PINHOLE:
+        t0, prim0 = raster_closest_hit(raster_meta, raster_data, org, dirn)
+        primary_hit = hit_from_t_prim(org, dirn, scene.tris, t0, prim0)
+    out = trace_wavefront(scene, org, dirn, seeds, cfg, primary_hit=primary_hit)
     traced_rays = out.traced_count.sum()
     train_out = None
     if cfg.train:

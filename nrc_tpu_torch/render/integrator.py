@@ -25,13 +25,16 @@ suffix in the reference.
 
 The JAX package splits large wavefronts into bands under ``lax.map``
 (``trace_wavefront_chunked``); the outputs are per ray, so one pass over all
-rays computes the same thing. On the CPU the bounce loop stops when no ray
-is alive, like the JAX ``while_loop`` (a read of a flag per bounce). On the
-card it runs all ``max_depth`` bounces, like the JAX package's fixed-length
-scan (``NRC_BOUNCE_SCAN``), and reads nothing back, so that a frame can be
-captured as a CUDA graph: a dead lane traces an empty t range, which
-K1/K2 and W1/W2 answer without work, and every update is masked by
-``alive`` or ``hit_valid``, so the outputs are the same bit for bit.
+rays computes the same thing. Depth 0 of the render wavefront may arrive
+resolved (``primary_hit``: the primary raster of ``ops/raster_primary.py``,
+``frame_step``'s choice), in place of its first closest hit. On the CPU the
+bounce loop stops when no ray is alive, like the JAX ``while_loop`` (a read
+of a flag per bounce). On the card it runs all ``max_depth`` bounces, like
+the JAX package's fixed-length scan (``NRC_BOUNCE_SCAN``), and reads
+nothing back, so that a frame can be captured as a CUDA graph: a dead lane
+traces an empty t range, which K1/K2 and W1/W2 answer without work, and
+every update is masked by ``alive`` or ``hit_valid``, so the outputs are the
+same bit for bit.
 
 Declared lights and textures (``FrameConfig.has_textures`` /
 ``has_cutout``, set from the scene): an escaping ray takes the environment's
@@ -113,7 +116,7 @@ from ..ops import layered as LY
 from ..ops import mbsdf as MB
 from ..ops import noise as NZ
 from ..ops.gather_cuda import gather_rows
-from ..ops.intersect import RT_MAX, make_intersectors
+from ..ops.intersect import RT_MAX, Hit, make_intersectors
 from ..ops.light_sampling import env_radiance, sample_lights
 from ..ops.texture import apply_uv_transform, sample_bilinear
 from ..scene.materials import Archetype
@@ -226,6 +229,7 @@ def trace_wavefront(
     cfg: FrameConfig,
     train: bool = False,
     unbiased: Optional[torch.Tensor] = None,  # [N] bool, training wavefront
+    primary_hit: Optional[Hit] = None,  # depth 0's hit, resolved before (the primary raster)
 ) -> WavefrontOut:
     n = org.shape[0]
     dev = org.device
@@ -360,7 +364,11 @@ def trace_wavefront(
             dist_sample = -torch.log(torch.clamp(1.0 - xi_w[:, 1], min=1e-12)) / torch.clamp(s_chan, min=1e-12)
             tmax = torch.where(can_step, torch.minimum(tmax, dist_sample), tmax)
 
-        hit = closest_hit(s.pos, s.wi, tmin, tmax)
+        # depth 0 of the render wavefront may come resolved by the primary
+        # raster (ops/raster_primary.py; tmin 0 and tmax RT_MAX there, no
+        # medium before the first hit); the curve stream, cutout and media
+        # follow as for the walk's hit
+        hit = primary_hit if first and primary_hit is not None else closest_hit(s.pos, s.wi, tmin, tmax)
         if has_curves:
             # the curve stream on the same rays: a curve hit wins where its t
             # is below the triangle's

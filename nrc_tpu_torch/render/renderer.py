@@ -38,6 +38,19 @@ image in place; where the shapes change, the graphs are dropped instead.
 ``screenshot`` writes a tonemapped PNG or a linear ``.hdr`` and
 ``save_system_description`` the system file (``utils/image_io.py``).
 
+A scene of more than ``BVH_THRESHOLD`` triangles seen through a pinhole at
+a resolution divisible by 8 takes its camera rays' first hits from the
+tiled primary raster (``ops/raster_primary.py``; R1 on the card), as the JAX
+renderer does (``nrc_tpu/render/renderer.py:146-158``); ``raster_primary=
+False`` keeps the walk. The bins are built on the host, which takes
+about 0.1 s at 320x320, so they are built for a camera that holds still: a
+frame whose camera moved since the frame before walks (a dragged view
+renders as fast as without the raster), and the first frame that sees the
+same camera again bins it and rasters. The bins are copied into tensors
+held with room to spare (``raster_primary.room``), which the graphs read:
+the rows held are part of the graph key, so new bins capture again only
+when they outgrow them.
+
 ``device`` decides where everything runs; a CUDA device without a card
 raises, and nothing falls back to the CPU.
 """
@@ -64,6 +77,9 @@ from ..config import (
 )
 from ..models import network as N
 from ..ops.cuda_build import CudaKernel, launch_counts
+from ..ops.intersect import BVH_THRESHOLD
+from ..ops.raster_primary import RasterData, RasterMeta, build_raster_bins, upload_raster
+from ..scene.camera import LENS_PINHOLE
 from ..scene.materials import MaterialTable
 from ..scene.scene_builder import Scene
 from ..utils.image_io import write_hdr, write_png
@@ -74,12 +90,13 @@ from .scene_device import DeviceScene, patch_materials, scene_flags, upload_scen
 MAX_GRAPHS = 16  # as the JAX package bounds its compile cache
 
 
-def frame_key(cfg: FrameConfig) -> tuple:
-    """Every field of ``cfg`` as a hashable key: a change to any of them
-    selects another graph, as it makes the JAX package compile again."""
+def frame_key(cfg: FrameConfig, raster: Optional[RasterData] = None) -> tuple:
+    """Every field of ``cfg`` and the rows held for the primary raster's
+    bins as a hashable key: a change to any of them selects another graph,
+    as a change of ``cfg`` makes the JAX package compile again."""
     return tuple(
         tuple(sorted(v)) if isinstance(v, frozenset) else v for v in dataclasses.astuple(cfg)
-    )
+    ) + (None if raster is None else raster.key(),)
 
 
 class FrameGraph(NamedTuple):
@@ -106,6 +123,7 @@ class Renderer:
         device=torch.device("cuda"),
         capture: bool = True,
         reflectance_factoring: bool = False,
+        raster_primary: bool = True,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -118,6 +136,14 @@ class Renderer:
         self.net_cfg = net_cfg or NetworkConfig()
         self.hyper = NRCHyperParams(learning_rate=self.net_cfg.learning_rate)
         self.adaptive_tiles = adaptive_tiles
+        # the primary raster's bins: the tensors the graphs read, their shape
+        # and the camera they were built for; the camera of the frame before,
+        # and whether the current frame takes the raster
+        self._raster_data: Optional[RasterData] = None
+        self._raster_meta: Optional[RasterMeta] = None
+        self._raster_cam: Optional[bytes] = None
+        self._last_cam: Optional[bytes] = None
+        self._raster_frame = False
         self.device_scene = upload_scene(scene, self.device)
 
         # per-scene normalization of query positions (the reference hardcodes
@@ -144,6 +170,15 @@ class Renderer:
             # 88-120; its NRC_DIAG_OFF profiling knob, which makes results
             # wrong, is not ported)
             **scene_flags(scene),
+        )
+        # the tiled primary raster (ops/raster_primary.py) resolves the render
+        # wavefront's first hits of a big scene seen through a pinhole, as the
+        # JAX renderer decides (nrc_tpu/render/renderer.py:146-158)
+        self.raster_enabled = (
+            raster_primary
+            and scene.num_triangles > BVH_THRESHOLD
+            and self.cfg.lens_shader == LENS_PINHOLE
+            and w % 8 == 0 and h % 8 == 0
         )
         self._net_state: Optional[N.NetworkState] = None
         self.reset_cache()
@@ -230,6 +265,8 @@ class Renderer:
     def device_scene(self, scene: DeviceScene) -> None:
         self._device_scene = scene
         self.graphs.clear()  # they read the old scene's tensors
+        # the raster's rows come from the scene's triangles: binned again
+        self._raster_data = self._raster_meta = self._raster_cam = self._last_cam = None
 
     # -- state management --------------------------------------------------
 
@@ -334,6 +371,46 @@ class Renderer:
             self._frustum = frustum
         return self._camera
 
+    def _bin_primaries(self) -> None:
+        """Decide whether this frame takes the primary raster, and bin the
+        scene for it when the camera changed (``nrc_tpu/render/renderer.py:227-261``).
+        A frame whose camera moved since the frame before walks and bins
+        nothing (the JAX renderer bins at every move); the first frame, and a
+        frame whose camera is the frame before's, bins if its bins are not
+        this camera's, and rasters. Bins that fit the rows held are copied
+        into them, which the graphs read, so the frame replays; bins that
+        outgrow them get tensors with more room, and the frames capture new
+        graphs (the old ones, which read the old tensors, are dropped).
+        Where the bins cannot be built (no tile edge divides the screen,
+        nothing on it) the raster is off for good, as in the JAX package,
+        and the frames walk."""
+        self._raster_frame = False
+        if not self.raster_enabled:
+            return
+        frustum = self.scene.camera.frustum()
+        cam = np.stack(frustum).tobytes()
+        moving = self._last_cam is not None and cam != self._last_cam
+        self._last_cam = cam
+        if cam == self._raster_cam:
+            self._raster_frame = True
+            return
+        if moving:
+            return
+        s = self.scene
+        built = build_raster_bins(s.p0, s.p1, s.p2, *frustum, self.cfg.width, self.cfg.height)
+        if built is None:
+            self.raster_enabled = False
+            self._raster_data = self._raster_meta = self._raster_cam = None
+            return
+        meta, pids, perm, _, boxes = built
+        held = self._raster_data
+        data = upload_raster(meta, pids, perm, boxes, self.device_scene.tris.packed, held=held)
+        if held is not None and data is not held:
+            for key in [k for k in self.graphs if k[-1] == held.key()]:
+                del self.graphs[key]
+        self._raster_data, self._raster_meta, self._raster_cam = data, meta, cam
+        self._raster_frame = True
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -355,6 +432,8 @@ class Renderer:
                 self.cfg,
                 self.net_cfg,
                 self.learning_rate,
+                raster_meta=self._raster_meta if self._raster_frame else None,
+                raster_data=self._raster_data if self._raster_frame else None,
             )
             self._image.copy_(image)
             self.traced_rays.add_(stats.traced_rays)
@@ -398,7 +477,7 @@ class Renderer:
             self.graphs.popitem(last=False)
 
     def _replay(self) -> FrameStats:
-        key = frame_key(self.cfg)
+        key = frame_key(self.cfg, self._raster_data if self._raster_frame else None)
         entry = self.graphs.get(key)
         if entry is None:
             return self._capture(key)
@@ -414,6 +493,7 @@ class Renderer:
         graph's own buffers, which the next frame of the same ``cfg``
         overwrites."""
         self._camera_arrays()
+        self._bin_primaries()
         if self.device.type == "cuda" and self.capture:
             stats = self._replay()
         else:

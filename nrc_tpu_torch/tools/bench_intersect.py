@@ -68,15 +68,21 @@ def device_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / (2 * iters)
 
 
+def camera_rays(r: Renderer):
+    """The camera rays (org, dir) [W*H, 3] of r's frame 0: the render
+    wavefront's depth 0."""
+    pix, pidx = pixel_grid(r.cfg, r.device)
+    _, jitter = R.rng2(R.tea(pidx, 0))
+    return generate_primary_rays(pix, jitter, (r.cfg.width, r.cfg.height), *r._camera_arrays())
+
+
 def ray_sets(r: Renderer, first_t, gen) -> dict:
     """All-live ray sets of r's frame on the card: the camera rays and random
     rays from their hit points (closest hit); shadow rays to random points of
     the mesh lights and random segments (any hit). ``first_t(org, d, tmin,
     tmax)`` gives the camera rays' hit distances."""
     dev, n = r.device, r.cfg.num_pixels
-    pix, pidx = pixel_grid(r.cfg, dev)
-    _, jitter = R.rng2(R.tea(pidx, 0))
-    org, d = generate_primary_rays(pix, jitter, (r.cfg.width, r.cfg.height), *r._camera_arrays())
+    org, d = camera_rays(r)
     zeros = torch.zeros(n, device=dev)
     far = torch.full((n,), RT_MAX, device=dev)
     t_cam = first_t(org, d, zeros, far)

@@ -3,6 +3,7 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 -m nrc_tpu_torch.tools.bench_walk [--parent DIR] [--l2-probe] [--curves] [--no-triangles]
+    python3 -m nrc_tpu_torch.tools.bench_walk --raster [--parent DIR]
 
 The integrator launches W1 (closest hit) and W2 (any hit) over all lanes at
 every bounce and marks a dead lane with an empty t range. This tool renders
@@ -55,6 +56,22 @@ of the recorded frame cold, each launch right after a 256 MiB read
 (``cold_ms``), beside its back-to-back time (``device_ms``, the table warm
 in the L2). The last line is one JSON object with the card's name and
 power limit.
+
+``--raster`` measures the primary raster instead (``raster_reading``, the
+reading ``chip_smoke.py`` 3c makes): ``cornell_objects`` at 320x320, its
+bins built on the host for the camera (timed), the camera rays of frame 0,
+then R1 (``csrc/raster_primary.cu``), the plain raster and W1 on the same
+rays, the walk launch that R1 replaces at depth 0. R1 must equal the plain
+raster bit for bit in t and triangle, and W1 in t, its triangles differing
+only at equal-t ties (counted). R1 and W1 are timed by CUDA-graph replay,
+the plain raster (host loops over the groups) by events around eager calls.
+The bound is the larger of the bytes (rows, ids, boxes and the block table
+read once, the rays read and t and the id written once) and 39 float32
+operations for each pair the function tests: a pixel and a real candidate
+whose box holds it. With ``--parent DIR`` an older ``raster_primary.cu``
+in ``DIR`` (with the same arguments, or the first design's without the
+boxes, which tests every pixel of the tile) is timed on the same bins in
+turns with the shipped R1.
 """
 
 from __future__ import annotations
@@ -62,6 +79,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -69,7 +87,10 @@ import torch
 from ..config import RenderMode
 from ..ops import intersect_wide as IW
 from ..ops import intersect_wide_cuda as WC
+from ..ops import raster_cuda as RC
+from ..ops import raster_primary as RP
 from ..ops.cuda_build import CudaKernel
+from ..ops.intersect import RT_MAX
 from ..render.renderer import Renderer
 from ..ops import curve_intersect as CI
 from ..scene.scene_builder import cornell_hair, cornell_objects
@@ -77,6 +98,9 @@ from . import bench_gather as BG
 from . import bench_intersect as BI
 
 RES = 320
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+F32_OPS_PER_S = 67e12      # float32 outside the tensor cores, a fused multiply-add counted as two
+PAIR_OPS = 39              # float32 operations of the triangle test a (ray, triangle) pair, K1's count
 
 
 KINDS = {"W1": ("triangle", False), "W2": ("triangle", True), "C1": ("cone", False), "C2": ("cone", True)}
@@ -257,10 +281,130 @@ def curve_frame(dev, parent: str | None = None, l2_probe: bool = False) -> dict:
     return dict(sets=rows, frame=frame, cold=cold, agree=all(x["ok"] for row in rows for x in row["builds"].values()))
 
 
-def run(parent: str | None = None, l2_probe: bool = False, curves: bool = False, triangles: bool = True) -> dict:
+def event_ms(fn, iters: int = 3) -> float:
+    """Mean time of one eager fn() by CUDA events, after one warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def box_pairs(rd: RP.RasterData) -> int:
+    """The (pixel, candidate) pairs the raster tests: the pixels of every
+    real slot's box."""
+    b = rd.boxes[rd.pids >= 0].to(torch.int64)
+    return int((((b >> 8) & 255) - (b & 255) + 1).mul((b >> 24) - ((b >> 16) & 255) + 1).sum())
+
+
+def parent_raster(parent: str) -> tuple:
+    """R1 from an older source, and whether it takes the boxes (the first
+    design takes the same arguments less the boxes)."""
+    path = (Path(parent) / "raster_primary.cu").resolve()
+    boxes = "const int* boxes" in path.read_text()
+    args = RC.RASTER_KERNEL.argtypes
+    return CudaKernel(str(path), "nrc_raster_closest", args if boxes else args[:4] + args[5:],
+                      extra_flags=RC.RASTER_KERNEL.extra_flags), boxes
+
+
+def raster_reading(r: Renderer, parent: str | None = None) -> dict:
+    """R1, the plain raster and W1 on the camera rays of r's frame 0 (tmin
+    0, tmax RT_MAX), r a renderer of a scene with a wide BVH on the card:
+    their agreement, times and R1's bound. The bins are built here for r's
+    camera. With ``parent``, an older R1 (``parent_raster``) timed in
+    turns with the shipped one."""
+    s, cfg, dev = r.scene, r.cfg, r.device
+    t0 = time.perf_counter()
+    meta, pids, perm, _, boxes = RP.build_raster_bins(s.p0, s.p1, s.p2, *s.camera.frustum(), cfg.width, cfg.height)
+    bin_s = time.perf_counter() - t0
+    rd = RP.upload_raster(meta, pids, perm, boxes, r.device_scene.tris.packed)
+    org, d = BI.camera_rays(r)
+    n = org.shape[0]
+    tmin, tmax = torch.zeros(n, device=dev), torch.full((n,), RT_MAX, device=dev)
+    bvh = r.device_scene.bvh
+    t_k, p_k = RC.raster_closest_cuda(meta, rd, org, d)
+    t_p, p_p = RP.raster_closest_hit_plain(meta, rd, org, d)
+    t_w, p_w = WC.wide_traverse_cuda(org, d, bvh, tmin, tmax, False)
+    torch.cuda.synchronize()
+    plain_bits = torch.equal(t_k, t_p) and torch.equal(p_k, p_p)
+    differ = p_k != p_w
+    ties = differ & (t_k == t_w) & (p_k >= 0) & (p_w >= 0)
+    walk_t_bits = torch.equal(t_k, t_w)
+    candidates = int((rd.pids >= 0).sum())
+    pairs, tile_pairs = box_pairs(rd), candidates * meta.tile * meta.tile
+    nbytes = candidates * (9 * 4 + 4 + 4) + int((rd.blocks[:, 1] > 0).sum()) * 16 + n * (24 + 4 + 8)
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * pairs * PAIR_OPS / F32_OPS_PER_S
+    reading = dict(
+        meta=meta._asdict(), bin_s=bin_s, blocks=rd.blocks.shape[0], slots=rd.pids.numel(),
+        candidates=candidates, pairs=pairs, tile_pairs=tile_pairs, hit_share=(p_k >= 0).float().mean().item(),
+        plain_bit_for_bit=plain_bits, max_abs_err=(t_k - t_p).abs().max().item(),
+        walk_t_bit_for_bit=walk_t_bits, walk_differ=int(differ.sum()),
+        walk_ties=int(ties.sum()), ok=plain_bits and walk_t_bits and bool(torch.equal(differ, ties)),
+        ms=BI.device_ms(lambda: RC.raster_closest_cuda(meta, rd, org, d)),
+        plain_ms=event_ms(lambda: RP.raster_closest_hit_plain(meta, rd, org, d)),
+        w1_depth0_ms=BI.device_ms(lambda: WC.wide_traverse_cuda(org, d, bvh, tmin, tmax, False)),
+        bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations",
+    )
+    if parent:
+        old, with_boxes = parent_raster(parent)
+        old.build()
+
+        def old_launch():
+            # the same bins (less the boxes for the first design), at the source's own block of threads
+            best = torch.empty((n,), dtype=torch.int64, device=dev)
+            t = torch.empty((n,), dtype=torch.float32, device=dev)
+            prim = torch.empty((n,), dtype=torch.int64, device=dev)
+            inputs = (org, d, rd.rows, rd.pids) + ((rd.boxes,) if with_boxes else ()) + (rd.blocks,)
+            old.launch(*(RC.ptr(x) for x in inputs), rd.blocks.shape[0],
+                       meta.width, meta.height, meta.tile, RC.ptr(best), RC.ptr(t), RC.ptr(prim),
+                       RC.current_stream(dev))
+            return t, prim
+
+        builds = {"shipped": lambda: RC.raster_closest_cuda(meta, rd, org, d), "parent": old_launch}
+        rounds = {"shipped": [], "parent": []}
+        for name in ("shipped", "parent", "parent", "shipped"):
+            rounds[name].append(BI.device_ms(builds[name]))
+        t_o, p_o = old_launch()
+        torch.cuda.synchronize()
+        reading["parent"] = dict(ms=rounds["parent"], shipped_ms=rounds["shipped"],
+                                 t_bit_for_bit=bool(torch.equal(t_o, t_k)), differ=int((p_o != p_k).sum()))
+        print(f"R1 in turns with the parent's (shipped, parent, parent, shipped): {rounds['shipped'][0]:.4f}, "
+              f"{rounds['parent'][0]:.4f}, {rounds['parent'][1]:.4f}, {rounds['shipped'][1]:.4f} ms; the parent's t "
+              f"bit for bit: {reading['parent']['t_bit_for_bit']}, {reading['parent']['differ']} triangles differ")
+    print(f"raster bins of {s.num_triangles} triangles at {cfg.width}x{cfg.height} on the host in {bin_s:.3f} s: "
+          f"tile {meta.tile}, groups K {meta.group_k} x tiles {meta.group_tiles}, {reading['slots']} slots held, "
+          f"{candidates} real candidates, {reading['blocks']} blocks of R1, {pairs} pairs in the boxes of "
+          f"{tile_pairs} in the tiles")
+    print(f"R1 vs the plain raster: t and triangle bit for bit: {plain_bits}; vs W1 at depth 0: t bit for bit: "
+          f"{walk_t_bits}, {reading['walk_differ']} triangles differ, {reading['walk_ties']} of them ties in t; "
+          f"hit share {reading['hit_share']:.4f}")
+    print(f"R1 {reading['ms']:.4f} ms (device), plain raster {reading['plain_ms']:.3f} ms, W1's depth-0 launch "
+          f"{reading['w1_depth0_ms']:.4f} ms (device); bound {reading['bound_ms']:.4f} ms ({reading['bound_by']})")
+    return reading
+
+
+def raster_run(dev, parent: str | None = None) -> dict:
+    """``raster_reading`` on ``cornell_objects`` at 320x320."""
+    build = RC.RASTER_KERNEL.build()
+    for line in build.splitlines():
+        if "Used" in line or "spill" in line:
+            print(f"R1: {line.strip()}")
+    scene, system = cornell_objects((RES, RES))
+    reading = raster_reading(Renderer(scene, system, render_mode=RenderMode.FULL, device=dev), parent)
+    return {"device": _device_line(), "all_agree": reading["ok"], "raster": reading}
+
+
+def run(parent: str | None = None, l2_probe: bool = False, curves: bool = False, triangles: bool = True,
+        raster: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("bench_walk: no CUDA device is available")
     dev = torch.device("cuda", 0)
+    if raster:
+        return raster_run(dev, parent)
     builds = walk_builds(parent)
     for name, kernels in list(builds.items()) + ([(f"curves {b}", k) for b, k in curve_builds(parent).items()]
                                                  if curves else []):
@@ -350,8 +494,11 @@ def main(argv=None) -> int:
     ap.add_argument("--curves", action="store_true",
                     help="C1/C2 over a recorded cornell_hair FULL + train frame as well")
     ap.add_argument("--no-triangles", action="store_true", help="with --curves, skip W1/W2 on cornell_objects")
+    ap.add_argument("--raster", action="store_true",
+                    help="the primary raster R1 instead: against the plain raster and W1's depth-0 launch on "
+                         "cornell_objects' camera rays, timed beside them")
     args = ap.parse_args(argv)
-    result = run(args.parent, args.l2_probe, args.curves, triangles=not args.no_triangles)
+    result = run(args.parent, args.l2_probe, args.curves, triangles=not args.no_triangles, raster=args.raster)
     print(result["device"])
     print(json.dumps(result))
     return 0 if result["all_agree"] else 1

@@ -36,12 +36,12 @@ wall time (and of the frames timed without it, since tracing slows the
 host), kernel launches and host syncs and copies (``cudaMemcpyAsync``
 and every ``*Synchronize``) per frame, and device time by kernel group: K1
 (closest hit), K2 (shadow rays), W1/W2 (the wide-BVH walks that take their
-place on the large scene), the row gathers, K3 (cache MLP), K4/K5 (the
-gradients and their reduction; K4 is on the hash frame), K6 (the four
-training steps, one persistent kernel), H1/H2 (the hash grid's lookup and
-adjoint), and everything else, which is PyTorch's own elementwise, gather, sort and
-reduction kernels (the six largest are listed by name). Of the eager frames
-it also sums the device time of the kernels launched inside a profiler
+place on the large scene), R1 (the primary raster there), the row gathers,
+K3 (cache MLP), K4/K5 (the gradients and their reduction; K4 is on the hash
+frame), K6 (the four training steps, one persistent kernel), H1/H2 (the
+hash grid's lookup and adjoint), and everything else, which is PyTorch's
+own elementwise, gather, sort and reduction kernels (the six largest are
+listed by name). Of the eager frames it also sums the device time of the kernels launched inside a profiler
 range (``range_device_ms``): the hash table's Adam + EMA
 (``network.TABLE_UPDATE_RANGE``), plain PyTorch kernels a replay cannot
 tell from the others, since a graph's kernels carry no launch of their own. CUPTI records the
@@ -87,6 +87,8 @@ GROUPS = (("K1 nrc_planes_closest", ("planes_kernel<false>",)),
           ("W2 nrc_wbvh_any", ("wbvh_kernel<", "true", "TriLeaf>")),
           ("C1 nrc_wbvh_curves_closest", ("curves_kernel<false>",)),
           ("C2 nrc_wbvh_curves_any", ("curves_kernel<true>",)),
+          ("R1 nrc_raster_closest", ("raster_kernel",)),
+          ("R1 nrc_raster_closest", ("raster_finish_kernel",)),
           ("K7-K9 row gathers", ("gather_warp_kernel",)),
           ("K7-K9 row gathers", ("gather_bulk_kernel",)),
           ("K7-K9 row gathers", ("gather_block_kernel",)),

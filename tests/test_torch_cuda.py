@@ -36,7 +36,8 @@ The row gathers K7-K9 move bits: equal to the plain version bit for bit,
 NaN patterns included. The walk kernels W1/W2 compute the plain walk's
 arithmetic in its order (built with ``-fmad=false``): the closest t is equal
 bit for bit, the winner may differ only between triangles at the same t,
-and occlusion is equal.
+and occlusion is equal. The primary raster R1 keeps the lower id at equal
+t, as the plain raster's argmin does: equal bit for bit.
 """
 
 import dataclasses
@@ -615,6 +616,44 @@ def test_renderer_with_a_bvh_goes_through_the_walk(cuda):
     assert all(a > b for a, b in zip(after[:3], before[:3])) and after[3:] == before[3:]
     img = r.image_hdr()
     assert np.isfinite(img).all() and img.std() > 0
+
+
+R1_TILES = {(64, 48): 16, (72, 48): 24, (60, 40): 20, (36, 36): 12, (40, 24): 8}
+
+
+@pytest.mark.parametrize("res", list(R1_TILES))
+def test_r1_matches_plain_raster(cuda, res):
+    """The primary raster R1 (``csrc/raster_primary.cu``) on a triangle
+    soup, at every tile edge the bins take (``R1_TILES``: 8 x 4 patches a
+    warp at 16, 24 and 8, rows at 20 and 12), against the plain raster: t
+    and triangle bit for bit (the same test in the same order, the lower id
+    at equal t), one launch a call; and in t against W1 on the same rays."""
+    from nrc_tpu_torch.ops import raster_cuda as RC
+    from nrc_tpu_torch.ops import raster_primary as RP
+    from nrc_tpu_torch.scene.camera import generate_primary_rays
+
+    rs = np.random.default_rng(3)
+    p0 = rs.uniform(-2.0, 2.0, (4000, 3)).astype(np.float32)
+    p1 = p0 + rs.uniform(-0.3, 0.3, (4000, 3)).astype(np.float32)
+    p2 = p0 + rs.uniform(-0.3, 0.3, (4000, 3)).astype(np.float32)
+    cam = [np.array(v, np.float32) for v in ((0, 0, 6), (1.2, 0, 0), (0, 0.9, 0.1), (0, 0, -1))]
+    w, h = res
+    meta, pids, perm, _, boxes = RP.build_raster_bins(p0, p1, p2, *cam, w, h)
+    rd = RP.upload_raster(meta, pids, perm, boxes, TriSoA.build(p0, p1, p2, device=cuda).packed)
+    lin = torch.arange(w * h, device=cuda)
+    pix = torch.stack([lin % w, lin // w], -1).float()
+    jitter = torch.tensor(rs.random((w * h, 2)), dtype=torch.float32, device=cuda)
+    org, d = generate_primary_rays(pix, jitter, (w, h), *(torch.tensor(c, device=cuda) for c in cam))
+    before = RC.RASTER_KERNEL.launches
+    tk, pk = RP.raster_closest_hit(meta, rd, org, d)
+    tp, pp = RP.raster_closest_hit_plain(meta, rd, org, d)
+    bvh = IW.upload_wide_bvh(build_wide_bvh(p0, p1, p2, branch=16, leaf_size=16), cuda)
+    tw, _ = WC.wide_traverse_cuda(org, d, bvh, torch.zeros(w * h, device=cuda),
+                                  torch.full((w * h,), RT_MAX, device=cuda), False)
+    torch.cuda.synchronize()
+    assert RC.RASTER_KERNEL.launches == before + 1 and meta.tile == R1_TILES[res]
+    assert pk.dtype == torch.int64 and torch.equal(pk, pp) and torch.equal(tk, tp) and torch.equal(tk, tw)
+    assert 0.05 < (pk >= 0).float().mean().item() < 0.95
 
 
 # ---- the frame as a CUDA graph -----------------------------------------------
