@@ -10,8 +10,11 @@ Port of ``nrc_tpu/app/cli.py``, with the same options
 
 plus --spp, --render-mode, --encoding, --checkpoint/--resume (npz render
 states, ``models/checkpoint.py``), --stats-log, --profile (a
-``torch.profiler`` Chrome trace) and ``--device cuda|cpu``: the card by
-default, which raises without one; the CPU only when asked.
+``torch.profiler`` Chrome trace, which shows the renderer's host spans and
+stamp kernels where --spans is on), --spans PATH (``Renderer(spans=True)``,
+its ``span_report`` written as JSON at exit; one device only) and
+``--device cuda|cpu``: the card by default, which raises without one; the
+CPU only when asked.
 
 - ``--present`` (or ``present 1`` in the system file) with ``-m 0`` serves
   the live viewer (``app/viewer.py``) and renders until interrupted
@@ -109,6 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the render loop "
                         "to DIR/trace.json")
+    p.add_argument("--spans", default=None, metavar="PATH",
+                   help="record spans and counters inside the renderer and write "
+                        "their report (Renderer.span_report) as JSON to PATH at exit")
     p.add_argument("--save-system", default=None, metavar="PATH",
                    help="write the current system description (Key S parity)")
     p.add_argument("--stats-log", default=None,
@@ -145,6 +151,8 @@ def _refuse_unported(args) -> None:
     """What the port does not run, refused before any frame."""
     if args.checkpoint_format == "orbax":
         raise NotImplementedError("--checkpoint-format orbax is not ported (ROADMAP, 'Do not port')")
+    if args.spans and args.devices > 1:
+        raise ValueError("--spans records a single-device renderer, not --devices N")
 
 
 def main(argv=None) -> int:
@@ -231,6 +239,7 @@ def _run(args, device: torch.device, rank: int = 0, world: int = 1) -> int:
     r = kind(
         scene, system, net_cfg=net_cfg, render_mode=RenderMode[args.render_mode.upper()],
         train=not args.no_train, reflectance_factoring=args.reflectance_factoring, device=device,
+        spans=bool(args.spans),
     )
     if args.lr or args.unbiased_ratio or args.area_spread:
         r.set_hyper_params(
@@ -277,24 +286,23 @@ def _run(args, device: torch.device, rank: int = 0, world: int = 1) -> int:
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    if args.spans:
+        with open(args.spans, "w") as f:
+            json.dump(r.span_report(), f, indent=1)
+        print(f"wrote the spans' report to {args.spans}")
     # throughput report (the reference prints only fps,
     # Application.cpp:522-527; Mrays/s + cache queries/s added on top).
-    # Primary Mrays/s counts rays actually cast (on-device counter, read
-    # after the barrier; every band's with --devices); "potential" assumes
-    # every path traces every closest-hit + shadow segment, which the
-    # area-spread truncation makes a severalfold overstatement. The wall
-    # time includes the first frames' kernel builds and graph captures; in
-    # the viewer, the time it served after the last frame too.
-    segs = r.cfg.max_depth + 1
+    # Mrays/s counts rays actually cast (on-device counter, read after the
+    # barrier; every band's with --devices). The wall time includes the
+    # first frames' kernel builds and graph captures; in the viewer, the
+    # time it served after the last frame too.
     n_tiles = r.cfg.num_tiles if r.cfg.train else 0
-    potential = (r.cfg.num_pixels + n_tiles) * segs * 2 * frames
     traced = int(r.traced_rays)
     uses_cache = r.cfg.render_mode != RenderMode.NO_CACHE
     n_queries = ((r.cfg.num_pixels if uses_cache else 0) + n_tiles) * frames
     print(
         f"{frames} spp in {dt:.2f}s -> {frames / dt:.2f} fps, "
-        f"{traced / dt / 1e6:.2f} Mrays/s traced "
-        f"({potential / dt / 1e6:.2f} potential), "
+        f"{traced / dt / 1e6:.2f} Mrays/s traced, "
         f"{n_queries / dt / 1e6:.2f} M cache queries/s"
     )
     if r.loss_history:

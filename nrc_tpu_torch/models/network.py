@@ -43,6 +43,7 @@ from torch import nn
 from ..config import InputEncoding, NetworkConfig
 from ..ops import encodings as E
 from ..ops.mlp_cuda import LANE, OUT_PAD, AdamHyper, FusedMLP, adam_ema, fused_train4, fused_train_grad
+from ..utils.spans import TABLE_UPDATE_RANGE, profiler_range
 
 
 class MLPParams(nn.Module):
@@ -83,9 +84,6 @@ class NetworkState:
 
 
 _WEIGHTS = ("w_in", "w_hidden", "w_out")
-# the profiler range around the hash table's Adam + EMA (tools/profile_frame.py
-# sums the device time of the kernels launched inside it)
-TABLE_UPDATE_RANGE = "hash table Adam + EMA"
 # the hash state's checkpoint keys (nrc_tpu/models/checkpoint.py:41-45)
 GRID_KEYS = ("grid.table", "ema_grid.table", "opt.mu_grid", "opt.nu_grid")
 
@@ -339,7 +337,7 @@ def train_step(
         ))
         grid = None
         if state.grid is not None:
-            with torch.profiler.record_function(TABLE_UPDATE_RANGE):
+            with profiler_range(TABLE_UPDATE_RANGE):
                 gp, gm, gv, ge = adam_ema(state.grid.table, grads[-1], state.opt.mu_grid, state.opt.nu_grid,
                                           state.ema_grid.table, t, lr, hyper._replace(l2=0.0))
             grid = (gp, ge, gm, gv)

@@ -156,6 +156,8 @@ class ParallelRenderer(Renderer):
     tile height that does not."""
 
     def __init__(self, scene, system, net_cfg: Optional[NetworkConfig] = None, **kw):
+        if kw.get("spans"):
+            raise ValueError("spans are recorded on a single-device Renderer, not on a band")
         device = torch.device(kw.get("device", "cuda"))
         make_group(device)
         world, rank = dist.get_world_size(), dist.get_rank()

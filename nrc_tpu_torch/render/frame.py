@@ -30,6 +30,14 @@ divided by their record's before the batches are drawn
 (``nrc_tpu/render/frame.py:100-107,275-279,345-350``).
 ``DEBUG_TIME_VIEW`` shows each pixel's surface hits over ``max_depth``
 through the cold-to-hot ramp, the running maximum over the accumulation.
+
+With ``spans`` (a ``utils/spans.py::SpanRecorder`` whose frame is open) the
+step stamps the start of each phase on the device: ``frame.primary`` (the
+camera rays and the primary raster), ``frame.render_wavefront``,
+``frame.train_wavefront`` (the training rays and their wavefront),
+``frame.inference`` (the queries' concatenation and the cache),
+``frame.accumulate`` and ``frame.train`` (propagation, batches and the
+steps); ``trace_wavefront`` stamps each bounce. The stamps change no result.
 """
 
 from __future__ import annotations
@@ -204,6 +212,7 @@ def frame_step(
     row_offset: int = 0,
     raster_meta: Optional[RasterMeta] = None,
     raster_data: Optional[RasterData] = None,
+    spans=None,
 ) -> tuple[torch.Tensor, FrameStats]:
     """One frame (1 spp). Returns (image', stats); with ``cfg.train`` the
     network state is trained in place.
@@ -232,6 +241,8 @@ def frame_step(
     tile_rows = None if shard_rows is None else shard_rows // cfg.tile_size[1]
     n_tiles = cfg.num_tiles if shard_rows is None else cfg.num_tiles_xy[0] * tile_rows
 
+    if spans is not None:
+        spans.stamp("frame.primary")
     pix, pidx = pixel_grid(cfg, dev, shard_rows, row_offset)
     seeds = R.tea(pidx, total_subframe)
     seeds, jitter = R.rng2(seeds)
@@ -243,17 +254,24 @@ def frame_step(
     if raster_meta is not None and shard_rows is None and cfg.lens_shader == LENS_PINHOLE:
         t0, prim0 = raster_closest_hit(raster_meta, raster_data, org, dirn)
         primary_hit = hit_from_t_prim(org, dirn, scene.tris, t0, prim0)
-    out = trace_wavefront(scene, org, dirn, seeds, cfg, primary_hit=primary_hit)
+    if spans is not None:
+        spans.stamp("frame.render_wavefront")
+    out = trace_wavefront(scene, org, dirn, seeds, cfg, primary_hit=primary_hit, spans=spans)
     traced_rays = out.traced_count.sum()
     train_out = None
     if cfg.train:
+        if spans is not None:
+            spans.stamp("frame.train_wavefront")
         t_org, t_dir, t_seeds, unbiased = training_rays(
             cfg, total_subframe, camera, cfg.train_unbiased_ratio, dev, tile_rows, row_offset
         )
-        train_out = trace_wavefront(scene, t_org, t_dir, t_seeds, cfg, train=True, unbiased=unbiased)
+        train_out = trace_wavefront(scene, t_org, t_dir, t_seeds, cfg, train=True, unbiased=unbiased,
+                                    spans=spans)
         traced_rays = traced_rays + train_out.traced_count.sum()
 
     # ---- one cache inference over [render ; training ends ; cache-vis] ------
+    if spans is not None:
+        spans.stamp("frame.inference")
     render_cache = mode in (RenderMode.FULL, RenderMode.CACHE_ONLY,
                             RenderMode.DEBUG_CACHE_NO_THROUGHPUT_MODULATION)
     queries = []
@@ -278,6 +296,8 @@ def frame_step(
         ofs += n_tiles
 
     # ---- accumulate into the image ---------------------------------------
+    if spans is not None:
+        spans.stamp("frame.accumulate")
     w_acc = accumulation_weight(iteration_index)
     if mode == RenderMode.FULL:
         contrib = out.radiance + out.last_render_throughput * cache[:n_pixels]
@@ -303,6 +323,8 @@ def frame_step(
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     if not cfg.train:
         return image, FrameStats(zero.float(), zero, traced_rays)
+    if spans is not None:
+        spans.stamp("frame.train")
     targets = propagate_radiance(
         train_out.rec_target, train_out.rec_ltp, train_out.rec_count, cache_end, train_out.end_mask
     )

@@ -230,6 +230,7 @@ def trace_wavefront(
     train: bool = False,
     unbiased: Optional[torch.Tensor] = None,  # [N] bool, training wavefront
     primary_hit: Optional[Hit] = None,  # depth 0's hit, resolved before (the primary raster)
+    spans=None,  # utils/spans.py::SpanRecorder: a stamp and the live lanes at each bounce
 ) -> WavefrontOut:
     n = org.shape[0]
     dev = org.device
@@ -887,10 +888,15 @@ def trace_wavefront(
     # depth 0 sets the camera's area threshold; depths 1..max_depth
     # accumulate the spread (off the card they stop once every lane has
     # terminated)
+    wavefront = "train" if train else "render"
+    if spans is not None:
+        spans.bounce(wavefront, 0, state.alive)
     state = bounce(state, True, 0)
     for depth in range(1, cfg.max_depth + 1):
         if _all_done(state.alive):
             break
+        if spans is not None:
+            spans.bounce(wavefront, depth, state.alive)
         state = bounce(state, False, depth)
 
     # max-depth cleanup (raygeneration.cu:274-284): surviving render rays

@@ -51,6 +51,13 @@ held with room to spare (``raster_primary.room``), which the graphs read:
 the rows held are part of the graph key, so new bins capture again only
 when they outgrow them.
 
+``spans=True`` records spans and counters inside the renderer and the
+frame (``utils/spans.py``): host spans around each part of ``render_frame``
+and of set-up, device stamps that tile ``frame_step`` by phase and bounce,
+the lanes alive at each bounce, graph switches, frames at each tile side and
+records a frame; ``span_report`` reads them out. With ``spans=False`` (the
+default) ``spans`` is None and nothing of it runs.
+
 ``device`` decides where everything runs; a CUDA device without a card
 raises, and nothing falls back to the CPU.
 """
@@ -61,7 +68,7 @@ import dataclasses
 import math
 import time
 from collections import OrderedDict, deque
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +90,7 @@ from ..scene.camera import LENS_PINHOLE
 from ..scene.materials import MaterialTable
 from ..scene.scene_builder import Scene
 from ..utils.image_io import write_hdr, write_png
+from ..utils.spans import Slot, SpanRecorder, span
 from ..utils.tonemap import tonemap_to_u8
 from .frame import CameraArrays, FrameStats, frame_step
 from .scene_device import DeviceScene, patch_materials, scene_flags, upload_scene
@@ -101,12 +109,14 @@ def frame_key(cfg: FrameConfig, raster: Optional[RasterData] = None) -> tuple:
 
 class FrameGraph(NamedTuple):
     """One captured frame: the graph, its output buffers, the kernel launches
-    one replay makes, and the bytes its memory pool took at the capture."""
+    one replay makes, the bytes its memory pool took at the capture, and the
+    names of the stamps it writes (empty with the spans off)."""
 
     graph: torch.cuda.CUDAGraph
     stats: FrameStats
     launches: Dict[CudaKernel, int]
     nbytes: int
+    stamps: Tuple[Slot, ...] = ()
 
 
 class Renderer:
@@ -124,10 +134,16 @@ class Renderer:
         capture: bool = True,
         reflectance_factoring: bool = False,
         raster_primary: bool = True,
+        spans: bool = False,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device='cuda'): no CUDA device is available")
+        # (iteration, total_subframe) on the device, and their host mirrors
+        self._counters = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self._host_counters = [0, 0]
+        # the spans and counters (utils/spans.py), or None: off
+        self.spans: Optional[SpanRecorder] = SpanRecorder(self.device, self._counters[1]) if spans else None
         # frames on the card replay graphs; False runs them eagerly
         self.capture = capture
         self.graphs: "OrderedDict[tuple, FrameGraph]" = OrderedDict()
@@ -144,7 +160,8 @@ class Renderer:
         self._raster_cam: Optional[bytes] = None
         self._last_cam: Optional[bytes] = None
         self._raster_frame = False
-        self.device_scene = upload_scene(scene, self.device)
+        with span(self.spans, "renderer.upload_scene"):
+            self.device_scene = upload_scene(scene, self.device)
 
         # per-scene normalization of query positions (the reference hardcodes
         # 0.005 for Cornell, hit.cu:595-597; derived from the scene AABB)
@@ -187,9 +204,6 @@ class Renderer:
             self.hyper.learning_rate, dtype=torch.float32, device=self.device
         )
         self._image = torch.zeros((w * h, 3), dtype=torch.float32, device=self.device)
-        # (iteration, total_subframe) on the device, and their host mirrors
-        self._counters = torch.zeros(2, dtype=torch.int64, device=self.device)
-        self._host_counters = [0, 0]
         # rays traced since the last zero_(), summed on the device by each frame
         self.traced_rays = torch.zeros((), dtype=torch.int64, device=self.device)
         self.replays = 0  # frames run as a graph replay
@@ -272,8 +286,9 @@ class Renderer:
 
     def restart_accumulation(self) -> None:
         """Camera/material change restarts progressive accumulation."""
-        self.iteration = 0
-        self._image.zero_()
+        with span(self.spans, "renderer.restart"):
+            self.iteration = 0
+            self._image.zero_()
 
     def reset_cache(self, seed: int = 0) -> None:
         """Re-create the network (GUI 'reset cache' -> ``Device.cpp:2415-2421``)
@@ -420,7 +435,11 @@ class Renderer:
     def _frame(self) -> FrameStats:
         """One frame on the renderer's state, as a graph captures it: the
         image written back in place, the traced rays summed and both
-        counters advanced on the device."""
+        counters advanced on the device; with the spans on, stamped from
+        ``frame.primary`` to ``frame.end``."""
+        sp = self.spans
+        if sp is not None:
+            sp.open_frame()
         with torch.no_grad():
             image, stats = frame_step(
                 self.device_scene,
@@ -434,9 +453,12 @@ class Renderer:
                 self.learning_rate,
                 raster_meta=self._raster_meta if self._raster_frame else None,
                 raster_data=self._raster_data if self._raster_frame else None,
+                spans=sp,
             )
             self._image.copy_(image)
             self.traced_rays.add_(stats.traced_rays)
+            if sp is not None:
+                sp.close_frame()
             self._counters.add_(1)
         return stats
 
@@ -467,7 +489,8 @@ class Renderer:
             for k in launches:
                 k.launches = before[k]
         self._keep(key, FrameGraph(graph, graph_stats, launches,
-                                   torch.cuda.memory_reserved(self.device) - reserved))
+                                   torch.cuda.memory_reserved(self.device) - reserved,
+                                   () if self.spans is None else self.spans.layout))
         return stats
 
     def _keep(self, key: tuple, entry: FrameGraph) -> None:
@@ -476,38 +499,54 @@ class Renderer:
         while len(self.graphs) > MAX_GRAPHS:
             self.graphs.popitem(last=False)
 
+    def _frame_key(self) -> tuple:
+        return frame_key(self.cfg, self._raster_data if self._raster_frame else None)
+
     def _replay(self) -> FrameStats:
-        key = frame_key(self.cfg, self._raster_data if self._raster_frame else None)
+        key = self._frame_key()
         entry = self.graphs.get(key)
         if entry is None:
-            return self._capture(key)
-        self.graphs.move_to_end(key)
-        entry.graph.replay()
+            with span(self.spans, "renderer.capture"):
+                return self._capture(key)
+        with span(self.spans, "renderer.replay"):
+            self.graphs.move_to_end(key)
+            entry.graph.replay()
         self.replays += 1
         for k, n in entry.launches.items():
             k.launches += n
+        if self.spans is not None:
+            self.spans.layout = entry.stamps
         return entry.stats
 
     def render_frame(self) -> FrameStats:
         """One subframe (1 spp accumulated). On the card the stats are the
         graph's own buffers, which the next frame of the same ``cfg``
         overwrites."""
-        self._camera_arrays()
-        self._bin_primaries()
-        if self.device.type == "cuda" and self.capture:
-            stats = self._replay()
-        else:
-            stats = self._frame()
-        self._host_counters[0] += 1
-        self._host_counters[1] += 1
-        self.last_stats = stats
-        if self.cfg.train:
-            # start the copy of loss and record count now and read it two
-            # frames later, when it has landed (the reference reads
-            # numTrainingRecords synchronously mid-frame, Device.cpp:2487-2491)
-            self._pending_stats.append(self._start_readback(stats))
-            if len(self._pending_stats) > 2:
-                self._consume_stats(self._pending_stats.popleft())
+        sp = self.spans
+        frame = self._host_counters[1]
+        with span(sp, "renderer.render_frame", frame):
+            with span(sp, "renderer.camera"):
+                self._camera_arrays()
+            with span(sp, "renderer.bin"):
+                self._bin_primaries()
+            if self.device.type == "cuda" and self.capture:
+                stats = self._replay()
+            else:
+                with span(sp, "renderer.eager"):
+                    stats = self._frame()
+            if sp is not None:
+                sp.frame_done(frame, self._frame_key(), self.cfg.tile_size, self.cfg.train)
+            self._host_counters[0] += 1
+            self._host_counters[1] += 1
+            self.last_stats = stats
+            if self.cfg.train:
+                # start the copy of loss and record count now and read it two
+                # frames later, when it has landed (the reference reads
+                # numTrainingRecords synchronously mid-frame, Device.cpp:2487-2491)
+                self._pending_stats.append(self._start_readback(stats))
+                if len(self._pending_stats) > 2:
+                    with span(sp, "renderer.stats_wait"):
+                        self._consume_stats(self._pending_stats.popleft())
         return stats
 
     def _start_readback(self, stats: FrameStats):
@@ -528,6 +567,8 @@ class Renderer:
         # the stats window's loss ring buffer (256-frame plot,
         # Application.cpp:1020-1048)
         self.loss_history.append(float(loss))
+        if self.spans is not None:
+            self.spans.count_records(int(count))
         if self.adaptive_tiles:
             # Device::adjustTileSize (Device.cpp:818-828), two frames late
             new_ts = self._next_tile_size(int(count))
@@ -548,6 +589,11 @@ class Renderer:
             stats = self.render_frame()
         self._sync()
         return stats
+
+    def span_report(self) -> Optional[dict]:
+        """The spans and counters since they were last reset
+        (``SpanRecorder.report``), or None with the spans off."""
+        return None if self.spans is None else self.spans.report()
 
     def benchmark(self, spp: int) -> dict:
         """Timed loop (``Application::benchmark``, Application.cpp:496-540):
@@ -571,8 +617,6 @@ class Renderer:
             "ms_per_frame": 1e3 * dt / spp,
             "fps": spp / dt,
             "mrays_per_s": traced / dt / 1e6,
-            # every path running all its segments (nrc_tpu/render/renderer.py:397-398)
-            "potential_mrays_per_s": self.cfg.num_pixels * spp * (self.cfg.max_depth + 1) / dt / 1e6,
             "traced_rays_per_frame": traced / spp,
         }
 

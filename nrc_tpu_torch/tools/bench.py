@@ -34,12 +34,10 @@ device, ``Renderer.traced_rays``). The value is the median rep's traced
 rays over that rep's own host time. Beside each rep, ``nvidia-smi`` samples
 the card every 100 ms: the SM and memory clocks (least, median, largest),
 the median power draw and the active clock event reasons, so that two runs
-can be compared in the same state of the card. ``potential_mrays_per_s`` counts, as
-``bench.py`` does, (pixels + tiles) x (max_depth + 1) x 2 rays a frame. The
-spread is the reps' smallest and largest values. The last line is one JSON
-object with the keys of ``bench.py``'s line (``metric``, ``value``,
-``unit``, ``potential_mrays_per_s``, ``timing``), the per-rep numbers and
-the card's name and power limit.
+can be compared in the same state of the card. The spread is the reps'
+smallest and largest values. The last line is one JSON object with the keys
+of ``bench.py``'s line (``metric``, ``value``, ``unit``, ``timing``), the
+per-rep numbers and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -142,8 +140,6 @@ def run(frames: int = FRAMES, reps: int = REPS, encoding: InputEncoding = InputE
     if r.replays - replays != frames * reps:
         raise RuntimeError("a timed frame was not a graph replay")
     median = sorted(rows, key=lambda row: row["host_ms_per_frame"])[reps // 2]
-    fps = 1e3 / median["host_ms_per_frame"]
-    cfg = r.cfg
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -153,7 +149,6 @@ def run(frames: int = FRAMES, reps: int = REPS, encoding: InputEncoding = InputE
         "metric": "mrays_per_s",
         "value": median["mrays_per_s"],
         "unit": "Mrays/s",
-        "potential_mrays_per_s": (cfg.num_pixels + cfg.num_tiles) * (cfg.max_depth + 1) * 2 * fps / 1e6,
         "timing": f"{frames} graph-replayed frames a rep, the median rep of {reps} by host time, "
                   "with that rep's own traced rays",
         "host_ms_per_frame": median["host_ms_per_frame"],

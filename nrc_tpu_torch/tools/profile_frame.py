@@ -43,7 +43,7 @@ hash grid's lookup and adjoint), and everything else, which is PyTorch's
 own elementwise, gather, sort and reduction kernels (the six largest are
 listed by name). Of the eager frames it also sums the device time of the kernels launched inside a profiler
 range (``range_device_ms``): the hash table's Adam + EMA
-(``network.TABLE_UPDATE_RANGE``), plain PyTorch kernels a replay cannot
+(``utils/spans.py::TABLE_UPDATE_RANGE``), plain PyTorch kernels a replay cannot
 tell from the others, since a graph's kernels carry no launch of their own. CUPTI records the
 kernels a graph launches, so the groups read the same in both columns.
 
@@ -71,9 +71,9 @@ import time
 import torch
 
 from ..config import InputEncoding, RenderMode
-from ..models.network import TABLE_UPDATE_RANGE
 from ..render.renderer import Renderer
 from ..scene.scene_builder import cornell_box, cornell_glass, cornell_objects, named_scene
+from ..utils.spans import TABLE_UPDATE_RANGE
 
 RES = 320
 TIMED_FRAMES = 20

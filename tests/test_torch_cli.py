@@ -3,8 +3,8 @@ refuses.
 
 ``nrc_tpu_torch/app/cli.py::build_parser`` must take the JAX CLI's options
 (``nrc_tpu/app/cli.py:27-87``), each with the same flags, destination,
-default, type, choices and requiredness, plus ``--device``; the same
-command line must parse to the same values. What the port does not run
+default, type, choices and requiredness, plus ``--device`` and
+``--spans``; the same command line must parse to the same values. What the port does not run
 raises ``NotImplementedError`` naming its ``ROADMAP.md`` entry before any
 frame: the orbax checkpoint container. ``--device cuda`` (the default) raises without a card, as
 ``Renderer`` does; the CPU is taken only when asked. ``present 1`` in the
@@ -14,6 +14,7 @@ ranks and writes the PNG ``--devices 1`` writes; more ranks than cards
 raise before any frame.
 """
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -35,10 +36,11 @@ def options(parser):
 
 def test_options_equal_jax_plus_device():
     got, ref = options(cli.build_parser()), options(jcli.build_parser())
-    assert set(got) == set(ref) | {"device"}
+    assert set(got) == set(ref) | {"device", "spans"}
     for dest, spec in ref.items():
         assert got[dest] == spec, dest
     assert got["device"] == (("--device",), "cuda", None, ("cuda", "cpu"), False, "_StoreAction")
+    assert got["spans"] == (("--spans",), None, None, (), False, "_StoreAction")
 
 
 @pytest.mark.parametrize("argv", [
@@ -50,7 +52,7 @@ def test_options_equal_jax_plus_device():
 ])
 def test_same_command_line_same_values(argv):
     got = vars(cli.build_parser().parse_args(argv))
-    assert got.pop("device") == "cuda"
+    assert got.pop("device") == "cuda" and got.pop("spans") is None
     assert got == vars(jcli.build_parser().parse_args(argv))
 
 
@@ -65,6 +67,19 @@ def files(tmp_path_factory):
 def test_unported_options_raise(files, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["-s", files[0], "-d", files[1], "--device", "cpu", "--spp", "1"] + extra)
+
+
+def test_spans_option_writes_the_report(files, tmp_path, capsys):
+    """``--spans PATH`` renders with the spans on and writes the report;
+    over ranks it is refused before any rank starts."""
+    path = tmp_path / "spans.json"
+    cli.main(["-s", files[0], "-d", files[1], "--device", "cpu", "--spp", "2", "-m", "1", "--output",
+              str(tmp_path / "o"), "--spans", str(path)])
+    rep = json.loads(path.read_text())
+    assert rep["frames"] == 2 and rep["counters"]["frames_by_tile"] and "renderer.upload_scene" in rep["host_spans"]
+    assert f"wrote the spans' report to {path}" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="--spans"):
+        cli.main(["-s", files[0], "-d", files[1], "--device", "cpu", "--devices", "2", "--spans", str(path)])
 
 
 def test_present_in_the_system_file_serves_in_mode_0(files, tmp_path, monkeypatch):

@@ -62,6 +62,7 @@ from nrc_tpu_torch.render.scene_device import upload_scene
 from nrc_tpu_torch.scene.scene_builder import cornell_box
 from nrc_tpu_torch.tools import bench_hash as BH
 from nrc_tpu_torch.tools import bench_mlp as BM
+from nrc_tpu_torch.utils import spans as SP
 
 pytestmark = pytest.mark.cuda
 LIM = BM.CARD_LIMITS
@@ -761,6 +762,57 @@ def test_failed_capture_releases_the_default_generator(cuda, monkeypatch):
         replayed.render_frame()
     torch.cuda.synchronize(cuda)
     assert replayed.replays >= 1 and torch.equal(eager.image, replayed.image)
+
+
+# ---- the spans inside the frame (utils/spans.py) ---------------------------
+
+def _spans_pair(cuda, res=(64, 64), tiles=(8, 8)):
+    import dataclasses
+
+    scene, system = cornell_box(res)
+    system = dataclasses.replace(system, tile_size=tiles)
+    return [Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device=cuda, spans=on)
+            for on in (False, True)]
+
+
+def test_spans_off_capture_no_stamp(cuda):
+    """With the spans off a captured frame launches no stamp, and the same
+    hand kernels as with the spans on, the stamps aside (the live-lane
+    counts are PyTorch's own kernels, not hand kernels); the frames are
+    equal bit for bit."""
+    off, on = _spans_pair(cuda)
+    for _ in range(4):
+        for r in (off, on):
+            r.render_frame()
+    torch.cuda.synchronize(cuda)
+    (g_off,), (g_on,) = off.graphs.values(), on.graphs.values()
+    assert SP.STAMP_KERNEL not in g_off.launches and g_off.stamps == ()
+    assert g_on.launches[SP.STAMP_KERNEL] == len(g_on.stamps) == len(on.spans.layout)
+    assert {k: n for k, n in g_on.launches.items() if k is not SP.STAMP_KERNEL} == g_off.launches
+    assert all(torch.equal(a, b) for a, b in zip(_frame_bits(off), _frame_bits(on)))
+
+
+def test_stamps_rise_within_each_replayed_frame(cuda):
+    _, r = _spans_pair(cuda)
+    for _ in range(5):
+        r.render_frame()
+    rep = r.span_report()
+    ring = r.spans.ring.cpu()
+    n = len(r.spans.layout)
+    for frame, layout, _ in r.spans.frames:
+        t = ring[frame % SP.RING_FRAMES, :n]
+        assert len(layout) == n and bool((t[1:] >= t[:-1]).all()) and int(t[0]) > 0, frame
+    assert rep["frames"] == 5 and r.replays == 4
+    assert rep["frames_ms"] + rep["gaps_ms"] == pytest.approx(rep["window_ms"], rel=1e-9)
+    assert 0 < rep["metrics"]["integrator.live_lanes"] < 100
+
+
+def test_calibration_bracket_under_50_us(cuda):
+    _, r = _spans_pair(cuda)
+    r.render_frame()
+    clock = r.span_report()["clock"]
+    assert clock["bracket_us"] < 50 and clock["bracket_us_at_reset"] < 50, clock
+    assert 0 < clock["resolution_ns"] <= 1000, clock
 
 
 # ---------------------------------------------------------------------------

@@ -287,7 +287,7 @@ def test_benchmark_sums_each_frames_traced_rays():
     b.restart_accumulation()
     counts = [int(b.render_frame().traced_rays) for _ in range(3)]
     assert res["traced_rays_per_frame"] * 3 == sum(counts) and len(set(counts)) > 1
-    assert res["potential_mrays_per_s"] > res["mrays_per_s"] > 0.0
+    assert res["mrays_per_s"] == sum(counts) / res["seconds"] / 1e6 > 0.0
     assert torch.equal(a.image, b.image)
 
 
