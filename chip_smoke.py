@@ -1864,7 +1864,10 @@ def _hair_calls_logged(calls):
         calls["cache." + query.device.type] = (query.detach().cpu().clone(), out.detach().cpu().clone())
         return out
 
+    # every bounce at the full width on both sides: the compacted render
+    # bounces equal it bit for bit (tests/test_torch_compact.py)
     wrappers = {"make_intersectors": (I, make_intersectors), "_all_done": (I, lambda alive: False),
+                "compact_capacity": (I, lambda n: n),
                 "intersect_curves_bvh": (C, intersect_curves_bvh), "occluded_curves_bvh": (C, occluded_curves_bvh),
                 "curve_shading_frame": (C, curve_shading_frame), "hair_sample": (HB, lobe("hair", "hair_sample")),
                 "hair_eval": (HB, lobe("hair_eval", "hair_eval")), "trace_wavefront": (F, trace_wavefront),
@@ -3019,13 +3022,20 @@ def main() -> int:
 
     phase_clock("6b")
     # ---- 6b. the sparse ray sets of that frame: every K1 and K2 launch recorded ----
-    # The integrator launches over all lanes at every bounce and marks a dead
+    # The integrator launches over all lanes at every bounce (the render
+    # wavefront's bounces 2.. over its live lanes compacted) and marks a dead
     # lane with an empty t range; the kernels compact the live ones. Each
     # recorded set is held against the plain version under the limits of the
-    # all-live sets, and a dead lane must read RT_MAX, -1 or False.
+    # all-live sets, and a dead lane must read RT_MAX, -1 or False. The eager
+    # frame runs the one body of bounces 2.. its flag picks, so it launches
+    # K1 and K2 as often as a replayed frame counts.
     recorded = BI.record_frame_launches(rt)
     torch.cuda.synchronize()
     _check({kind for kind, _ in recorded} == {"K1", "K2"}, "the recorded frame did not launch K1 and K2")
+    for kind, name in (("K1", "intersect_planes"), ("K2", "occluded_planes")):
+        eager_launches = sum(k == kind for k, _ in recorded)
+        _check(eager_launches == per_frame[name],
+               f"an eager frame launches {kind} {eager_launches} times, a replayed one {per_frame[name]}")
     frame = {kind: dict(launches=0, lanes=0, live=0, ms=0.0, fused=0.0, unfused=0.0) for kind in ("K1", "K2")}
     for i, (kind, rays) in enumerate(recorded):
         o, dd, tn, tf = rays

@@ -12,7 +12,11 @@ the C entry point on PyTorch's current stream, raises when the entry point
 returns a CUDA error, and counts its launches. A launch made while a CUDA
 graph is being captured runs nothing; the code that captures reads the
 counts around the capture (``launch_counts``), puts them back, and adds the
-graph's share at each replay.
+graph's share at each replay (``add_launches``). The launches of a graph's
+IF-node bodies count only where the body ran, which the replay decides on
+the device: the replay starts a copy of the body's flag to the host, and
+the body's launches are added once it has landed, when a count is next
+read (``defer_launches``).
 """
 
 from __future__ import annotations
@@ -23,8 +27,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+from collections import deque
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Deque, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -37,6 +42,9 @@ NVCC_FLAGS = (
 
 # every launch handle made, in the order made
 KERNELS: List["CudaKernel"] = []
+# replays whose IF bodies' launches wait for the bodies' flags:
+# (the event after the flags' copy, the flags on the host, the bodies)
+_DEFERRED: Deque[tuple] = deque()
 
 # (source, extra flags) -> (loaded library, compiler log)
 _LIBRARIES: Dict[Tuple[str, Tuple[str, ...]], Tuple[ctypes.CDLL, str]] = {}
@@ -106,7 +114,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.extra_flags = tuple(extra_flags)
-        self.launches = 0
+        self._launches = 0
         self.library_path = None  # the built shared library, once build() has run
         self._fn = None
         KERNELS.append(self)
@@ -128,12 +136,65 @@ class CudaKernel:
         rc = self._fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} at launch")
-        self.launches += 1
+        self._launches += 1
+
+    @property
+    def launches(self) -> int:
+        """The launches made, a replayed graph's included (the bodies'
+        that ran once their flags have landed: ``settle_launches``)."""
+        settle_launches()
+        return self._launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        settle_launches()
+        self._launches = n
 
 
 def launch_counts() -> Dict[CudaKernel, int]:
     """Every launch handle's count of launches."""
     return {k: k.launches for k in KERNELS}
+
+
+def add_launches(counts: Dict[CudaKernel, int]) -> None:
+    """Add a replayed graph's launches to the counts."""
+    for k, n in counts.items():
+        k._launches += n
+
+
+def defer_launches(bodies: Sequence[Tuple[torch.Tensor, bool, Dict[CudaKernel, int]]]) -> None:
+    """A graph just replayed on the current stream holds the IF-node
+    ``bodies`` (the 0-d bool flag on the device, the value of it that runs
+    the body, the body's launches): copy the flags to the host after the
+    replay, and add the launches of the bodies that ran once they land
+    (those of earlier replays whose flags have landed are added now, which
+    waits for nothing)."""
+    while _DEFERRED and _DEFERRED[0][0].query():
+        _settle_one()
+    host = torch.empty((len(bodies),), dtype=torch.bool, pin_memory=True)
+    for i, (flag, _, _) in enumerate(bodies):
+        host[i].copy_(flag, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    _DEFERRED.append((done, host, bodies))
+
+
+def settle_launches() -> None:
+    """Add the launches of the deferred replays' bodies that ran, waiting
+    for their flags (not while a graph is being captured: the counts are
+    read around a body then, and nothing is replayed)."""
+    if not _DEFERRED or torch.cuda.is_current_stream_capturing():
+        return
+    while _DEFERRED:
+        _settle_one()
+
+
+def _settle_one() -> None:
+    done, host, bodies = _DEFERRED.popleft()
+    done.synchronize()
+    for ran, (_, taken, counts) in zip(host.tolist(), bodies):
+        if ran == taken:
+            add_launches(counts)
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

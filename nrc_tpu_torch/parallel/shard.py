@@ -126,19 +126,21 @@ def reduce_stats(stats: FrameStats, band: Band) -> FrameStats:
 
 
 def sharded_frame_step(band: Band, scene, net_state, image, camera, iteration_index, total_subframe,
-                       cfg, net_cfg, learning_rate=None):
+                       cfg, net_cfg, learning_rate=None, branches=None):
     """One frame's band on this rank (``nrc_tpu/parallel/shard.py::
     sharded_frame_step``): ``image`` is the band [rows*W, 3]; the gradients
     are averaged over the ranks (the table's divided by D where it is
     level-sharded), the train branch decides on the summed record count, and
-    the stats are reduced. Returns (the band's image', stats)."""
+    the stats are reduced; ``branches`` as ``frame_step`` takes it (the
+    band's render wavefront compacts its own lanes). Returns (the band's
+    image', stats)."""
     if cfg.height != band.rows * band.world or band.rows % cfg.tile_size[1]:
         raise ValueError(f"a {cfg.height}-row frame over {band.world} ranks in whole {cfg.tile_size[1]}-row tiles")
     grid_grad_reduce = (lambda g: g / band.world) if band.shard_tables else None
     image, stats = frame_step(
         scene, net_state, image, camera, iteration_index, total_subframe, cfg, net_cfg, learning_rate,
         grad_reduce=_grad_reduce(band), count_reduce=_count_reduce(band), grid_grad_reduce=grid_grad_reduce,
-        shard_rows=band.rows, row_offset=band.row_offset,
+        shard_rows=band.rows, row_offset=band.row_offset, branches=branches,
     )
     return image, reduce_stats(stats, band)
 
@@ -222,6 +224,7 @@ class ParallelRenderer(Renderer):
             image, stats = sharded_frame_step(
                 self.band, self.device_scene, self.net_state, self._band_image, self._camera,
                 self._counters[0], self._counters[1], self.cfg, self.net_cfg, self.learning_rate,
+                branches=self._branches,
             )
             dist.all_gather(list(self._image.view(self.band.world, -1, 3).unbind(0)), image)
             self.traced_rays.add_(stats.traced_rays)

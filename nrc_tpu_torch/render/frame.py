@@ -15,11 +15,13 @@ The counters ``iteration_index`` and ``total_subframe`` come as 0-d int64
 tensors on the frame's device (``Renderer``) or as Python ints (direct
 calls). On the card a frame reads nothing back to the host and copies
 nothing to it: the bounce loop runs every bounce (``integrator._all_done``),
-the record count, the loss and the training skip on a frame without records
-stay on the device (K6 reads the count; the hash encoding's four
+the render wavefront's choice between its compacted and full-width bounces
+is an IF node of the graph, the record count, the loss and the training
+skip on a frame without records stay on the device (K6 reads the count; the hash encoding's four
 ``train_step``s are followed by a select of the old state where the count is
 0, ``network.train_frame``), and the accumulation weight is computed there. So ``Renderer`` can capture it as one CUDA graph. On the
-CPU the bounce loop still stops when no ray is alive, a read per bounce.
+CPU the bounce loop still stops when no ray is alive, a read per bounce,
+and the compaction reads whether the live lanes fit.
 The only reads of a frame's results are ``Renderer``'s non-blocking copies
 of the loss and the record count, outside the graph.
 
@@ -213,6 +215,7 @@ def frame_step(
     raster_meta: Optional[RasterMeta] = None,
     raster_data: Optional[RasterData] = None,
     spans=None,
+    branches=None,
 ) -> tuple[torch.Tensor, FrameStats]:
     """One frame (1 spp). Returns (image', stats); with ``cfg.train`` the
     network state is trained in place.
@@ -233,7 +236,12 @@ def frame_step(
     ``Renderer``) the render wavefront's first hits come from the primary
     raster instead of the walk (``nrc_tpu/render/frame.py:213-224``): for
     the whole frame and a pinhole lens only; a band, and the training
-    wavefront, walk."""
+    wavefront, walk.
+
+    ``branches`` (``ops/graph_branch.py``; ``Renderer`` on the card) holds
+    the IF nodes of a captured frame: the render wavefront's bounces 2..,
+    compacted where the live lanes fit and at full width where they do not
+    (``integrator.trace_wavefront``)."""
     mode = cfg.render_mode
     dev = image.device
     rows = cfg.height if shard_rows is None else shard_rows
@@ -256,7 +264,7 @@ def frame_step(
         primary_hit = hit_from_t_prim(org, dirn, scene.tris, t0, prim0)
     if spans is not None:
         spans.stamp("frame.render_wavefront")
-    out = trace_wavefront(scene, org, dirn, seeds, cfg, primary_hit=primary_hit, spans=spans)
+    out = trace_wavefront(scene, org, dirn, seeds, cfg, primary_hit=primary_hit, spans=spans, branches=branches)
     traced_rays = out.traced_count.sum()
     train_out = None
     if cfg.train:

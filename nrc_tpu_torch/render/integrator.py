@@ -36,6 +36,18 @@ traces an empty t range, which K1/K2 and W1/W2 answer without work, and
 every update is masked by ``alive`` or ``hit_valid``, so the outputs are the
 same bit for bit.
 
+The render wavefront that truncates into the cache (not the training
+wavefront, whose suffixes run on, nor NO_CACHE) is compacted once, after
+bounce 1: its live lanes, under 1 % of a 1080p frame there, are gathered
+into ``compact_capacity(N)`` lanes (N/32), bounces 2.. run on those, and
+their outputs are written back; where more lanes live than that, bounces
+2.. run on every lane. The index is made on the device with static shapes
+(``compact_index``: a prefix sum and a scatter). Off the card the count is
+read (``_all_done``, the one read the compaction adds), and so it is in an
+eager frame on the card, once; a captured frame holds both bodies under
+CUDA graph IF nodes on the count (``ops/graph_branch.py``), of which a
+replay runs one. The outputs are the same bit for bit in every case.
+
 Declared lights and textures (``FrameConfig.has_textures`` /
 ``has_cutout``, set from the scene): an escaping ray takes the environment's
 radiance with MIS against the BSDF pdf; a hit's albedo and emission are
@@ -115,6 +127,7 @@ from ..ops import hair_bsdf as H
 from ..ops import layered as LY
 from ..ops import mbsdf as MB
 from ..ops import noise as NZ
+from ..ops.cuda_build import launch_counts
 from ..ops.gather_cuda import gather_rows
 from ..ops.intersect import RT_MAX, Hit, make_intersectors
 from ..ops.light_sampling import env_radiance, sample_lights
@@ -215,10 +228,54 @@ class _State(NamedTuple):
     end_mask: Optional[torch.Tensor] = None
 
 
+# the render wavefront's output fields of ``_State``
+_OUTPUTS = ("radiance", "bounces", "traced", "render_query", "last_render_throughput", "cache_vis_query")
+
+COMPACT_SHARE = 32   # the compacted render wavefront holds 1/32 of the lanes,
+COMPACT_ALIGN = 256  # rounded up to a multiple of 256
+
+
 def _all_done(alive: torch.Tensor) -> bool:
     """The bounce loop's early exit: no ray is alive. A read of the device,
     so only off the card; on a CUDA tensor it is never done."""
     return alive.device.type != "cuda" and not bool(alive.any())
+
+
+def compact_capacity(n: int) -> int:
+    """The lanes bounces 2.. of an ``n``-lane render wavefront run on once
+    compacted: ceil(n / 32) rounded up to a multiple of 256 (65,024 at
+    1920x1080)."""
+    share = -(-n // COMPACT_SHARE)
+    return -(-share // COMPACT_ALIGN) * COMPACT_ALIGN
+
+
+def compact_index(alive: torch.Tensor, cap: int):
+    """A stable index of the live lanes of ``alive`` [N] into ``cap`` < N
+    slots, made on the device with static shapes, and the count of live
+    lanes (0-d int64; it stays on the device). The live lanes fill the
+    slots in their order; every slot past the count points at the first
+    dead lane, and where more than ``cap`` lanes live the first ``cap`` fill
+    the slots.
+
+    A prefix sum ranks the live lanes, and a scatter puts each in its slot;
+    each other lane goes to a spare slot of its own past ``cap``, in its
+    order (so no two lanes write one slot), and the first spare slot holds
+    the first lane not kept: a dead one wherever the count is at most
+    ``cap``."""
+    n, dev = alive.shape[0], alive.device
+    rank = torch.cumsum(alive, 0)
+    count = rank[-1]
+    kept = alive & (rank <= cap)
+    lanes = torch.arange(n, dtype=torch.int64, device=dev)
+    slot = torch.where(kept, rank - 1, cap + lanes - torch.clamp(rank, max=cap))
+    index = torch.empty((cap + n,), dtype=torch.int64, device=dev)
+    index.scatter_(0, slot, lanes)
+    return torch.where(torch.arange(cap, device=dev) < count, index[:cap], index[cap]), count
+
+
+def _gather(s: _State, index: torch.Tensor) -> _State:
+    """Every field of the state, at the lanes ``index``."""
+    return _State(*(None if f is None else f.index_select(0, index) for f in s))
 
 
 def trace_wavefront(
@@ -231,6 +288,7 @@ def trace_wavefront(
     unbiased: Optional[torch.Tensor] = None,  # [N] bool, training wavefront
     primary_hit: Optional[Hit] = None,  # depth 0's hit, resolved before (the primary raster)
     spans=None,  # utils/spans.py::SpanRecorder: a stamp and the live lanes at each bounce
+    branches=None,  # ops/graph_branch.py::Branches: the IF nodes of a captured frame
 ) -> WavefrontOut:
     n = org.shape[0]
     dev = org.device
@@ -462,7 +520,7 @@ def trace_wavefront(
                 w1=mcol(mrow, "blend_w1"),
                 w2=mcol(mrow, "blend_w2"),
                 blend_ior=mcol(mrow, "blend_ior"),
-                curve=mcol(mrow, "curve").reshape(n, scene.mat_curve_k, 3),
+                curve=mcol(mrow, "curve").reshape(-1, scene.mat_curve_k, 3),
                 mod_mode=mcol(mrow, "mod_mode").to(torch.int64),
                 mod_a=mcol(mrow, "mod_a"),
                 mod_b=mcol(mrow, "mod_b"),
@@ -565,7 +623,7 @@ def trace_wavefront(
             )
             area_threshold = torch.where(hit_valid, threshold, s.area_threshold)
             area_spread = s.area_spread
-            terminate = false
+            terminate = torch.zeros_like(active)
         else:
             area_threshold = s.area_threshold
             if has_cutout:
@@ -584,7 +642,7 @@ def trace_wavefront(
             area_spread = s.area_spread + torch.where(accum, delta, 0.0)
             terminate = accum & (area_spread > area_threshold)
         if not truncate:
-            terminate = false
+            terminate = torch.zeros_like(active)
 
         # ---- BSDF sample: the IORs from the medium stack (hit.cu:488-524) --
         seed, xi = R.rng4(seed)
@@ -624,7 +682,7 @@ def trace_wavefront(
         if has_curves:
             # the Chiang hair BSDF on hair materials' curve hits, in the fibre
             # frame (bsdf_hair.mdl; tangent + the strand's azimuthal basis)
-            hair_r = mcol(mrow, "hair_roughness").reshape(n, 3, 2)
+            hair_r = mcol(mrow, "hair_roughness").reshape(-1, 3, 2)
             hpar = H.HairParams(
                 sigma_a=mcol(mrow, "hair_absorption"),
                 ior=params.ior,
@@ -789,7 +847,7 @@ def trace_wavefront(
                 for _ in range(3):
                     seed, u_h = R.rng(seed)
                     u_hops.append(u_h)
-                occluded = false
+                occluded = torch.zeros_like(shadow_tmax, dtype=torch.bool)
                 sh_tmin = torch.full_like(shadow_tmax, eps)
                 sh_done = shadow_tmax <= 0.0
                 for u_h in u_hops:
@@ -889,26 +947,106 @@ def trace_wavefront(
     # accumulate the spread (off the card they stop once every lane has
     # terminated)
     wavefront = "train" if train else "render"
+
+    def bounces(s: _State, depths, sp=spans) -> _State:
+        for depth in depths:
+            if _all_done(s.alive):
+                break
+            if sp is not None:
+                sp.bounce(wavefront, depth, s.alive)
+            s = bounce(s, False, depth)
+        return s
+
+    def cleanup(s: _State) -> _State:
+        """The max-depth cleanup (raygeneration.cu:274-284): surviving render
+        rays contribute no cache radiance; surviving training rays end
+        unbiased."""
+        still = s.alive & ~s.render_done
+        return s._replace(last_render_throughput=torch.where(still[:, None], 0.0, s.last_render_throughput))
+
+    def compacted_tail(s: _State):
+        """Bounces 2..max_depth of the render wavefront after bounce 1's
+        state ``s``: on its live lanes compacted into ``cap`` lanes where
+        they fit, else on every lane. Returns the state whose output fields
+        hold the wavefront's outputs, and the flag of the compacted run.
+
+        Both bodies give the same outputs bit for bit: lanes do not depend
+        on each other, and a lane dead after bounce 1 changes none of its
+        outputs in a later bounce (every update is masked by ``alive`` or
+        ``hit_valid``, and its radiance, never -0.0, adds +0.0; the seed it
+        advances is no output). The compacted body writes its lanes'
+        outputs into ``s``'s output fields in place, which the state of
+        bounce 1 holds as tensors of its own; a padding lane writes a dead
+        lane's outputs back unchanged."""
+        later = range(2, cfg.max_depth + 1)
+        index, count = compact_index(s.alive, cap)
+        overflow = count > cap
+        fits = ~overflow
+
+        def narrow(into: _State, sp=spans) -> None:
+            done = cleanup(bounces(_gather(s, index), later, sp))
+            for name in _OUTPUTS:
+                getattr(into, name).index_copy_(0, index, getattr(done, name))
+
+        def wide(sp=spans) -> _State:
+            return cleanup(bounces(s, later, sp))
+
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            # the graph holds both bodies under IF nodes on the flag; a
+            # replay runs one, which writes the same tensors
+            if branches is None:
+                raise RuntimeError("a captured render wavefront branches on the device: frame_step needs the "
+                                   "renderer's Branches")
+            mark = None if spans is None else spans.slots()
+            with branches.body(fits, True):
+                narrow(s)
+            taken = None if spans is None else spans.rewind(mark)
+            with branches.body(fits, False):
+                done = wide()
+                for name in _OUTPUTS:
+                    getattr(s, name).copy_(getattr(done, name))
+            if spans is not None:
+                spans.rejoin(mark, taken)
+            return s, fits
+        # off a capture the flag is read: off the card as the early exit
+        # reads, on the card once (an eager frame there is off the main path)
+        compact = _all_done(overflow) if dev.type != "cuda" else not bool(overflow)
+        if branches is not None and branches.warming:
+            # the eager frame before a capture also runs the other body, its
+            # outputs and launches dropped, so that the capture finds the
+            # ops of both warm; it reads s before the taken body writes it
+            before = launch_counts()
+            if compact:
+                wide(None)
+            else:
+                narrow(s._replace(**{name: getattr(s, name).clone() for name in _OUTPUTS}), None)
+            for k, n in before.items():
+                k.launches = n
+        if compact:
+            narrow(s)
+            return s, fits
+        return wide(), fits
+
     if spans is not None:
         spans.bounce(wavefront, 0, state.alive)
     state = bounce(state, True, 0)
-    for depth in range(1, cfg.max_depth + 1):
-        if _all_done(state.alive):
-            break
-        if spans is not None:
-            spans.bounce(wavefront, depth, state.alive)
-        state = bounce(state, False, depth)
-
-    # max-depth cleanup (raygeneration.cu:274-284): surviving render rays
-    # contribute no cache radiance; surviving training rays end unbiased
-    still = state.alive & ~state.render_done
-    lrt = torch.where(still[:, None], 0.0, state.last_render_throughput)
+    # only the render wavefront that truncates into the cache is compacted
+    # after bounce 1: its paths end early, while the training wavefront's
+    # suffixes and NO_CACHE's paths run on
+    cap = compact_capacity(n)
+    if train or not truncate or cfg.max_depth < 2 or cap >= n:
+        state = cleanup(bounces(state, range(1, cfg.max_depth + 1)))
+        compacted = None
+    else:
+        state, compacted = compacted_tail(bounces(state, range(1, 2)))
+    if spans is not None and not train:
+        spans.render_wavefront(compacted)
     return WavefrontOut(
         radiance=state.radiance,
         bounce_count=state.bounces,
         traced_count=state.traced,
         render_query=state.render_query,
-        last_render_throughput=lrt,
+        last_render_throughput=state.last_render_throughput,
         cache_vis_query=state.cache_vis_query,
         rec_query=state.rec_query,
         rec_ltp=state.rec_ltp,

@@ -24,7 +24,10 @@ mirror), the learning rate, the network state (a new state is copied in)
 and the traced-ray sum (``traced_rays``). A new scene drops the graphs, and
 so does ``set_encoding``, whose state has other shapes and is bound anew. A capture that fails
 raises; nothing falls back to eager frames. ``capture=False`` runs the same
-frames eagerly on the card, to compare with.
+frames eagerly on the card, to compare with. A graph may hold IF nodes
+(the render wavefront's compacted and full-width bounces,
+``integrator.trace_wavefront``), whose bodies are captured with the
+renderer's ``ops/graph_branch.py::Branches``, its stream and memory pool.
 
 A scene with curve segments (``Scene.curves``) uploads their BVH and
 shading rows with the rest; the frame compiles the curve stream and the
@@ -83,7 +86,8 @@ from ..config import (
     adjust_tile_size,
 )
 from ..models import network as N
-from ..ops.cuda_build import CudaKernel, launch_counts
+from ..ops.cuda_build import CudaKernel, add_launches, defer_launches, launch_counts
+from ..ops.graph_branch import Branches
 from ..ops.intersect import BVH_THRESHOLD
 from ..ops.raster_primary import RasterData, RasterMeta, build_raster_bins, upload_raster
 from ..scene.camera import LENS_PINHOLE
@@ -109,14 +113,17 @@ def frame_key(cfg: FrameConfig, raster: Optional[RasterData] = None) -> tuple:
 
 class FrameGraph(NamedTuple):
     """One captured frame: the graph, its output buffers, the kernel launches
-    one replay makes, the bytes its memory pool took at the capture, and the
-    names of the stamps it writes (empty with the spans off)."""
+    every replay makes, the bytes its memory pool took at the capture, the
+    names of the stamps it writes (empty with the spans off), and its IF
+    nodes' bodies, each (flag, the value that runs it, its launches), of
+    which a replay counts those that ran (``Branches.captured``)."""
 
     graph: torch.cuda.CUDAGraph
     stats: FrameStats
     launches: Dict[CudaKernel, int]
     nbytes: int
     stamps: Tuple[Slot, ...] = ()
+    bodies: Tuple[tuple, ...] = ()
 
 
 class Renderer:
@@ -147,6 +154,8 @@ class Renderer:
         # frames on the card replay graphs; False runs them eagerly
         self.capture = capture
         self.graphs: "OrderedDict[tuple, FrameGraph]" = OrderedDict()
+        # the stream and pool the graphs' IF nodes are captured with
+        self._branches: Optional[Branches] = Branches(self.device) if self.device.type == "cuda" else None
         self.scene = scene
         self.system = system
         self.net_cfg = net_cfg or NetworkConfig()
@@ -454,6 +463,7 @@ class Renderer:
                 raster_meta=self._raster_meta if self._raster_frame else None,
                 raster_data=self._raster_data if self._raster_frame else None,
                 spans=sp,
+                branches=self._branches,
             )
             self._image.copy_(image)
             self.traced_rays.add_(stats.traced_rays)
@@ -463,18 +473,24 @@ class Renderer:
         return stats
 
     def _capture(self, key: tuple) -> FrameStats:
-        """The frame eagerly on a side stream, then the same frame captured
-        for the next frames with this ``cfg``. Returns the eager frame's
-        stats."""
+        """The frame eagerly on a side stream, warming the ops of both bodies
+        of its IF nodes, then the same frame captured for the next frames
+        with this ``cfg``. Returns the eager frame's stats."""
+        branches = self._branches
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            stats = self._frame()
+        branches.warming = True
+        try:
+            with torch.cuda.stream(side):
+                stats = self._frame()
+        finally:
+            branches.warming = False
         torch.cuda.current_stream(self.device).wait_stream(side)
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         before = launch_counts()
+        branches.captured = []
         graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.current_stream(self.device)
         try:
@@ -484,13 +500,19 @@ class Renderer:
             _release_failed_capture(self.device, stream)
             raise RuntimeError(f"capturing the frame of {self.cfg} failed") from e
         finally:
-            # a launch under capture ran nothing: count it at each replay
+            # a launch under capture ran nothing: count it at each replay,
+            # an IF body's where it runs
             launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
             for k in launches:
                 k.launches = before[k]
+        bodies, branches.captured = tuple(branches.captured), []
+        for _, _, counts in bodies:
+            for k, n in counts.items():
+                launches[k] -= n
+        launches = {k: n for k, n in launches.items() if n}
         self._keep(key, FrameGraph(graph, graph_stats, launches,
                                    torch.cuda.memory_reserved(self.device) - reserved,
-                                   () if self.spans is None else self.spans.layout))
+                                   () if self.spans is None else self.spans.layout, bodies))
         return stats
 
     def _keep(self, key: tuple, entry: FrameGraph) -> None:
@@ -512,8 +534,9 @@ class Renderer:
             self.graphs.move_to_end(key)
             entry.graph.replay()
         self.replays += 1
-        for k, n in entry.launches.items():
-            k.launches += n
+        add_launches(entry.launches)
+        if entry.bodies:
+            defer_launches(entry.bodies)
         if self.spans is not None:
             self.spans.layout = entry.stamps
         return entry.stats

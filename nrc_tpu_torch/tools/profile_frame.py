@@ -26,7 +26,8 @@ of them (``full``, ``no_cache``, ``train``, ``hash``, ``objects``,
 ``glass``, ``lights``, ``env``, ``materials``, ``volume``, ``hair``).
 
 Each configuration runs twice from the same renderer: eagerly
-(``Renderer.capture = False``; every kernel issued from Python) and
+(``Renderer.capture = False``; every kernel issued from Python, and the
+render wavefront's flag of its compacted bounces read, a sync a frame) and
 replayed (one CUDA graph per frame, the renderer's default on the card).
 For each, it times 20 frames one by one with the profiler off (host clock
 around each frame, ending in a synchronise), then traces 4 frames with

@@ -24,12 +24,19 @@ three parts.
   So the phases tile the frame from its first stamp to its last. On the CPU
   a stamp reads the host clock: every operation has ended when it returns.
   A stamp is also a kernel in a profiler trace (``stamp_kernel``).
-- Counters: on the device, the lanes alive at the start of each bounce of
-  each wavefront, summed in place like ``Renderer.traced_rays``; on the host,
-  the lanes each bounce runs (every lane, a shape kept with the layout),
-  graph switches (frames whose graph key differs from the frame before's),
+- Counters: on the device, summed in place like ``Renderer.traced_rays``,
+  the lanes alive at the start of each bounce of each wavefront, the lanes
+  each bounce runs (every lane, or the compacted lanes of the render
+  wavefront's bounces 2.., ``render/integrator.py``), and the render
+  wavefronts and those of them that ran compacted; on the host, graph
+  switches (frames whose graph key differs from the frame before's),
   frames at each training tile side, and the records of each frame, from
   the stats the renderer reads two frames late anyway.
+
+Where a frame branches on the device (the compacted or the full-width
+bounces), each body of a captured frame stamps the same slots (``slots``,
+``rewind``, ``rejoin``): a replay runs one of them. An eager frame runs one
+body, which it reads the flag to choose.
 
 ``report`` calibrates ``%globaltimer`` against ``perf_counter_ns`` (a stamp
 between two host reads around synchronizes, the tightest of several tries;
@@ -83,13 +90,12 @@ def span(rec: Optional["SpanRecorder"], name: str, frame: Optional[int] = None):
 
 class Slot(NamedTuple):
     """One stamp of a frame's layout: its name, the phase it belongs to
-    (None for a phase), and for a bounce its wavefront, depth and lanes."""
+    (None for a phase), and for a bounce its wavefront and depth."""
 
     name: str
     parent: Optional[str] = None
     wavefront: int = -1
     bounce: int = -1
-    lanes: int = 0
 
 
 class HostSpan(NamedTuple):
@@ -129,6 +135,9 @@ class SpanRecorder:
         self.frame = frame
         self.ring = torch.zeros((RING_FRAMES, MAX_SLOTS), dtype=torch.int64, device=self.device)
         self.live = torch.zeros((len(WAVEFRONTS), MAX_BOUNCES), dtype=torch.int64, device=self.device)
+        self.run = torch.zeros((len(WAVEFRONTS), MAX_BOUNCES), dtype=torch.int64, device=self.device)
+        # render wavefronts, and those whose bounces 2.. ran compacted
+        self.compacted = torch.zeros(2, dtype=torch.int64, device=self.device)
         self._calib = torch.zeros((1, 1), dtype=torch.int64, device=self.device)
         self._zero = torch.zeros((), dtype=torch.int64, device=self.device)
         self.layout: Tuple[Slot, ...] = ()  # the frame last run, captured or replayed
@@ -149,8 +158,9 @@ class SpanRecorder:
         frame stays, so that the next frame's switch is counted)."""
         self.frames: Deque[Tuple[int, Tuple[Slot, ...], str]] = deque(maxlen=RING_FRAMES)  # (frame, layout, tile)
         self.host: Deque[HostSpan] = deque(maxlen=HOST_SPANS)
-        self.run_lanes = np.zeros((len(WAVEFRONTS), MAX_BOUNCES), dtype=np.int64)
         self.live.zero_()
+        self.run.zero_()
+        self.compacted.zero_()
         self.switches = 0
         self.tiles: Counter = Counter()
         self.records: List[int] = []
@@ -206,13 +216,39 @@ class SpanRecorder:
 
     def bounce(self, wavefront: str, depth: int, alive: torch.Tensor) -> None:
         """The start of bounce ``depth`` of ``wavefront``: a stamp, and the
-        lanes alive there added to the device's count."""
+        lanes alive there and the lanes it runs added to the device's
+        counts."""
         if depth >= MAX_BOUNCES:
             raise ValueError(f"bounce {depth}: the spans count at most {MAX_BOUNCES}")
         w = WAVEFRONTS.index(wavefront)
         phase = next((s.name for s in reversed(self._open or []) if s.parent is None), None)
-        self._slot(Slot(f"{wavefront}.bounce{depth}", phase, w, depth, alive.numel()))
+        self._slot(Slot(f"{wavefront}.bounce{depth}", phase, w, depth))
         self.live[w, depth].add_(alive.sum())
+        self.run[w, depth].add_(alive.numel())
+
+    def render_wavefront(self, compacted: Optional[torch.Tensor]) -> None:
+        """A render wavefront ran; ``compacted`` is its 0-d bool flag on the
+        device of bounces 2.. run compacted (None: not compacted)."""
+        self.compacted[0].add_(1)
+        if compacted is not None:
+            self.compacted[1].add_(compacted.to(torch.int64))
+
+    def slots(self) -> int:
+        """The open frame's next slot: where each body of a branch starts."""
+        return len(self._open)
+
+    def rewind(self, mark: int) -> Tuple[Slot, ...]:
+        """Take the slots from ``mark`` on back and return them: the next
+        body of the branch stamps the same slots."""
+        taken = tuple(self._open[mark:])
+        del self._open[mark:]
+        return taken
+
+    def rejoin(self, mark: int, taken: Tuple[Slot, ...]) -> None:
+        """The branch's last body has stamped from ``mark``: it must have
+        stamped the slots ``taken`` of the body before."""
+        if tuple(self._open[mark:]) != taken:
+            raise RuntimeError("the bodies of a branch stamp different slots")
 
     def close_frame(self) -> Tuple[Slot, ...]:
         """The frame's last stamp (``frame.end``); returns its layout."""
@@ -222,12 +258,9 @@ class SpanRecorder:
 
     def frame_done(self, frame: int, key, tile: Tuple[int, int], train: bool) -> None:
         """Frame ``frame`` ran with ``layout`` (a replay's, or the one just
-        run): its lanes, its graph key and tile side are counted."""
+        run): its graph key and tile side are counted."""
         side = f"{tile[0]}x{tile[1]}"
         self.frames.append((frame, self.layout, side))
-        for s in self.layout:
-            if s.bounce >= 0:
-                self.run_lanes[s.wavefront, s.bounce] += s.lanes
         if self._last_key is not None and key != self._last_key:
             self.switches += 1
         self._last_key = key
@@ -281,6 +314,8 @@ class SpanRecorder:
         to_host = _clock_map(self._start, end)
         ring = self.ring.cpu().numpy()
         live = self.live.cpu().numpy()
+        run = self.run.cpu().numpy()
+        render_wavefronts, compacted = (int(v) for v in self.compacted.cpu())
 
         covered, rows = [], set()  # newest first, each ring row once
         for frame, layout, side in reversed(self.frames):
@@ -324,7 +359,7 @@ class SpanRecorder:
         bounces = {w: [] for w in WAVEFRONTS}
         for (w, b), values in sorted(bounce_ms.items()):
             bounces[WAVEFRONTS[w]].append({"bounce": b, "device_ms": statistics.fmean(values),
-                                           "live_lanes": int(live[w, b]), "run_lanes": int(self.run_lanes[w, b])})
+                                           "live_lanes": int(live[w, b]), "run_lanes": int(run[w, b])})
 
         host: Dict[str, dict] = {}
         for s in self.host:
@@ -347,7 +382,7 @@ class SpanRecorder:
             g["gaps"] += 1
             g["total_ms"] += gap
 
-        live_all, run_all = int(live.sum()), int(self.run_lanes.sum())
+        live_all, run_all = int(live.sum()), int(run.sum())
         frames_ms, gaps_ms = sum(totals), sum(gaps)
         clock = {"device": "cuda" if self.cuda else "cpu", "resolution_ns": self.timer_resolution_ns()}
         if self.cuda:
@@ -376,6 +411,8 @@ class SpanRecorder:
             "counters": {
                 "live_lanes": live_all,
                 "run_lanes": run_all,
+                "render_wavefronts": render_wavefronts,
+                "compacted_wavefronts": compacted,
                 "graph_switches": self.switches,
                 "frames_by_tile": dict(self.tiles),
                 "records_per_frame": ({"frames": len(self.records), "mean": statistics.fmean(self.records),
@@ -389,6 +426,8 @@ class SpanRecorder:
                 "frame.inference_ms": phase_ms("frame.inference"),
                 "frame.train_ms": phase_ms("frame.train"),
                 "integrator.live_lanes": 100.0 * live_all / run_all if run_all else None,
+                "integrator.compacted_share": (100.0 * compacted / render_wavefronts
+                                               if render_wavefronts else None),
                 "renderer.gap_ms": statistics.fmean(gaps) if gaps else None,
                 "renderer.graph_switches": 100.0 * self.switches / n if n else None,
             },

@@ -779,7 +779,9 @@ def test_spans_off_capture_no_stamp(cuda):
     """With the spans off a captured frame launches no stamp, and the same
     hand kernels as with the spans on, the stamps aside (the live-lane
     counts are PyTorch's own kernels, not hand kernels); the frames are
-    equal bit for bit."""
+    equal bit for bit. The render wavefront's bounces 2.. are stamped in
+    both bodies of their IF nodes, on the same slots: a replay, which runs
+    one body, stamps each slot once."""
     off, on = _spans_pair(cuda)
     for _ in range(4):
         for r in (off, on):
@@ -787,7 +789,12 @@ def test_spans_off_capture_no_stamp(cuda):
     torch.cuda.synchronize(cuda)
     (g_off,), (g_on,) = off.graphs.values(), on.graphs.values()
     assert SP.STAMP_KERNEL not in g_off.launches and g_off.stamps == ()
-    assert g_on.launches[SP.STAMP_KERNEL] == len(g_on.stamps) == len(on.spans.layout)
+    assert len(g_on.stamps) == len(on.spans.layout)
+    assert len(g_on.bodies) == len(g_off.bodies) == 2
+    for (_, _, body_on), (_, _, body_off) in zip(g_on.bodies, g_off.bodies):
+        assert body_on[SP.STAMP_KERNEL] == on.cfg.max_depth - 1
+        assert g_on.launches[SP.STAMP_KERNEL] + body_on[SP.STAMP_KERNEL] == len(g_on.stamps)
+        assert {k: n for k, n in body_on.items() if k is not SP.STAMP_KERNEL} == body_off
     assert {k: n for k, n in g_on.launches.items() if k is not SP.STAMP_KERNEL} == g_off.launches
     assert all(torch.equal(a, b) for a, b in zip(_frame_bits(off), _frame_bits(on)))
 
@@ -805,6 +812,165 @@ def test_stamps_rise_within_each_replayed_frame(cuda):
     assert rep["frames"] == 5 and r.replays == 4
     assert rep["frames_ms"] + rep["gaps_ms"] == pytest.approx(rep["window_ms"], rel=1e-9)
     assert 0 < rep["metrics"]["integrator.live_lanes"] < 100
+
+
+@pytest.mark.parametrize("capacity", [None, 8], ids=["compacted", "full-width"])
+def test_replayed_if_nodes_equal_eager_full_width_frames(cuda, monkeypatch, capacity):
+    """FULL + train frames replayed from a graph that holds the render
+    wavefront's bounces 2.. under IF nodes (``ops/graph_branch.py``),
+    against eager frames that never compact: bit for bit after every frame,
+    once with the compacted body taken (64x64: 4,096 lanes, 256 compacted)
+    and once with the capacity forced under the live count, where the
+    full-width body runs. The device's counters read which body ran."""
+    import dataclasses
+
+    from nrc_tpu_torch.ops import graph_branch as GB
+    from nrc_tpu_torch.render import integrator
+
+    scene, system = cornell_box((64, 64))
+    system = dataclasses.replace(system, tile_size=(8, 8))
+    eager, replayed = (Renderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False, device=cuda,
+                                capture=c, spans=c) for c in (False, True))
+    for f in range(4):
+        with monkeypatch.context() as mp:
+            mp.setattr(integrator, "compact_capacity", lambda n: n)
+            eager.render_frame()
+        with monkeypatch.context() as mp:
+            if capacity is not None:
+                mp.setattr(integrator, "compact_capacity", lambda n: capacity)
+            replayed.render_frame()
+        torch.cuda.synchronize(cuda)
+        same = [torch.equal(a, b) for a, b in zip(_frame_bits(eager), _frame_bits(replayed))]
+        assert all(same), f"frame {f}: {same}"
+    assert replayed.replays == 3
+    (g,) = replayed.graphs.values()
+    assert g.launches[GB.IF_KERNEL] == 2
+    rep = replayed.span_report()
+    assert rep["counters"]["render_wavefronts"] == 4
+    assert rep["counters"]["compacted_wavefronts"] == (4 if capacity is None else 0)
+    run = {b["bounce"]: b["run_lanes"] for b in rep["bounces"]["render"]}
+    assert run[1] == 4 * 4096 and run[2] == 4 * (256 if capacity is None else 4096)
+
+
+@pytest.mark.parametrize("capacity", [None, 8], ids=["compacted", "full-width"])
+def test_replayed_launches_count_the_body_that_ran(cuda, monkeypatch, capacity):
+    """An eager frame on the card runs the one body its flag picks; a
+    replayed frame counts the launches of the frame outside its IF nodes
+    and of the body that ran. So, frame for frame, the two count the same
+    hand-kernel launches, with the compacted body taken and with the
+    full-width one (the capacity forced under the live count)."""
+    from nrc_tpu_torch.ops import cuda_build
+    from nrc_tpu_torch.ops import graph_branch as GB
+    from nrc_tpu_torch.render import integrator
+
+    if capacity is not None:
+        monkeypatch.setattr(integrator, "compact_capacity", lambda n: capacity)
+    eager, replayed = _graph_pair(cuda)
+    for r in (eager, replayed):
+        r.render_frame()
+    counts = []
+    for r in (eager, replayed):
+        before = cuda_build.launch_counts()
+        r.render(3)
+        counts.append({k: n - before[k] for k, n in cuda_build.launch_counts().items() if n != before[k]})
+    assert replayed.replays == 3
+    (g,) = replayed.graphs.values()
+    assert len(g.bodies) == 2 and all(body for _, _, body in g.bodies)
+    assert counts[0] == {k: n for k, n in counts[1].items() if k is not GB.IF_KERNEL}, counts
+    assert counts[1][GB.IF_KERNEL] == 3 * 2 and counts[1][IC.CLOSEST_KERNEL] > 0
+
+
+def test_deferred_launches_count_the_body_that_ran(cuda):
+    """``cuda_build.defer_launches``: of a replay's bodies, those whose flag
+    on the device reads the value that runs them add their launches, once
+    a count is read."""
+    from nrc_tpu_torch.ops import cuda_build
+
+    kernel = IC.CLOSEST_KERNEL
+    set_, clear = (torch.tensor(v, device=cuda) for v in (True, False))
+    before = kernel.launches
+    cuda_build.defer_launches([(set_, True, {kernel: 3}), (set_, False, {kernel: 5})])
+    cuda_build.defer_launches([(clear, True, {kernel: 7}), (clear, False, {kernel: 11})])
+    assert kernel.launches == before + 3 + 11
+    assert not cuda_build._DEFERRED
+
+
+@pytest.mark.parametrize("capacity", [None, 8], ids=["compacted", "full-width"])
+def test_band_replays_its_if_nodes_equal_eager_frames(cuda, monkeypatch, capacity):
+    """A band (``ParallelRenderer``, one rank over NCCL) captures the render
+    wavefront's IF nodes as well: its replayed FULL + train frames equal
+    eager ones that never compact bit for bit after every frame, with the
+    compacted body taken and with the full-width one."""
+    import gc
+    import socket
+
+    import torch.distributed as dist
+
+    from nrc_tpu_torch.ops import graph_branch as GB
+    from nrc_tpu_torch.parallel import shard as S
+    from nrc_tpu_torch.render import integrator
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    S.init_data_group(cuda, 0, 1, port)
+    try:
+        scene, system = cornell_box((64, 64))
+        system = dataclasses.replace(system, tile_size=(8, 8))
+        eager, replayed = (S.ParallelRenderer(scene, system, render_mode=RenderMode.FULL, adaptive_tiles=False,
+                                              device=cuda, capture=c) for c in (False, True))
+        for f in range(4):
+            with monkeypatch.context() as mp:
+                mp.setattr(integrator, "compact_capacity", lambda n: n)
+                eager.render_frame()
+            with monkeypatch.context() as mp:
+                if capacity is not None:
+                    mp.setattr(integrator, "compact_capacity", lambda n: capacity)
+                replayed.render_frame()
+            torch.cuda.synchronize(cuda)
+            same = [torch.equal(a, b) for a, b in zip(_frame_bits(eager), _frame_bits(replayed))]
+            assert all(same), f"frame {f}: {same}"
+        assert replayed.replays == 3
+        (g,) = replayed.graphs.values()
+        assert g.launches[GB.IF_KERNEL] == 2
+        del eager, replayed, g
+    finally:
+        gc.collect()  # no band outlives its group, nor waits for a collection inside a later capture
+        dist.destroy_process_group()
+
+
+def test_branches_dropped_inside_a_capture(cuda):
+    """A renderer's ``Branches`` (its IF nodes' stream and pool) may be
+    freed at any time, a capture underway included (the cyclic collector
+    runs where it likes): the pool is released without a synchronize."""
+    import gc
+
+    from nrc_tpu_torch.ops import graph_branch as GB
+
+    gc.collect()  # inside the capture the collector finds the Branches alone
+    b = GB.Branches(cuda)
+    x = torch.zeros(4, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = x + 1.0
+        with b.body(torch.ones((), dtype=torch.bool, device=cuda), True):
+            y.mul_(3.0)
+        del b
+        gc.collect()
+    graph.replay()
+    torch.cuda.synchronize(cuda)
+    assert torch.equal(y, torch.full((4,), 3.0, device=cuda))
+
+
+def test_branches_body_stream_is_no_capture_stream(cuda):
+    """PyTorch hands out its streams from fixed pools, round and round: an
+    IF body's stream is never one of the default priority, the pool a
+    capture's stream comes from."""
+    from nrc_tpu_torch.ops import graph_branch as GB
+
+    bodies = {GB.Branches(cuda).stream.cuda_stream for _ in range(40)}
+    others = {torch.cuda.Stream(cuda).cuda_stream for _ in range(40)}
+    assert bodies and others and not bodies & others
 
 
 def test_calibration_bracket_under_50_us(cuda):

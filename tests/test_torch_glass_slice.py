@@ -36,6 +36,7 @@ from nrc_tpu_torch.ops.intersect import make_intersectors
 from nrc_tpu_torch.render.renderer import Renderer
 from nrc_tpu_torch.scene.scene_builder import cornell_glass, cornell_glass_declarations
 from nrc_tpu_torch.utils.tonemap import time_view_ramp
+from test_torch_compact import checked_at_full_width
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_scene import jax_cornell_scene
 from test_torch_slice import (
@@ -147,6 +148,7 @@ def glass_training_pair(tau):
             # the package's own intersectors: the module's serving fixture
             # may hold a recording wrapper of them already
             mp.setattr(port_integrator, "make_intersectors", _recording_port_intersectors(make_intersectors))
+            mp.setattr(port_frame, "trace_wavefront", checked_at_full_width(port_frame.trace_wavefront, _LOG["port"]))
             mp.setattr(jax_frame, "assemble_training_batches",
                        _recording_jax_assemble(jax_frame.assemble_training_batches))
             mp.setattr(port_frame, "assemble_training_batches",

@@ -79,6 +79,7 @@ from nrc_tpu_torch.scene.materials import Archetype
 from nrc_tpu_torch.scene.scene_builder import HAIR_SEGMENTS, HAIR_SUBSEGMENTS, cornell_hair, cornell_hair_declarations
 from nrc_tpu_torch.tools import hair_decisions as HD
 from test_hair_render import build_scene as strand_patch_scene
+from test_torch_compact import full_width
 from test_torch_graph import _HostOps, _wavefront_inputs, assert_same_bits
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_scene import jax_cornell_scene
@@ -245,6 +246,9 @@ def hair_logged(seg_of):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(test_torch_slice, "MOVED", dict(test_torch_slice.MOVED, **handlers))
         mp.setattr(test_torch_slice, "QUERY_GAP", HD.query_gap_unit)
+        # the port's curve calls take the JAX calls' hits ray by ray, so its
+        # bounces run at the JAX frame's full width
+        mp.setattr(port_integrator, "compact_capacity", full_width)
         mp.setattr(jax_curves, "intersect_curves_bvh", _jax_curve_logging(jax_curves.intersect_curves_bvh))
         mp.setattr(jax_curves, "occluded_curves_bvh", _jax_occlusion_logging(jax_curves.occluded_curves_bvh))
         mp.setattr(port_curves, "intersect_curves_bvh", _port_curve_taking_jax_hits(port_curves.intersect_curves_bvh))

@@ -45,6 +45,7 @@ from nrc_tpu_torch.models import checkpoint as CK
 from nrc_tpu_torch.models import network as N
 from nrc_tpu_torch.render.renderer import Renderer
 from nrc_tpu_torch.scene.scene_builder import cornell_box
+from test_torch_compact import checked_at_full_width
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_jax_child import flatten_log, run_jax_side, unflatten_log
 from test_torch_scene import jax_cornell_scene
@@ -278,6 +279,7 @@ def test_hash_full_train_frame_matches_jax(tmp_path):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_integrator, "make_intersectors",
                    _recording_port_intersectors(port_integrator.make_intersectors))
+        mp.setattr(port_frame, "trace_wavefront", checked_at_full_width(port_frame.trace_wavefront, _LOG["port"]))
         mp.setattr(port_frame, "assemble_training_batches",
                    _port_assemble_with_jax_batches(port_frame.assemble_training_batches))
         mp.setitem(_BATCHES, "jax", [res[f"batch.{i}"] for i in range(3)])

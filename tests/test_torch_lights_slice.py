@@ -53,6 +53,7 @@ from nrc_tpu_torch.scene.scene_builder import (
     env_textured,
     env_textured_declarations,
 )
+from test_torch_compact import checked_at_full_width
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_scene import jax_cornell_scene
 from test_torch_slice import (
@@ -223,6 +224,7 @@ def _training_pair(name, directory):
         with pytest.MonkeyPatch.context() as mp, _env_texels_logged(), _texture_lookups_logged():
             mp.setattr(jax_integrator, "make_intersectors", _interpret_plane_intersectors)
             mp.setattr(port_integrator, "make_intersectors", _recording_port_intersectors(make_intersectors))
+            mp.setattr(port_frame, "trace_wavefront", checked_at_full_width(port_frame.trace_wavefront, _LOG["port"]))
             mp.setattr(jax_frame, "assemble_training_batches",
                        _recording_jax_assemble(jax_frame.assemble_training_batches))
             mp.setattr(port_frame, "assemble_training_batches",

@@ -71,6 +71,7 @@ from nrc_tpu_torch.render.renderer import Renderer, frame_key
 from nrc_tpu_torch.scene.camera import generate_primary_rays
 from nrc_tpu_torch.scene.scene_builder import cornell_box
 from test_torch_bvh import align_builders
+from test_torch_compact import checked_at_full_width
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_jax_child import run_jax_side
 from test_torch_slice import _LOG, _jax_log, _recording_port_intersectors
@@ -418,6 +419,7 @@ def big_training_pair(big, raster: bool):
             mp.setattr(jax_raster, "raster_closest_hit", _logging_jax_raster(jax_raster.raster_closest_hit))
             mp.setattr(port_integrator, "make_intersectors",
                        _recording_port_intersectors(port_integrator.make_intersectors))
+            mp.setattr(port_frame, "trace_wavefront", checked_at_full_width(port_frame.trace_wavefront, _LOG["port"]))
             mp.setattr(port_frame, "raster_closest_hit", _logging_port_raster(port_frame.raster_closest_hit))
             mp.setattr(jax_frame, "assemble_training_batches",
                        _recording_jax_assemble(jax_frame.assemble_training_batches))

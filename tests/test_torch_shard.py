@@ -46,6 +46,7 @@ from nrc_tpu_torch.ops.hash_cuda import HashGridLookup
 from nrc_tpu_torch.parallel import shard as S
 from nrc_tpu_torch.render.renderer import Renderer
 from nrc_tpu_torch.scene.scene_builder import cornell_box
+from test_torch_compact import checked_at_full_width
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_jax_child import run_jax_side
 from torch_ranks import run_ranks
@@ -217,6 +218,7 @@ def bands_rank(rank, world, **jax_side):
 
     port_frame.assemble_training_batches = assemble_jax_batches
     port_integrator.make_intersectors = _recording_intersectors(log)
+    port_frame.trace_wavefront = checked_at_full_width(port_frame.trace_wavefront, log)
     for f in range(BAND_FRAMES):
         frame["index"] = f
         state = {k: jax_side[f"state.{f}.{k}"] for k in _STATE_KEYS + ["opt.step"]}

@@ -42,6 +42,7 @@ from nrc_tpu_torch.models.checkpoint import (
 )
 from nrc_tpu_torch.ops.encodings import level_block
 from nrc_tpu_torch.parallel import shard as S
+from test_torch_compact import checked_at_full_width
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_jax_child import run_jax_side
 from test_torch_shard import (
@@ -204,6 +205,7 @@ def resume_rank(rank, world, jax_file, out, **batch):
 
     port_frame.assemble_training_batches = assemble_jax_batches
     port_integrator.make_intersectors = _recording_intersectors(log)
+    port_frame.trace_wavefront = checked_at_full_width(port_frame.trace_wavefront, log)
     stats = r.render_frame()
     result = {"image": r.image.numpy().copy(), "loss": float(stats.loss), "records": int(stats.num_train_records)}
     result.update(N.state_to_numpy(r.net_state))

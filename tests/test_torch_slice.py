@@ -60,6 +60,7 @@ from nrc_tpu_torch.models.network import state_from_numpy
 from nrc_tpu_torch.ops.noise import bump_fields, noise_bump_normal
 from nrc_tpu_torch.render.renderer import Renderer
 from nrc_tpu_torch.scene.scene_builder import cornell_box
+from test_torch_compact import checked_at_full_width
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_scene import jax_cornell_scene
 
@@ -162,7 +163,7 @@ def recording_frames(jax_make_intersectors):
             mp.setattr(port_integrator, "make_intersectors",
                        _recording_port_intersectors(port_integrator.make_intersectors))
             mp.setattr(port_frame, "trace_wavefront",
-                       _recording(port_frame.trace_wavefront, "wavefront"))
+                       _recording(checked_at_full_width(port_frame.trace_wavefront, _LOG["port"]), "wavefront"))
             mp.setattr(port_network, "infer", _recording(port_network.infer, "cache"))
             yield mp
     finally:

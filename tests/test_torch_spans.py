@@ -123,40 +123,79 @@ def test_spans_change_no_result(encoding):
 def test_live_lanes_equal_a_count_of_each_bounces_alive_mask(monkeypatch, fixed_depth):
     """Beside the integrator, ``_all_done`` sees each bounce's ``alive``
     before the bounce (depth 0 starts with every lane alive): the live and
-    run lanes the report gives per wavefront and bounce are those counts. With
-    ``fixed_depth`` the loop runs every bounce, as on the card."""
-    seen = {}  # (lanes of the wavefront, depth) -> [live, run]
+    run lanes the report gives per wavefront and bounce are those counts.
+    The render wavefront's bounces 2.. run on its live lanes compacted into
+    ``compact_capacity`` lanes where they fit, which ``_all_done`` reads
+    first (a 0-d flag of an overflow): there the live lanes are the same
+    and the run lanes the capacity. With ``fixed_depth`` the loop runs every
+    bounce and reads nothing, as on the card, where a replay's IF node then
+    takes the compacted lanes too (``tests/test_torch_cuda.py``); here the
+    compaction is then off."""
+    seen = {}  # (wavefront, depth) -> [live, run]
     depth = {}
+    n_render, n_train = RES[0] * RES[1], (RES[0] // 8) * (RES[1] // 8)
+    cap = port_integrator.compact_capacity(n_render)
+    wavefront = {n_render: "render", cap: "render", n_train: "train"}
 
     def count(alive):
-        n = alive.numel()
-        d = depth[n] = depth.get(n, 0) + 1
+        if alive.dim() == 0:  # the compaction's read: do the live lanes fit?
+            return False if fixed_depth else not bool(alive.any())
+        w = wavefront[alive.numel()]
+        d = depth[w] = depth.get(w, 0) + 1
         done = False if fixed_depth else not bool(alive.any())
         if not done:
-            c = seen.setdefault((n, d), [0, 0])
+            c = seen.setdefault((w, d), [0, 0])
             c[0] += int(alive.sum())
-            c[1] += n
+            c[1] += alive.numel()
         return done
 
     monkeypatch.setattr(port_integrator, "_all_done", count)
     r = _renderer(True, adaptive_tiles=False)
+    lanes = {"render": r.cfg.num_pixels, "train": r.cfg.num_tiles}
+    assert lanes == {"render": n_render, "train": n_train} and cap < n_render
     for _ in range(3):
         depth.clear()
         r.render_frame()
-        for n in set(depth):  # depth 0
-            c = seen.setdefault((n, 0), [0, 0])
-            c[0] += n
-            c[1] += n
+        for w in depth:  # depth 0
+            c = seen.setdefault((w, 0), [0, 0])
+            c[0] += lanes[w]
+            c[1] += lanes[w]
     rep = r.span_report()
-    lanes = {"render": r.cfg.num_pixels, "train": r.cfg.num_tiles}
-    got = {(lanes[w], b["bounce"]): [b["live_lanes"], b["run_lanes"]] for w in lanes for b in rep["bounces"][w]}
+    got = {(w, b["bounce"]): [b["live_lanes"], b["run_lanes"]] for w in lanes for b in rep["bounces"][w]}
     assert got == seen
+    assert got[("render", 1)][1] == 3 * n_render
+    assert got[("render", 2)][1] == 3 * (n_render if fixed_depth else cap)
     if fixed_depth:
         assert len(got) == 2 * (r.cfg.max_depth + 1)
     live = sum(v[0] for v in seen.values())
     run = sum(v[1] for v in seen.values())
     assert rep["counters"]["live_lanes"] == live and rep["counters"]["run_lanes"] == run
     assert rep["metrics"]["integrator.live_lanes"] == 100.0 * live / run
+
+
+def test_compacted_share_counts_the_render_wavefronts_run_compacted(monkeypatch):
+    """``integrator.compacted_share``: of the render wavefronts, those whose
+    bounces 2.. ran on the compacted lanes. Two frames fit the capacity, a
+    third with the capacity cut under the live count runs every lane, and
+    NO_CACHE's wavefronts are never compacted."""
+    r = _renderer(True, adaptive_tiles=False)
+    r.render_frame()
+    r.render_frame()
+    monkeypatch.setattr(port_integrator, "compact_capacity", lambda n: 8)
+    r.render_frame()
+    rep = r.span_report()
+    assert rep["counters"]["render_wavefronts"] == 3 and rep["counters"]["compacted_wavefronts"] == 2
+    assert rep["metrics"]["integrator.compacted_share"] == pytest.approx(200.0 / 3, rel=1e-12)
+    render = {b["bounce"]: b["run_lanes"] for b in rep["bounces"]["render"]}
+    assert render[2] == 2 * 256 + RES[0] * RES[1]
+    r.spans.reset()
+    assert r.span_report()["metrics"]["integrator.compacted_share"] is None
+    scene, system = cornell_box(RES)
+    nc = Renderer(scene, dataclasses.replace(system, tile_size=(8, 8)), render_mode=RenderMode.NO_CACHE,
+                  train=False, device="cpu", spans=True)
+    nc.render_frame()
+    rep = nc.span_report()
+    assert rep["counters"]["render_wavefronts"] == 1 and rep["metrics"]["integrator.compacted_share"] == 0.0
 
 
 def test_device_spans_tile_the_frame_in_frame_step_order(monkeypatch):
@@ -233,7 +272,7 @@ def test_gaps_are_charged_to_the_innermost_host_span():
     frame's last stamp to the next frame's first goes to the innermost host
     span open at its middle, or to none."""
     rec = S.SpanRecorder(torch.device("cpu"), torch.zeros((), dtype=torch.int64))
-    layout = (S.Slot("frame.primary"), S.Slot("render.bounce0", "frame.primary", 0, 0, 10), S.Slot("frame.end"))
+    layout = (S.Slot("frame.primary"), S.Slot("render.bounce0", "frame.primary", 0, 0), S.Slot("frame.end"))
     rec.layout = layout
     # frames 0-2 at [100, 160, 200], [300, 330, 400], [1000, 1010, 1100] ns
     for f, row in enumerate(([100, 160, 200], [300, 330, 400], [1000, 1010, 1100])):
@@ -246,8 +285,9 @@ def test_gaps_are_charged_to_the_innermost_host_span():
                                            "inner": {"gaps": 1, "total_ms": 100e-6}}
     assert rep["metrics"]["renderer.gap_ms"] == pytest.approx(350e-6)
     assert rep["device_spans"]["frame.primary"]["mean_ms"] == pytest.approx(100e-6)
+    # the lanes are the device's counts, which no bounce of these frames added to
     assert rep["bounces"]["render"] == [{"bounce": 0, "device_ms": pytest.approx(200e-6 / 3), "live_lanes": 0,
-                                         "run_lanes": 30}]
+                                         "run_lanes": 0}]
     assert rep["window_ms"] == pytest.approx(1000e-6) and rep["frames_ms"] == pytest.approx(300e-6)
     rec.host.clear()
     assert rec.report()["gaps"]["by_host_span"] == {S.NO_HOST_SPAN: {"gaps": 2, "total_ms": 700e-6}}
@@ -257,8 +297,8 @@ def test_with_the_spans_off_nothing_of_the_recorder_runs(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a recorder method ran with the spans off")
 
-    for name in ("__init__", "reset", "span", "open_frame", "stamp", "bounce", "close_frame", "frame_done",
-                 "count_records", "calibrate", "report"):
+    for name in ("__init__", "reset", "span", "open_frame", "stamp", "bounce", "render_wavefront", "slots",
+                 "rewind", "rejoin", "close_frame", "frame_done", "count_records", "calibrate", "report"):
         monkeypatch.setattr(S.SpanRecorder, name, refuse)
     r = _renderer(False)
     for _ in range(3):

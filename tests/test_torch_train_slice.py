@@ -34,6 +34,7 @@ from nrc_tpu_torch.models import network as N
 from nrc_tpu_torch.render.renderer import Renderer
 from nrc_tpu_torch.scene.scene_builder import cornell_box
 from test_torch_scene import jax_cornell_scene
+from test_torch_compact import checked_at_full_width
 from test_torch_intersect import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_slice import (
     _LOG,
@@ -87,6 +88,7 @@ def training_pair(jax_make_intersectors, attach=None):
             mp.setattr(jax_integrator, "make_intersectors", jax_make_intersectors)
             mp.setattr(port_integrator, "make_intersectors",
                        _recording_port_intersectors(port_integrator.make_intersectors))
+            mp.setattr(port_frame, "trace_wavefront", checked_at_full_width(port_frame.trace_wavefront, _LOG["port"]))
             mp.setattr(jax_frame, "assemble_training_batches",
                        _recording_jax_assemble(jax_frame.assemble_training_batches))
             mp.setattr(port_frame, "assemble_training_batches",
